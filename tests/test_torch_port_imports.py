@@ -1,0 +1,118 @@
+"""The PyTorch port stands alone: importing it pulls in neither JAX nor the
+JAX package, its entry points refuse to run on a missing GPU unless asked
+for the CPU, and its copies of the constant builders equal the originals."""
+
+import dataclasses
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import mfcc_rust_tpu as m
+from mfcc_rust_tpu import constants as jc
+from mfcc_rust_tpu.ops.pallas import speechpy_mfcc as jk
+
+import mfcc_rust_tpu_torch as P
+from mfcc_rust_tpu_torch import constants as pc
+from mfcc_rust_tpu_torch.ops.cuda import speechpy_mfcc as pk
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_import_pulls_in_no_jax_and_needs_cuda_by_default():
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import torch
+        import mfcc_rust_tpu_torch as P
+        import mfcc_rust_tpu_torch.models, mfcc_rust_tpu_torch.ops.cuda.build
+        bad = [k for k in sys.modules
+               if k.split('.')[0] in ('jax', 'jaxlib', 'mfcc_rust_tpu')]
+        assert not bad, bad
+        assert not torch.cuda.is_available()
+        x = np.zeros(16000, np.float32)
+        for fn in (P.mfcc, P.mfe, P.lmfe):
+            try:
+                fn(x, 16000)
+            except RuntimeError as e:
+                assert "CUDA" in str(e)
+            else:
+                raise AssertionError(fn.__name__ + " ran without CUDA")
+        try:
+            P.MFCCPipeline(P.speechpy_config(16000))
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError("pipeline built without CUDA")
+        assert P.mfcc(x, 16000, device="cpu").shape == (98, 13)
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120,
+                         env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_port_sources_name_no_jax():
+    files = list((ROOT / "mfcc_rust_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for f in files:
+        for line in f.read_text().splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                mod = s.split()[1].split(".")[0]
+                assert mod not in ("jax", "jaxlib", "mfcc_rust_tpu"), (f, s)
+
+
+PRESETS = [
+    ("speechpy 20/10", m.speechpy_config(16000)),
+    ("speechpy 25/10", m.speechpy_config(16000, frame_length=0.025)),
+    ("speechpy 10/10", m.speechpy_config(16000, frame_length=0.01)),
+    ("speechpy 8k 1024", m.speechpy_config(8000, fft_points=1024, num_filters=26,
+                                           low_frequency=100.0, high_frequency=3000.0)),
+    ("speechpy hann", m.speechpy_config(16000, window="hann")),
+    ("librosa 22050/2048", m.librosa_config()),
+    ("librosa 16k 512/160", m.librosa_config(16000, n_fft=512, hop_length=160, n_mels=80)),
+    ("vorbis 48k", m.vorbis_config(48000, fft_points=960, frame_length=0.01)),
+]
+
+
+@pytest.mark.parametrize("name,cfg", PRESETS, ids=[p[0] for p in PRESETS])
+def test_constants_equal_reference(name, cfg):
+    pcfg = P.from_reference(dataclasses.asdict(cfg))
+    assert dataclasses.asdict(pcfg) == dataclasses.asdict(cfg)
+    jb, pb = jc.constant_bundle(cfg), pc.constant_bundle(pcfg)
+    assert jb.keys() == pb.keys()
+    for k in jb:
+        a, b = jb[k], pb[k]
+        if isinstance(a, tuple):
+            assert all(np.array_equal(x, y) for x, y in zip(a, b)), k
+        else:
+            assert np.array_equal(a, b), k
+    if cfg.frame_size >= cfg.frame_step:
+        for want_energy in (True, False):
+            jw, pw = jc.chunk_gemm_wall(cfg, want_energy), pc.chunk_gemm_wall(pcfg, want_energy)
+            assert jw.keys() == pw.keys()
+            assert all(np.array_equal(jw[k], pw[k]) for k in jw), name
+    if cfg.window == "vorbis":
+        jv, pv = jc.vorbis_chunk_wall(cfg), pc.vorbis_chunk_wall(pcfg)
+        assert all(np.array_equal(jv[k], pv[k]) for k in jv)
+    if jk.mfcc_pallas_supported(cfg):
+        for a, b in zip(jk._mfcc_constants(cfg), pk._mfcc_constants(pcfg)):
+            assert np.array_equal(a, b), name
+
+
+def test_from_reference_rejects_unknown_fields():
+    d = dataclasses.asdict(m.speechpy_config(16000))
+    d["mxu_passes"] = 3
+    with pytest.raises(ValueError):
+        P.from_reference(d)
+
+
+def test_builder_matches_reference():
+    jb = m.SpeechConfigBuilder(16000).fft_points(1024).num_cepstral(20).window("hann").build()
+    pb = P.SpeechConfigBuilder(16000).fft_points(1024).num_cepstral(20).window("hann").build()
+    assert dataclasses.asdict(jb) == dataclasses.asdict(pb)
+    assert (pb.frame_size, pb.frame_step, pb.freq_size) == (jb.frame_size, jb.frame_step, jb.freq_size)
