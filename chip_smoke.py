@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``mfcc_rust_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--out DIR]
 
 Builds the port's kernels from the sources in this checkout, drives the main
 path (``mfcc_rust_tpu_torch.mfcc`` on a B=48 x 10 s batch at 16 kHz, the
@@ -16,12 +16,13 @@ version and the unfused chunk-GEMM path with CUDA events.
 Any failed check raises, so the exit code is not 0.  Without a CUDA device
 it exits 1 before printing any result.  The last lines are the card's
 ``nvidia-smi`` name and power limit, one ``{"kernels": [...]}`` JSON line,
-and ``{"ok": true, "device": {...}}``.  The full record also goes to
-``chiprun_out/chip_smoke.json``.
+and ``{"ok": true, "device": {...}}``.  With ``--out DIR`` the full
+record (every timing sample) also goes to ``DIR/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -81,6 +82,9 @@ def cuda_ms(torch, fn, reps: int, flush) -> list:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", type=Path, help="directory for chip_smoke.json")
+    args = ap.parse_args()
     import numpy as np
     import torch
 
@@ -115,8 +119,8 @@ def main() -> int:
     m, c = cfg.num_filters, cfg.num_cepstral
     for mc in (cfg, cfg.replace(frame_length=0.025), cfg.replace(fft_points=1024)):
         wc, _, _, _, rc, hc, _ = k1._mfcc_constants(mc)
-        assert lib.mfcc_fused_smem_bytes(hc, rc, mc.num_filters) == \
-            k1.smem_bytes(hc, rc, mc.num_filters), "smem mirror"
+        assert lib.mfcc_fused_smem_bytes(hc, rc, mc.num_filters, wc.shape[1]) == \
+            k1.smem_bytes(hc, rc, mc.num_filters, wc.shape[1]), "smem mirror"
 
     # ------------------------------------------------------ main path, once --
     rng = np.random.default_rng(0)
@@ -153,6 +157,7 @@ def main() -> int:
         ("10/10 r=1", cfg.replace(frame_length=0.01), (2, 16000)),
         ("dc_elimination=False", cfg.replace(dc_elimination=False), (2, 16000)),
         ("preemphasis 0.97", cfg.replace(preemphasis_cof=0.97), (2, 16000)),
+        ("fft 1024, W > 288 in two passes", cfg.replace(fft_points=1024), (2, 16000)),
         ("batched 3-D", cfg, (2, 3, 8000)),
         ("T < fl", cfg, (300,)),
     ]
@@ -253,9 +258,9 @@ def main() -> int:
         "times_ms": times, "median_ms": med, "flops": flops, "bytes": nbytes,
         "clocks": clocks, "kernels": kernels,
     })
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    if args.out is not None:
+        args.out.mkdir(parents=True, exist_ok=True)
+        (args.out / "chip_smoke.json").write_text(json.dumps(record, indent=1))
 
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -26,7 +26,6 @@ import torch.nn.functional as tF
 from .config import FeatureConfig, fp32_matmul
 from .constants import chunk_gemm_wall, constant_bundle
 from .ops import framing as _framing
-from .ops.cuda.speechpy_mfcc import mfcc_fused, mfcc_kernel_supported
 from .ops.dct import dct2_ortho
 from .ops.mel import apply_filterbank
 from .ops.spectrum import power_spectrum, resolve_fft_impl, zero_handling
@@ -245,8 +244,11 @@ def mfcc(signal: torch.Tensor, cfg: FeatureConfig,
     """MFCC with the orthonormal DCT-II: (..., T) -> (..., F, num_cepstral).
     On a CUDA float32 tensor, with ``cfg.pallas != "off"`` and a config the
     kernel takes, this is one launch of the fused kernel."""
-    if signal.is_cuda and _speechpy_kernel_ok(cfg, signal):
-        return _MFCCKernel.apply(signal, cfg, consts)
+    if signal.is_cuda and cfg.pallas != "off" and signal.dtype == torch.float32:
+        from .ops.cuda.speechpy_mfcc import mfcc_kernel_supported
+
+        if mfcc_kernel_supported(cfg):
+            return _MFCCKernel.apply(signal, cfg, consts)
     feats, energy = mfe(signal, cfg, consts)
     feats = torch.log(feats)
     if consts is None:
@@ -259,17 +261,14 @@ def mfcc(signal: torch.Tensor, cfg: FeatureConfig,
     return out
 
 
-def _speechpy_kernel_ok(cfg: FeatureConfig, signal: torch.Tensor) -> bool:
-    return (cfg.pallas != "off" and signal.dtype == torch.float32
-            and mfcc_kernel_supported(cfg))
-
-
 class _MFCCKernel(torch.autograd.Function):
     """The fused kernel forward; the backward recomputes through the plain
     chunk-GEMM path, which computes the same function."""
 
     @staticmethod
     def forward(ctx, signal, cfg, consts):
+        from .ops.cuda.speechpy_mfcc import mfcc_fused
+
         ctx.cfg = cfg
         ctx.consts = consts
         ctx.save_for_backward(signal)

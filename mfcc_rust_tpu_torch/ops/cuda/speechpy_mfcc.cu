@@ -25,6 +25,10 @@
 // warp-wide broadcast from shared memory and the wall operand a
 // conflict-free row read.  The wall streams through shared memory KT rows
 // at a time.  W > 288 takes several passes, each adding its share of P.
+// Each warp projects its own frames' y*y onto P, so the projection needs no
+// block-wide barrier; when one pass covers W, y*y reuses the space of the
+// signal and wall tiles, which keeps a block near 90 KB at the default
+// config and lets two blocks (16 warps) share an SM.
 //
 // The C interface is loaded with ctypes (ops/cuda/speechpy_mfcc.py): it
 // launches on the caller's stream, allocates nothing and returns the CUDA
@@ -43,27 +47,47 @@ constexpr int kTileK = 32;                 // wall rows staged per step
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxSmem = 232448;           // 227 KB, the per-block limit
 
-// floats of dynamic shared memory; ops/cuda/speechpy_mfcc.py mirrors it
-inline long long smem_floats(int hop, int r, int m) {
-  return (long long)(kTileF + r - 1) * hop + (long long)kTileK * kPassW +
-         (long long)kTileF * kPassW + (long long)kTileF * (m + 1) + kTileF;
-}
+__host__ __device__ inline long long round4(long long n) { return (n + 3) / 4 * 4; }
 
-__global__ void __launch_bounds__(kThreads)
+// Shared-memory layout in floats: [slab | wall tile] (or y*y over both when
+// one pass covers W), then y*y of a pass (several passes), P, s2.
+struct Layout {
+  long long slab, ysq, pacc, s2, total;
+  __host__ __device__ Layout(int hop, int r, int m, int w) {
+    const long long slab_len = round4((long long)(kTileF + r - 1) * hop);
+    const long long stage = slab_len + (long long)kTileK * kPassW;
+    const long long ysq_len = (long long)kTileF * kPassW;
+    slab = 0;
+    long long body;
+    if (w <= kPassW) {
+      ysq = 0;
+      body = stage > ysq_len ? stage : ysq_len;
+    } else {
+      ysq = stage;
+      body = stage + ysq_len;
+    }
+    pacc = body;
+    s2 = pacc + round4((long long)kTileF * (m + 1));
+    total = s2 + kTileF;
+  }
+};
+
+__global__ void __launch_bounds__(kThreads, 2)
 mfcc_fused_kernel(const float* __restrict__ sig, const float* __restrict__ wall,
                   const float* __restrict__ proj, const float* __restrict__ dct,
                   float* __restrict__ out, long long T, int F, int hop, int r,
                   int fl, int W, int M, int C, int n_fft, int dc_elim,
                   float eps) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
+  const Layout lay(hop, r, M, W);
   const int K = r * hop;
   const int M1 = M + 1;
   const int slab_len = (kTileF + r - 1) * hop;
-  float* slab = smem;                       // (TF + r - 1) * hop samples
-  float* wt = slab + slab_len;              // kTileK x kPassW wall rows
-  float* ysq = wt + kTileK * kPassW;        // TF x kPassW, y*y of a pass
-  float* pacc = ysq + kTileF * kPassW;      // TF x (M+1), P
-  float* s2 = pacc + kTileF * M1;           // TF, sum of squares
+  float* slab = smem + lay.slab;           // (TF + r - 1) * hop samples
+  float* wt = slab + round4(slab_len);     // kTileK x kPassW wall rows
+  float* ysq = smem + lay.ysq;             // per warp: kPassW x 8 frames
+  float* pacc = smem + lay.pacc;           // TF x (M+1), P
+  float* s2 = smem + lay.s2;               // TF, sum of squares
 
   const int n_tiles = (F + kTileF - 1) / kTileF;
   const int b = blockIdx.x / n_tiles;
@@ -77,7 +101,7 @@ mfcc_fused_kernel(const float* __restrict__ sig, const float* __restrict__ wall,
 
   // samples past the end of the signal read as zeros: they only reach
   // frames past F (not written) or zero wall rows (hop-misaligned frames)
-  for (int i = tid; i < slab_len; i += kThreads) slab[i] = i < avail ? x[i] : 0.f;
+  for (int i = tid; i < slab_len; i += kThreads) slab[i] = i < avail ? __ldg(x + i) : 0.f;
   for (int i = tid; i < kTileF * M1; i += kThreads) pacc[i] = 0.f;
   __syncthreads();
 
@@ -93,6 +117,7 @@ mfcc_fused_kernel(const float* __restrict__ sig, const float* __restrict__ wall,
   }
 
   const float* xw = slab + warp * kFramesPerWarp * hop;
+  float* yw = ysq + warp * kFramesPerWarp * kPassW;  // this warp's y*y
   for (int c0 = 0; c0 < W; c0 += kPassW) {
     float acc[kFramesPerWarp][kColsPerLane];
 #pragma unroll
@@ -102,13 +127,16 @@ mfcc_fused_kernel(const float* __restrict__ sig, const float* __restrict__ wall,
 
     for (int k0 = 0; k0 < K; k0 += kTileK) {
       const int kn = min(kTileK, K - k0);
-      __syncthreads();  // the previous tile (and pass) is consumed
-      for (int i = tid; i < kTileK * kPassW; i += kThreads) {
-        const int kk = i / kPassW;
-        const int c = i - kk * kPassW;
-        wt[i] = (kk < kn && c0 + c < W) ? wall[(long long)(k0 + kk) * W + c0 + c] : 0.f;
+      __syncthreads();  // the previous wall tile is consumed
+      for (int kk = warp; kk < kTileK; kk += kWarps) {
+        float* dst = wt + kk * kPassW;
+        for (int c = lane; c < kPassW; c += 32)
+          dst[c] = (kk < kn && c0 + c < W)
+                       ? __ldg(wall + (long long)(k0 + kk) * W + c0 + c)
+                       : 0.f;
       }
       __syncthreads();
+#pragma unroll 4
       for (int kk = 0; kk < kn; ++kk) {
         float a[kFramesPerWarp];
         float w[kColsPerLane];
@@ -122,23 +150,52 @@ mfcc_fused_kernel(const float* __restrict__ sig, const float* __restrict__ wall,
           for (int j = 0; j < kColsPerLane; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
       }
     }
-    // y*y of this pass; columns past W are zero (their wall columns were)
+    // y*y of this pass, column-major over the warp's 8 frames; columns past
+    // W are zero (their wall columns were).  With one pass it overwrites
+    // the signal and wall tiles, so every warp must be done with them.
+    if (W <= kPassW) __syncthreads();
 #pragma unroll
-    for (int i = 0; i < kFramesPerWarp; ++i)
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j)
-        ysq[(warp * kFramesPerWarp + i) * kPassW + lane + 32 * j] = acc[i][j] * acc[i][j];
-    __syncthreads();
-    // P += (y*y) @ proj over this pass's columns; each P entry has one owner
+    for (int j = 0; j < kColsPerLane; ++j) {
+      float* d = yw + (lane + 32 * j) * kFramesPerWarp;
+      *reinterpret_cast<float4*>(d) =
+          make_float4(acc[0][j] * acc[0][j], acc[1][j] * acc[1][j],
+                      acc[2][j] * acc[2][j], acc[3][j] * acc[3][j]);
+      *reinterpret_cast<float4*>(d + 4) =
+          make_float4(acc[4][j] * acc[4][j], acc[5][j] * acc[5][j],
+                      acc[6][j] * acc[6][j], acc[7][j] * acc[7][j]);
+    }
+    __syncwarp();
+    // P[warp's frames, j] += (y*y) @ proj over this pass's columns; lane l
+    // owns the P columns l and l + 32 (M + 1 <= 64) or loops for more
     const int wn = min(kPassW, W - c0);
-    for (int o = tid; o < kTileF * M1; o += kThreads) {
-      const int f = o / M1;
-      const int j = o - f * M1;
-      const float* yr = ysq + f * kPassW;
-      const float* pr = proj + (long long)c0 * M1 + j;
-      float p = pacc[o];
-      for (int c = 0; c < wn; ++c) p = fmaf(yr[c], __ldg(pr + (long long)c * M1), p);
-      pacc[o] = p;
+    for (int j0 = 0; j0 < M1; j0 += 64) {
+      const int ja = j0 + lane;
+      const int jb = j0 + 32 + lane;
+      const bool oka = ja < M1;
+      const bool okb = jb < M1;
+      float pa[kFramesPerWarp], pb[kFramesPerWarp];
+#pragma unroll
+      for (int i = 0; i < kFramesPerWarp; ++i) pa[i] = pb[i] = 0.f;
+      const float* pr = proj + (long long)c0 * M1;
+#pragma unroll 2
+      for (int c = 0; c < wn; ++c) {
+        const float va = oka ? __ldg(pr + (long long)c * M1 + ja) : 0.f;
+        const float vb = okb ? __ldg(pr + (long long)c * M1 + jb) : 0.f;
+        const float4 y0 = *reinterpret_cast<const float4*>(yw + c * kFramesPerWarp);
+        const float4 y1 = *reinterpret_cast<const float4*>(yw + c * kFramesPerWarp + 4);
+        const float yv[kFramesPerWarp] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+        for (int i = 0; i < kFramesPerWarp; ++i) {
+          pa[i] = fmaf(yv[i], va, pa[i]);
+          pb[i] = fmaf(yv[i], vb, pb[i]);
+        }
+      }
+      float* prow = pacc + warp * kFramesPerWarp * M1;
+#pragma unroll
+      for (int i = 0; i < kFramesPerWarp; ++i) {
+        if (oka) prow[i * M1 + ja] += pa[i];
+        if (okb) prow[i * M1 + jb] += pb[i];
+      }
     }
   }
   __syncthreads();
@@ -173,8 +230,8 @@ mfcc_fused_kernel(const float* __restrict__ sig, const float* __restrict__ wall,
 
 }  // namespace
 
-extern "C" long long mfcc_fused_smem_bytes(int hop, int r, int m) {
-  return smem_floats(hop, r, m) * (long long)sizeof(float);
+extern "C" long long mfcc_fused_smem_bytes(int hop, int r, int m, int w) {
+  return Layout(hop, r, m, w).total * (long long)sizeof(float);
 }
 
 // sig (B, T), wall (r*hop, W), proj (W, M+1), dct (M, C), out (B, F, C):
@@ -185,7 +242,7 @@ extern "C" int mfcc_fused_launch(const float* sig, const float* wall,
                                  int hop, int r, int fl, int W, int M, int C,
                                  int n_fft, int dc_elim, float eps,
                                  void* stream) {
-  const long long smem = mfcc_fused_smem_bytes(hop, r, M);
+  const long long smem = mfcc_fused_smem_bytes(hop, r, M, W);
   const long long blocks = (long long)B * ((F + kTileF - 1) / kTileF);
   if (smem > kMaxSmem || B <= 0 || F <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(

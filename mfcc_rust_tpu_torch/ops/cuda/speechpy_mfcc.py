@@ -22,7 +22,9 @@ import numpy as np
 import torch
 import torch.nn.functional as tF
 
+from ... import features as _F
 from ...config import FeatureConfig, fp32_matmul
+from ...constants import chunk_gemm_wall, constant_bundle
 from ..spectrum import resolve_fft_impl, zero_handling
 
 KERNEL = "speechpy_mfcc"
@@ -31,19 +33,22 @@ KERNEL = "speechpy_mfcc"
 _TILE_F, _TILE_K, _PASS_W, _MAX_SMEM = 64, 32, 288, 232448
 
 
-def smem_bytes(hop: int, r: int, m: int) -> int:
-    """Dynamic shared memory of one block (``smem_floats`` in the .cu)."""
-    return 4 * ((_TILE_F + r - 1) * hop + _TILE_K * _PASS_W + _TILE_F * _PASS_W
-                + _TILE_F * (m + 1) + _TILE_F)
+def smem_bytes(hop: int, r: int, m: int, w: int) -> int:
+    """Dynamic shared memory of one block (``Layout`` in the .cu): the
+    signal slab and a wall tile, y*y of a pass (over the first two when
+    one pass covers the W wall columns), P and the sums of squares."""
+    round4 = lambda n: -(-n // 4) * 4
+    stage = round4((_TILE_F + r - 1) * hop) + _TILE_K * _PASS_W
+    ysq = _TILE_F * _PASS_W
+    body = max(stage, ysq) if w <= _PASS_W else stage + ysq
+    return 4 * (body + round4(_TILE_F * (m + 1)) + _TILE_F)
 
 
 def mfcc_kernel_supported(cfg: FeatureConfig) -> bool:
     """Rect-window speechpy framing on the chunk-GEMM fast path, f32,
     bounded r, an even fft, and a tile that fits in shared memory.  (The
     TPU kernel's num_filters <= 127 lane bound does not apply here.)"""
-    from ...features import _chunk_r
-
-    r = _chunk_r(cfg)
+    r = _F._chunk_r(cfg)
     return (
         cfg.window == "rect"
         and cfg.dtype == "float32"
@@ -52,7 +57,8 @@ def mfcc_kernel_supported(cfg: FeatureConfig) -> bool:
         and cfg.fft_points % 2 == 0
         and resolve_fft_impl(cfg) == "matmul"
         and cfg.num_cepstral <= cfg.num_filters
-        and smem_bytes(cfg.frame_step, r, cfg.num_filters) <= _MAX_SMEM
+        and smem_bytes(cfg.frame_step, r, cfg.num_filters,
+                       2 * constant_bundle(cfg)["fbank_kmax"] + 2) <= _MAX_SMEM
     )
 
 
@@ -62,14 +68,11 @@ def _mfcc_constants(cfg: FeatureConfig):
     (W, M+1), dct (M, C), emask (1, r*hop) (1.0 on the first frame_size
     lanes), and r, hop, fl.  The kernel's emask is the bound ``k < fl`` of
     its sum of squares."""
-    from ...constants import chunk_gemm_wall, constant_bundle
-    from ...features import _projection
-
     wd = chunk_gemm_wall(cfg, True)
     emask = np.zeros((1, wd["r"] * wd["hop"]))
     emask[0, : wd["fl"]] = 1.0
     f32 = lambda x: np.ascontiguousarray(x, np.float32)
-    return (f32(wd["wall"]), f32(_projection(cfg)), f32(constant_bundle(cfg)["dct"]),
+    return (f32(wd["wall"]), f32(_F._projection(cfg)), f32(constant_bundle(cfg)["dct"]),
             f32(emask), wd["r"], wd["hop"], wd["fl"])
 
 
@@ -78,20 +81,12 @@ def _shape(cfg: FeatureConfig, wall: torch.Tensor):
     return wall.shape[0] // hop, hop, cfg.frame_size
 
 
-def _constants(cfg: FeatureConfig, x: torch.Tensor, consts: Optional[dict]) -> dict:
-    if consts is not None:
-        return consts
-    from ...features import _speechpy_tensors
-
-    return _speechpy_tensors(cfg, x.device, x.dtype)
-
-
 @fp32_matmul()
 def mfcc_fused_plain(signal: torch.Tensor, cfg: FeatureConfig,
                      consts: Optional[dict] = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: (..., T) -> (..., F, C) with
     F = (T - fl) // hop (0 when T < fl).  Preemphasis is the caller's."""
-    c = _constants(cfg, signal, consts)
+    c = _F._consts(cfg, signal, consts)
     r, hop, fl = _shape(cfg, c["wall"])
     n, m = cfg.fft_points, cfg.num_filters
     count = max((signal.shape[-1] - fl) // hop, 0)
@@ -121,7 +116,7 @@ def _lib() -> ctypes.CDLL:
     lib.mfcc_fused_launch.argtypes = [p, p, p, p, p, i, ctypes.c_longlong, i, i, i,
                                       i, i, i, i, i, i, ctypes.c_float, p]
     lib.mfcc_fused_launch.restype = i
-    lib.mfcc_fused_smem_bytes.argtypes = [i, i, i]
+    lib.mfcc_fused_smem_bytes.argtypes = [i, i, i, i]
     lib.mfcc_fused_smem_bytes.restype = ctypes.c_longlong
     lib.mfcc_cuda_error_string.argtypes = [i]
     lib.mfcc_cuda_error_string.restype = ctypes.c_char_p
@@ -139,12 +134,17 @@ def mfcc_fused(signal: torch.Tensor, cfg: FeatureConfig,
         return mfcc_fused_plain(signal, cfg, consts)
     if signal.dtype != torch.float32:
         raise TypeError(f"the fused MFCC kernel takes float32, got {signal.dtype}")
-    c = _constants(cfg, signal, consts)
+    c = _F._consts(cfg, signal, consts)
     wall, proj, dct = (c[k] for k in ("wall", "proj", "dct"))
     for name, t in (("wall", wall), ("proj", proj), ("dct", dct)):
         if t.device != signal.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32 on {signal.device}")
     r, hop, fl = _shape(cfg, wall)
+    m, w = cfg.num_filters, wall.shape[1]
+    if (wall.shape[0] != r * hop or proj.shape != (w, m + 1)
+            or dct.shape != (m, cfg.num_cepstral)):
+        raise ValueError(f"constant shapes {tuple(wall.shape)}, {tuple(proj.shape)}, "
+                         f"{tuple(dct.shape)} do not match the config")
     lead, t = signal.shape[:-1], signal.shape[-1]
     x = signal.reshape(-1, t).contiguous()
     count = max((t - fl) // hop, 0)

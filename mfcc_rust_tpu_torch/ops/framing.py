@@ -10,7 +10,6 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as tF
 
@@ -37,14 +36,6 @@ def speechpy_frame_counts(
         num = int(math.floor((length - frame_len) / frame_step))
         eff = (num - 1) * frame_step + frame_len
     return num, eff
-
-
-def frame_indices(num_frames: int, frame_len: int, frame_step: int) -> np.ndarray:
-    """(num_frames, frame_len) sample index matrix."""
-    return (
-        np.arange(num_frames, dtype=np.int64)[:, None] * frame_step
-        + np.arange(frame_len, dtype=np.int64)[None, :]
-    )
 
 
 def frame_signal(

@@ -27,6 +27,7 @@ CONFIGS = [
     ("batched 3-D", {}, (2, 2, 4000)),
     ("T < fl", {}, (300,)),
     ("128 mels", {"num_filters": 128, "num_cepstral": 40}, (2, 8000)),
+    ("fft 1024, two passes", {"fft_points": 1024}, (2, 8000)),
 ]
 
 

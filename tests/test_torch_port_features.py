@@ -193,3 +193,23 @@ def test_grad_matches_jax():
     px.requires_grad_(True)
     PF.mfcc(px, pcfg).sum().backward()
     assert rel(px.grad, gj) <= 1e-9
+
+
+def test_bucketing_and_mel_orientation_match_jax():
+    from mfcc_rust_tpu.ops import mel as jmel
+    from mfcc_rust_tpu.utils import bucketing as jb
+
+    from mfcc_rust_tpu_torch.ops import mel as pmel
+    from mfcc_rust_tpu_torch.utils import bucketing as pb
+
+    for n in (1, 2048, 2049, 12345, 160000, 177664, 10**7):
+        assert pb.bucket_length(n) == jb.bucket_length(n)
+    x = np.ones((2, 3000))
+    (pa, na), (ja, nb) = pb.pad_to_bucket(x), jb.pad_to_bucket(x)
+    assert na == nb and np.array_equal(pa, ja)
+    lengths = [100, 5000, 2100, 2047, 90000, 5001, 3]
+    assert pb.bucket_batch(lengths, 2) == jb.bucket_batch(lengths, 2)
+    cfg = m.speechpy_config(16000, dtype="float64")
+    power = np.random.default_rng(10).random((2, 7, cfg.freq_size))
+    got = pmel.mel_project_time_major(torch.from_numpy(power), P.from_reference(dataclasses.asdict(cfg)))
+    assert rel(got, jmel.mel_project_time_major(jnp.asarray(power), cfg)) <= 1e-12
