@@ -3,15 +3,22 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Builds the port's kernels from the sources in this checkout, drives the main
-path (``mfcc_rust_tpu_torch.mfcc`` on a B=48 x 10 s batch at 16 kHz, the
-speechpy MFCC-13 default) once with every launch count set to 0, and fails
-unless each kernel of that path launched.  Then it holds each kernel to its
-plain PyTorch version on the card (rel-err <= 1e-4: the kernel sums in
-another order than cuBLAS), the main path to the float64 speechpy oracle of
-``tests/golden/speechpy_ref.py`` (<= 5e-3, the reference's float32 gate),
-the autograd gradient to the plain path's, and times the kernel, its plain
-version and the unfused chunk-GEMM path with CUDA events.
+Builds the port's kernels from the sources in this checkout (one nvcc per
+source, all at once) and drives each of the port's two paths once with every
+launch count set to 0, failing unless the path's kernel launched:
+
+* speechpy: ``mfcc_rust_tpu_torch.mfcc`` on a B=48 x 10 s batch at 16 kHz
+  (the MFCC-13 default) through kernel K1, ``speechpy_mfcc``;
+* librosa: ``mfcc_rust_tpu_torch.mel_spectrogram_librosa`` on B=32 x 10 s at
+  22,050 Hz (n_fft 2048, hop 512, 128 slaney mels) through kernel K2,
+  ``ct_mel``, then ``log_mel_spectrogram`` and ``mfcc_librosa``.
+
+Then it holds each kernel to its plain PyTorch version on the card
+(max|Δ|/max|ref| <= 1e-4: the kernels sum in another order than cuBLAS, and
+K2 factors the FFT otherwise), each path to its float64 oracle in
+``tests/golden/`` at the reference's float32 gate, the autograd gradients to
+the plain paths', and times each kernel, its plain version and a yardstick
+with CUDA events after an L2 flush.
 
 Any failed check raises, so the exit code is not 0.  Without a CUDA device
 it exits 1 before printing any result.  The last lines are the card's
@@ -81,6 +88,219 @@ def cuda_ms(torch, fn, reps: int, flush) -> list:
     return out
 
 
+L_BATCH, L_RATE = 32, 22050
+
+
+def k2_work(k2, cfg, batch: int, t: int) -> tuple:
+    """(operations, bytes) of one ct_mel call on (batch, t) uncentred
+    samples, counted from K2's own design (ct_mel.cu), a multiply-add as
+    two: the window, the Stockham stages (a twiddle only where k != 0), the
+    real split and power of the kmax bins the filterbank needs, and the
+    projection over each filter's nonzero bins; every input read once, the
+    output written once."""
+    n, hop, m = cfg.fft_points, cfg.frame_step, cfg.num_filters
+    nc = n // 2
+    m_odd, n4, has2 = k2.fft_plan(n)
+    _, _, wpack, _, kmax = k2._kernel_constants(cfg)
+    frames = batch * (1 + (t - n) // hop)
+    per_frame, ns = float(n), 1
+    if m_odd > 1:
+        per_frame += 8.0 * nc * m_odd  # complex multiply-add per term
+        ns *= m_odd
+    for radix in [4] * n4 + [2] * has2:
+        twiddled = (ns - 1) / ns  # butterflies with k = j % ns != 0
+        per_frame += nc / radix * (2.0 * radix * (radix // 2) + 6.0 * (radix - 1) * twiddled)
+        ns *= radix
+    per_frame += 19.0 * kmax + 2.0 * wpack.size
+    nbytes = 4.0 * (batch * t + frames * m + 3 * n + wpack.size) + 12.0 * m
+    return frames * per_frame, nbytes
+
+
+def librosa_phase(np, torch, P, k1, k2, flush) -> tuple:
+    """The librosa path and kernel K2: main path, checks, times.  Returns
+    (K2's entry of the kernels line, the record)."""
+    from mfcc_rust_tpu_torch import api as PA
+    from mfcc_rust_tpu_torch import features as PF
+    from mfcc_rust_tpu_torch.config import fp32_matmul
+    from mfcc_rust_tpu_torch.constants import constant_bundle
+    from tests.golden import librosa_ref
+
+    dev = torch.device("cuda")
+    rec = {}
+    rng = np.random.default_rng(0)
+    t_true = SECONDS * L_RATE
+    audio = rng.normal(0.0, 0.1, (L_BATCH, t_true)).astype(np.float32)
+
+    # ------------------------------------------------------ main path, once --
+    k1.mfcc_fused.launches = k2.ct_mel.launches = 0
+    t0 = time.perf_counter()
+    mel = P.mel_spectrogram_librosa(audio, L_RATE)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = k2.ct_mel.launches
+    assert k1.mfcc_fused.launches == 0, "the librosa path launched speechpy_mfcc"
+    assert mel.is_cuda and tuple(mel.shape) == (L_BATCH, 128, 431), tuple(mel.shape)
+    assert bool(torch.isfinite(mel).all()), "non-finite mel"
+    if launches < 1:
+        raise AssertionError("the librosa main path did not launch the ct_mel kernel")
+    log(f"librosa main path: mel_spectrogram_librosa({L_BATCH} x {t_true}) -> "
+        f"{tuple(mel.shape)} in {first_s:.3f} s (first call); {k2.KERNEL} launches: {launches}")
+    before = k2.ct_mel.launches
+    lm = P.log_mel_spectrogram(audio, L_RATE)
+    mf = P.mfcc_librosa(audio, L_RATE, n_mfcc=20)
+    torch.cuda.synchronize()
+    assert k2.ct_mel.launches == before + 2, "log-mel / mfcc_librosa missed the kernel"
+    assert tuple(lm.shape) == (L_BATCH, 128, 431) and tuple(mf.shape) == (L_BATCH, 20, 431)
+    assert bool(torch.isfinite(lm).all() and torch.isfinite(mf).all())
+    log(f"log_mel_spectrogram -> {tuple(lm.shape)}, mfcc_librosa(n_mfcc=20) -> "
+        f"{tuple(mf.shape)}, one launch each")
+
+    # -------------------------- K2 against its plain version, main shape --
+    cfg = P.librosa_config(L_RATE)
+    x_main, cfg_main, count = PA._prep_librosa(audio, cfg, True, None)
+    out_k = k2.ct_mel(x_main, cfg_main)
+    out_p = k2.ct_mel_plain(x_main, cfg_main)
+    torch.cuda.synchronize()
+    main_rel, main_abs = rel_err(out_k, out_p)
+    log(f"K2 vs plain at {tuple(x_main.shape)} (F = {out_k.shape[1]}, {count} kept): "
+        f"rel {main_rel:.3e} abs {main_abs:.3e}")
+    assert main_rel <= REL_TOL, main_rel
+    assert rel_err(mel, out_k[:, :count].transpose(1, 2))[0] == 0.0, \
+        "main path differs from the kernel"
+    rec["main_path"] = {"shape": [L_BATCH, t_true], "bucket": list(x_main.shape),
+                        "frames": out_k.shape[1], "kept": count, "launches": launches,
+                        "first_call_s": first_s, "rel": main_rel, "abs": main_abs}
+
+    small = [
+        ("1024/256", P.librosa_config(16000, n_fft=1024, hop_length=256), (2, 16000)),
+        ("512/160/80 16 kHz", P.librosa_config(16000, n_fft=512, hop_length=160, n_mels=80),
+         (2, 16000)),
+        ("512/130/64", P.librosa_config(16000, n_fft=512, hop_length=130, n_mels=64),
+         (2, 16000)),
+        ("2048/768", P.librosa_config(16000, n_fft=2048, hop_length=768), (2, 16000)),
+        ("2048/100", P.librosa_config(22050, hop_length=100), (2, 16000)),
+        ("center=False", cfg.replace(center=False), (2, 22050)),
+        ("1-D", cfg, (22050,)),
+        ("3-D", cfg, (2, 3, 8000)),
+        ("100 samples, centred", cfg, (100,)),
+        ("100 samples, uncentred", cfg.replace(center=False), (100,)),
+    ]
+    rec["small"] = {}
+    for name, scfg, shape in small:
+        xs = torch.from_numpy(rng.normal(0.0, 0.1, shape).astype(np.float32)).to(dev)
+        before = k2.ct_mel.launches
+        got = PF.mel_spectrogram_librosa(xs, scfg)
+        ref = PF.mel_spectrogram_librosa(xs, scfg.replace(pallas="off"))
+        torch.cuda.synchronize()
+        r1, a1 = rel_err(got, ref)
+        assert k2.ct_mel.launches - before == (1 if got.shape[-1] else 0), name
+        assert r1 <= REL_TOL, (name, r1)
+        if name == "100 samples, centred":
+            assert got.shape == (128, 1), tuple(got.shape)
+        if name == "100 samples, uncentred":
+            assert got.shape == (128, 0), tuple(got.shape)
+        rec["small"][name] = {"rel": r1, "abs": a1, "shape": list(got.shape)}
+        log(f"K2 vs plain path, {name} {shape}: rel {r1:.3e} -> {tuple(got.shape)}")
+
+    xs = torch.from_numpy(rng.normal(0.0, 0.1, (2, 22050)).astype(np.float32)).to(dev)
+    a = PF.mfcc_librosa(xs, cfg).cpu().numpy()
+    b = PF.mfcc_librosa(xs, cfg.replace(pallas="off")).cpu().numpy()
+    np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-4)
+    rec["mfcc_librosa_abs"] = float(np.abs(a - b).max())
+    log(f"mfcc_librosa through K2 vs plain: max abs {rec['mfcc_librosa_abs']:.3e} "
+        "(gate rtol 1e-3, atol 1e-4)")
+
+    # ------------------------------------------- main path vs the oracle ----
+    t = np.arange(L_RATE) / L_RATE
+    clip = (0.5 * np.sin(2 * np.pi * 440 * t) + 0.2 * np.sin(2 * np.pi * 1320 * t)
+            + 0.05 * rng.normal(size=t.shape))
+    gold = librosa_ref.melspectrogram(clip, L_RATE, 2048, 512)
+    got = P.mel_spectrogram_librosa(clip.astype(np.float32), L_RATE).cpu().numpy()
+    np.testing.assert_allclose(got, gold, rtol=5e-3, atol=1e-4 * gold.max())
+    rec["oracle_rel"] = float(np.abs(got - gold).max() / np.abs(gold).max())
+    log(f"api.mel_spectrogram_librosa vs float64 librosa oracle: rel {rec['oracle_rel']:.3e} "
+        "(gate rtol 5e-3, atol 1e-4 max)")
+
+    # --------------------------------------------------------- autograd -----
+    xg = torch.from_numpy(rng.normal(0.0, 0.1, (2, 22050)).astype(np.float32)).to(dev)
+    ga = xg.clone().requires_grad_(True)
+    before = k2.ct_mel.launches
+    PF.mel_spectrogram_librosa(ga, cfg).sqrt().sum().backward()
+    assert k2.ct_mel.launches == before + 1
+    gb = xg.clone().requires_grad_(True)
+    PF.mel_spectrogram_librosa(gb, cfg.replace(pallas="off")).sqrt().sum().backward()
+    rec["grad_rel"], _ = rel_err(ga.grad, gb.grad)
+    log(f"grad through K2 vs the plain path: rel {rec['grad_rel']:.3e}")
+    assert rec["grad_rel"] <= REL_TOL, rec["grad_rel"]
+
+    # ----------------------------------------------------------- timing -----
+    def yardstick(x, c):
+        """Three library calls that the port never makes: cuFFT STFT
+        (periodic hann, uncentred), |X|^2, the dense filterbank product."""
+        fb = torch.as_tensor(constant_bundle(c)["fbank"], dtype=torch.float32, device=dev)
+        win = torch.as_tensor(constant_bundle(c)["window"], dtype=torch.float32, device=dev)
+
+        def run():
+            with fp32_matmul():
+                st = torch.stft(x, c.fft_points, c.frame_step, window=win, center=False,
+                                return_complex=True)
+                return torch.matmul(fb, st.abs() ** 2)
+        return run
+
+    timing = {}
+    for label, c, batch, rate in (("2048/512", cfg, L_BATCH, L_RATE),
+                                  ("512/160/80", P.librosa_config(
+                                      16000, n_fft=512, hop_length=160, n_mels=80), 48, 16000)):
+        au = rng.normal(0.0, 0.1, (batch, SECONDS * rate)).astype(np.float32)
+        xb, cb, _ = PA._prep_librosa(au, c, True, None)
+        yard = yardstick(xb, cb)
+        y_rel, _ = rel_err(yard().transpose(1, 2), k2.ct_mel(xb, cb))
+        assert y_rel <= REL_TOL, ("yardstick disagrees", label, y_rel)
+        runs = {"kernel": lambda: k2.ct_mel(xb, cb), "plain": lambda: k2.ct_mel_plain(xb, cb),
+                "yardstick": yard}
+        times = {k: [] for k in runs}
+        for order in (("plain", "kernel", "yardstick"), ("yardstick", "kernel", "plain")):
+            for k in order:
+                times[k] += cuda_ms(torch, runs[k], 10, flush)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        host = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            P.mel_spectrogram_librosa(au, rate, n_fft=c.fft_points, hop_length=c.frame_step,
+                                      n_mels=c.num_filters)
+            torch.cuda.synchronize()
+            host.append(time.perf_counter() - t0)
+        flops, nbytes = k2_work(k2, cb, xb.shape[0], xb.shape[1])
+        t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+        timing[label] = {
+            "shape": list(xb.shape), "times_ms": times, "median_ms": med,
+            "api_ms": statistics.median(host) * 1e3, "api_ms_all": [h * 1e3 for h in host],
+            "flops": flops, "bytes": nbytes, "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "yardstick_rel": y_rel,
+        }
+        log(f"K2 times, {label} at {tuple(xb.shape)}, median of {len(times['kernel'])}: "
+            + ", ".join(f"{k} {med[k]:.4f} ms" for k in runs)
+            + f"; api from host numpy {timing[label]['api_ms']:.3f} ms")
+        log(f"K2 work, {label}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB; bound "
+            f"{timing[label]['bound_ms']:.4f} ms ({timing[label]['bound_by']}), "
+            f"{flops / med['kernel'] / 1e9:.3f} TFLOP/s achieved; audio-s/s kernel "
+            f"{batch * SECONDS / med['kernel'] * 1e3:.1f}")
+    rec["timing"] = timing
+    rec["clocks"] = smi("clocks.sm,power.draw,power.limit,temperature.gpu")
+    log(f"clocks.sm, power.draw, power.limit, temperature: {rec['clocks']}")
+    head = timing["2048/512"]
+    entry = {
+        "name": k2.KERNEL, "route": "cuda",
+        "source": "mfcc_rust_tpu_torch/ops/cuda/ct_mel.cu",
+        "replaces": "mfcc_rust_tpu/ops/pallas/ct_mel.py:319",
+        "launches": launches, "max_abs_err": main_abs,
+        "ms": head["median_ms"]["kernel"], "plain_ms": head["median_ms"]["plain"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["median_ms"]["yardstick"],
+    }
+    return entry, rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, help="directory for chip_smoke.json")
@@ -96,6 +316,7 @@ def main() -> int:
     from mfcc_rust_tpu_torch import features as PF
     from mfcc_rust_tpu_torch.ops import framing
     from mfcc_rust_tpu_torch.ops.cuda import build
+    from mfcc_rust_tpu_torch.ops.cuda import ct_mel as k2
     from mfcc_rust_tpu_torch.ops.cuda import speechpy_mfcc as k1
     from mfcc_rust_tpu_torch.utils.bucketing import bucket_length
     from tests.golden import speechpy_ref
@@ -107,13 +328,21 @@ def main() -> int:
 
     # ---------------------------------------------------------------- build --
     t0 = time.perf_counter()
-    logs = build.build([k1.KERNEL])
+    logs = build.build([k1.KERNEL, k2.KERNEL])
     record["build_s"] = time.perf_counter() - t0
-    log(f"build: {k1.KERNEL} in {record['build_s']:.3f} s")
-    for line in logs[k1.KERNEL].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"  ptxas: {line.strip()}")
+    log(f"build: {k1.KERNEL}, {k2.KERNEL} in {record['build_s']:.3f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas {name}: {line.strip()}")
     lib = k1._lib()
+    lib2 = k2._lib()
+    for mc in (P.librosa_config(22050), P.librosa_config(16000, n_fft=512, hop_length=160,
+                                                         n_mels=80), P.librosa_config(16000, n_fft=768)):
+        nnz = k2._kernel_constants(mc)[2].size
+        g = k2.frames_per_block(mc.fft_points, nnz)
+        assert lib2.ct_mel_smem_bytes(mc.fft_points, g, nnz) == \
+            k2.smem_bytes(mc.fft_points, g, nnz), "ct_mel smem mirror"
     cfg = P.speechpy_config(RATE)
     wall, _, _, _, r, hop, fl = k1._mfcc_constants(cfg)
     m, c = cfg.num_filters, cfg.num_cepstral
@@ -126,12 +355,13 @@ def main() -> int:
     rng = np.random.default_rng(0)
     t_true = SECONDS * RATE
     audio = rng.normal(0.0, 0.1, (BATCH, t_true)).astype(np.float32)
-    k1.mfcc_fused.launches = 0
+    k1.mfcc_fused.launches = k2.ct_mel.launches = 0
     t0 = time.perf_counter()
     feats = P.mfcc(audio, RATE)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = k1.mfcc_fused.launches
+    assert k2.ct_mel.launches == 0, "the speechpy path launched ct_mel"
     n_frames = (t_true - fl) // hop
     assert feats.is_cuda and feats.shape == (BATCH, n_frames, 13), tuple(feats.shape)
     assert bool(torch.isfinite(feats).all()), "non-finite MFCC"
@@ -241,6 +471,7 @@ def main() -> int:
         f"api.mfcc from host numpy {audio_s / api_s:.1f} ({api_s * 1e3:.3f} ms)")
     log(f"clocks.sm, power.draw, power.limit, temperature: {clocks}")
 
+    k2_entry, record["librosa"] = librosa_phase(np, torch, P, k1, k2, flush)
     kernels = [{
         "name": k1.KERNEL, "route": "cuda",
         "source": "mfcc_rust_tpu_torch/ops/cuda/speechpy_mfcc.cu",
@@ -249,7 +480,7 @@ def main() -> int:
         "ms": med["kernel"], "plain_ms": med["plain"], "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
-    }]
+    }, k2_entry]
     record.update({
         "main_path": {"shape": [BATCH, t_true], "bucket": t_main, "launches": launches,
                       "first_call_s": first_s, "api_ms": api_s * 1e3, "api_ms_all": [h * 1e3 for h in host]},

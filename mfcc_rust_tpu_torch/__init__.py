@@ -6,7 +6,7 @@ stays the reference and this one imports nothing of it.  Layers:
 
 * config/constants — :mod:`.config` (frozen hashable FeatureConfig),
   :mod:`.constants` (float64 numpy builders, tensors per device)
-* primitives — :mod:`.ops` (framing, spectrum, mel, dct) and
+* primitives — :mod:`.ops` (framing, spectrum, fft, stft, mel, dct) and
   :mod:`.ops.cuda` (kernels, each with its plain PyTorch version)
 * features — :mod:`.features` (functions on tensors), :mod:`.models`
   (``nn.Module`` pipelines)
@@ -15,13 +15,27 @@ stays the reference and this one imports nothing of it.  Layers:
 """
 
 from . import constants, features, ops  # noqa: F401
-from .api import lmfe, mfcc, mfe  # noqa: F401
+from .api import (  # noqa: F401
+    lmfe,
+    log_mel_spectrogram,
+    mel_spectrogram_librosa,
+    mfcc,
+    mfcc_librosa,
+    mfe,
+)
 from .config import (  # noqa: F401
     FeatureConfig,
     SpeechConfigBuilder,
     from_reference,
+    librosa_config,
     speechpy_config,
 )
-from .models import LogMFEPipeline, MFCCPipeline, MFEPipeline  # noqa: F401
+from .models import (  # noqa: F401
+    LibrosaMelPipeline,
+    LibrosaMFCCPipeline,
+    LogMFEPipeline,
+    MFCCPipeline,
+    MFEPipeline,
+)
 
 __version__ = "0.1.0"

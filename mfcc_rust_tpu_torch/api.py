@@ -1,7 +1,9 @@
-"""speechpy-style entry points: numpy array or tensor in, tensor out.
+"""speechpy- and librosa-style entry points: numpy array or tensor in,
+tensor out.
 
 The keyword signatures and defaults of ``mfcc_rust_tpu.api`` (``mfcc``,
-``mfe``, ``lmfe``), plus ``device``: ``None`` means CUDA and raises when
+``mfe``, ``lmfe``, ``mel_spectrogram_librosa``, ``log_mel_spectrogram``,
+``mfcc_librosa``), plus ``device``: ``None`` means CUDA and raises when
 CUDA is absent; pass ``device="cpu"`` to run on the CPU.  Results are
 tensors on that device.  Lengths are bucketed (pad to a bucket, compute,
 trim to the true frame count) so a service sees few distinct shapes; pass
@@ -14,8 +16,9 @@ import torch
 import torch.nn.functional as tF
 
 from . import features as F
-from .config import FeatureConfig
+from .config import FeatureConfig, librosa_config
 from .ops import framing as _framing
+from .ops import stft as _stft
 from .utils.bucketing import bucket_length
 from .utils.device import resolve_device
 
@@ -98,3 +101,49 @@ def lmfe(signal, sampling_frequency, frame_length=0.020, frame_stride=0.01,
                         13, num_filters, fft_length, low_frequency, high_frequency)
     sig, n = _prep(signal, cfg, bucket, device)
     return F.lmfe(sig, cfg)[..., : _frames_nopad(cfg, n), :]
+
+
+# -------------------------------------------------------- librosa-style API --
+def _prep_librosa(y, cfg: FeatureConfig, bucket: bool, device):
+    """The centre pad must see the true signal edge, not the bucket zeros,
+    so it comes first, in ``cfg.pad_mode`` on the whole signal; bucketing
+    then zero-pads and framing runs uncentred on the padded signal.
+    Returns (signal, cfg with center=False, true frame count)."""
+    sig, n = _prep(y, cfg, False, device)
+    count = _stft.librosa_frame_count(n, cfg.fft_points, cfg.frame_step, cfg.center)
+    if cfg.center:
+        half = cfg.fft_points // 2
+        sig = _framing.pad_signal(sig, half, half, cfg.pad_mode)
+        cfg = cfg.replace(center=False)
+    sig, _ = _prep(sig, cfg, bucket, sig.device)
+    return sig, cfg, count
+
+
+def mel_spectrogram_librosa(y, sr=22050, n_fft=2048, hop_length=512, win_length=None,
+                            n_mels=128, fmin=0.0, fmax=None, power=2.0, center=True,
+                            bucket=True, device=None):
+    """librosa-compatible mel spectrogram, (..., n_mels, frames)."""
+    cfg = librosa_config(sr, n_fft, hop_length, win_length, n_mels, fmin=fmin,
+                         fmax=fmax, power=power).replace(center=center)
+    sig, cfg, count = _prep_librosa(y, cfg, bucket, device)
+    return F.mel_spectrogram_librosa(sig, cfg)[..., :count]
+
+
+def log_mel_spectrogram(y, sr=22050, n_fft=2048, hop_length=512, n_mels=128, fmin=0.0,
+                        fmax=None, center=True, bucket=True, device=None):
+    """librosa ``power_to_db(melspectrogram)``.  Bucket frames are all-zero
+    power, so they can neither raise the top_db reference maximum nor
+    survive the final slice."""
+    cfg = librosa_config(sr, n_fft, hop_length, None, n_mels, fmin=fmin,
+                         fmax=fmax).replace(center=center)
+    sig, cfg, count = _prep_librosa(y, cfg, bucket, device)
+    return F.log_mel_spectrogram(sig, cfg)[..., :count]
+
+
+def mfcc_librosa(y, sr=22050, n_mfcc=20, n_fft=2048, hop_length=512, n_mels=128,
+                 fmin=0.0, fmax=None, center=True, bucket=True, device=None):
+    """librosa-compatible MFCC, (..., n_mfcc, frames)."""
+    cfg = librosa_config(sr, n_fft, hop_length, None, n_mels, n_mfcc=n_mfcc, fmin=fmin,
+                         fmax=fmax).replace(center=center)
+    sig, cfg, count = _prep_librosa(y, cfg, bucket, device)
+    return F.mfcc_librosa(sig, cfg)[..., :count]

@@ -53,7 +53,8 @@ class FeatureConfig:
     preemphasis_cof: float = 0.0  # applied before framing when nonzero
     power: float = 2.0
     # "matmul" (DFT as two products), "fft" (torch.fft.rfft), "ct"
-    # (Cooley-Tukey, not ported yet) or "auto" (matmul for fft <= 1024)
+    # (two-stage Cooley-Tukey products, ops/fft.py) or "auto" (matmul for
+    # fft <= 1024, else ct)
     fft_impl: str = "auto"
     # every value computes in IEEE FP32 here (see the module docstring)
     precision: str = "high"
@@ -168,6 +169,42 @@ def speechpy_config(sample_rate: int, **kw) -> FeatureConfig:
     """speechpy-compatible preset: rectangular window, integer-bin mel
     filterbank with the 1127*ln mel scale."""
     return FeatureConfig(sample_rate=sample_rate, **kw)
+
+
+def librosa_config(
+    sample_rate: int = 22050,
+    n_fft: int = 2048,
+    hop_length: Optional[int] = None,
+    win_length: Optional[int] = None,
+    n_mels: int = 128,
+    n_mfcc: int = 20,
+    fmin: float = 0.0,
+    fmax: Optional[float] = None,
+    **kw,
+) -> FeatureConfig:
+    """librosa-compatible preset: periodic hann window, centred
+    reflect-padded STFT, Slaney mel scale and Slaney area norm."""
+    hop_length = hop_length if hop_length is not None else n_fft // 4
+    win_length = win_length if win_length is not None else n_fft
+    return FeatureConfig(
+        sample_rate=sample_rate,
+        fft_points=n_fft,
+        frame_length_samples=n_fft,
+        frame_stride_samples=hop_length,
+        win_length_samples=win_length,
+        num_filters=n_mels,
+        num_cepstral=n_mfcc,
+        low_frequency=fmin,
+        high_frequency=fmax,
+        window="hann",
+        mel_scale="slaney",
+        fbank_style="librosa",
+        fbank_norm="slaney",
+        center=True,
+        pad_mode="reflect",
+        dc_elimination=False,
+        **kw,
+    )
 
 
 class SpeechConfigBuilder:

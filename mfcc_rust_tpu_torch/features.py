@@ -1,5 +1,6 @@
-"""speechpy feature pipelines on tensors (port of ``mfcc_rust_tpu.features``,
-the speechpy MFE / log-MFE / MFCC part).
+"""Feature pipelines on tensors (port of ``mfcc_rust_tpu.features``: the
+speechpy MFE / log-MFE / MFCC part and the librosa mel / log-mel / MFCC
+part).
 
 Every function is a plain function of ``(signal, cfg)`` over arbitrary
 leading batch dims, computing in the signal's dtype on the signal's device.
@@ -7,8 +8,9 @@ The default lowering never builds the frame matrix: framing folds into one
 product with the chunk-GEMM wall (``_chunk_gemm``), the DFT is trimmed to the
 filterbank's support, and frame energies come from Parseval columns of the
 same product.  On a CUDA float32 tensor ``mfcc`` runs the fused kernel
-(``ops/cuda/speechpy_mfcc``); everywhere else it runs this plain path, which
-the kernel is held against.
+(``ops/cuda/speechpy_mfcc``) and ``mel_spectrogram_librosa`` the CT mel
+kernel (``ops/cuda/ct_mel``); everywhere else they run the plain paths,
+which the kernels are held against.
 
 ``consts`` (optional) is a dict of the chunk-GEMM constant tensors
 (:func:`_speechpy_tensors`); the pipelines pass their buffers through it.
@@ -26,9 +28,11 @@ import torch.nn.functional as tF
 from .config import FeatureConfig, fp32_matmul
 from .constants import chunk_gemm_wall, constant_bundle
 from .ops import framing as _framing
+from .ops import stft as _stft
 from .ops.dct import dct2_ortho
-from .ops.mel import apply_filterbank
-from .ops.spectrum import power_spectrum, resolve_fft_impl, zero_handling
+from .ops.fft import ct_power_project, good_factorization, permute_weights_for_ct
+from .ops.mel import apply_filterbank, mel_project_time_major
+from .ops.spectrum import power_spectrum, power_to_db, resolve_fft_impl, zero_handling
 
 
 def _speechpy_frames(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
@@ -285,3 +289,183 @@ class _MFCCKernel(torch.autograd.Function):
             out = mfcc(s, ctx.cfg.replace(pallas="off"), ctx.consts)
             (gs,) = torch.autograd.grad(out, s, g)
         return gs, None, None
+
+
+# --------------------------------------------------------- librosa pipeline --
+@functools.lru_cache(maxsize=64)
+def _librosa_tensors(cfg: FeatureConfig, device: torch.device, dtype: torch.dtype) -> dict:
+    """The librosa chunk-GEMM constants on one device and dtype: ``wall``
+    ``[C_trim | S_trim]`` of the windowed DFT, its rows zero-padded to
+    ceil(n_fft/hop) whole hops (a no-op when the hop divides n_fft; the
+    zero rows weigh the samples past a frame), ``fb2`` (2*kmax, M), the
+    filterbank stacked over both blocks, and ``fbt`` (kmax, M)."""
+    bundle = constant_bundle(cfg)
+    kmax = bundle["fbank_kmax"]
+    c64, s64 = bundle["dft_windowed"]
+    n, hop = cfg.fft_points, cfg.frame_step
+    wall = np.zeros((-(-n // hop) * hop, 2 * kmax))
+    wall[:n] = np.concatenate([c64[:, :kmax], s64[:, :kmax]], axis=1)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+    return {"wall": t(wall), "fb2": t(_stacked_fb(bundle["fbank"], kmax, 2 * kmax)),
+            "fbt": t(bundle["fbank"][:, :kmax].T)}
+
+
+def mel_spectrogram_librosa(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """librosa-compatible mel spectrogram: (..., T) -> (..., n_mels, frames).
+    Build ``cfg`` with :func:`..config.librosa_config`.
+
+    On a CUDA float32 tensor, with ``cfg.pallas != "off"``, ``cfg.fft_impl
+    != "fft"`` and a config the kernel takes, this is one launch of the CT
+    mel kernel (``ops/cuda/ct_mel``).  Otherwise one of the plain lowerings,
+    picked by the reference's rules: the Cooley-Tukey products (fft > 1024,
+    hop a multiple of N1), the chunk-GEMM (hop divides n_fft), the
+    hop-padded chunk-GEMM (hop does not divide n_fft) or framed STFT."""
+    n = cfg.fft_points
+    hop = cfg.frame_step
+    if cfg.frame_size != n:
+        # librosa frames are always n_fft samples; shorter analysis windows
+        # go through win_length.  A speechpy frame_size here would change
+        # the frame count silently.
+        raise ValueError(
+            f"mel_spectrogram_librosa frames by fft_points={n}, but "
+            f"cfg.frame_size={cfg.frame_size}; build the config with "
+            "librosa_config() (use win_length for short analysis windows)"
+        )
+    if _librosa_kernel_ok(signal, cfg):
+        return _MelLibrosaKernel.apply(signal, cfg).transpose(-1, -2)
+    if _librosa_ct_ok(cfg):
+        return _librosa_ct_mel(signal, cfg)
+    use_fast = _fast_path_ok(cfg) and n % hop == 0
+    if use_fast or _librosa_hoppad_ok(cfg):
+        if cfg.center:
+            signal = _framing.pad_signal(signal, n // 2, n // 2, cfg.pad_mode)
+        count = 1 + (signal.shape[-1] - n) // hop
+        if count > 0:
+            c = _librosa_tensors(cfg, signal.device, signal.dtype)
+            _, y = _chunk_gemm(signal, c["wall"], count, hop)
+            with fp32_matmul():
+                if cfg.power == 2.0:
+                    # the squared product projects straight to mel (librosa:
+                    # no 1/N scale)
+                    mel = torch.matmul(y * y, c["fb2"])
+                else:
+                    kmax = c["fbt"].shape[0]
+                    xr, xi = y[..., :kmax], y[..., kmax:]
+                    mel = torch.matmul((xr * xr + xi * xi) ** (cfg.power / 2.0), c["fbt"])
+            return mel.transpose(-1, -2)
+    power = _stft.stft_framed(signal, cfg, framing_style="librosa", return_power=True)
+    return mel_project_time_major(power, cfg)
+
+
+def _librosa_hoppad_ok(cfg: FeatureConfig) -> bool:
+    """The hop-padded chunk-GEMM applies: the matmul DFT, an even fft, a hop
+    that does NOT divide the frame, and a shifted-slice count bounded by
+    :func:`_chunk_r` (512/160 or 512/130 -> r = 4; hop 40 -> r = 13 takes
+    framed STFT)."""
+    if resolve_fft_impl(cfg) != "matmul" or cfg.fft_points % 2:
+        return False
+    if cfg.frame_size % cfg.frame_step == 0:
+        return False
+    return _chunk_r(cfg) is not None
+
+
+def _librosa_kernel_ok(signal: torch.Tensor, cfg: FeatureConfig) -> bool:
+    """Dispatch the CT mel kernel: a CUDA float32 tensor, ``cfg.pallas !=
+    "off"``, no explicit ``fft_impl="fft"`` request (the kernel is an FFT of
+    its own, so "auto", "matmul" and "ct" all take it) and a config the
+    kernel supports.  Every hop takes it: the kernel reads frame f at
+    f*hop of the signal, whatever the hop."""
+    if not signal.is_cuda or signal.dtype != torch.float32:
+        return False
+    if cfg.pallas == "off" or cfg.fft_impl == "fft":
+        return False
+    from .ops.cuda.ct_mel import ct_mel_supported
+
+    return ct_mel_supported(cfg)
+
+
+class _MelLibrosaKernel(torch.autograd.Function):
+    """The CT mel kernel forward, frame-major (..., F, M); the backward
+    recomputes through the plain path (``pallas="off"``), which computes the
+    same function."""
+
+    @staticmethod
+    def forward(ctx, signal, cfg):
+        from .ops.cuda.ct_mel import ct_mel
+
+        ctx.cfg = cfg
+        ctx.save_for_backward(signal)
+        return ct_mel(signal, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        (signal,) = ctx.saved_tensors
+        with torch.enable_grad():
+            s = signal.detach().requires_grad_(True)
+            out = mel_spectrogram_librosa(s, ctx.cfg.replace(pallas="off")).transpose(-1, -2)
+            (gs,) = torch.autograd.grad(out, s, g)
+        return gs, None
+
+
+def _librosa_ct_ok(cfg: FeatureConfig) -> bool:
+    if resolve_fft_impl(cfg) != "ct" or cfg.frame_size != cfg.fft_points:
+        return False
+    if cfg.power != 2.0:
+        return False
+    f = good_factorization(cfg.fft_points)
+    if f is None:
+        return False
+    n1, _ = f
+    hop = cfg.frame_step
+    return cfg.fft_points % hop == 0 and hop % n1 == 0
+
+
+@functools.lru_cache(maxsize=64)
+def _ct_mel_tensors(cfg: FeatureConfig, factors: Tuple[int, int], device: torch.device,
+                    dtype: torch.dtype) -> dict:
+    """``window`` (n_fft,) and ``proj`` (N2*k1max, M), the filterbank
+    permuted onto the CT output plane, as tensors."""
+    bundle = constant_bundle(cfg)
+    proj = permute_weights_for_ct(bundle["fbank"], cfg.fft_points, factors).T
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+    return {"window": t(bundle["window"]), "proj": t(proj)}
+
+
+def ct_frames_mel(padded: torch.Tensor, cfg: FeatureConfig,
+                  factors: Tuple[int, int]) -> torch.Tensor:
+    """(..., T) already centre-padded -> (..., F, M) frame-major: frames of
+    n_fft at every hop (a strided view), the window, then the CT products
+    and the projection of :func:`ops.fft.ct_power_project`."""
+    n, hop = cfg.fft_points, cfg.frame_step
+    n1, n2 = factors
+    count = 1 + (padded.shape[-1] - n) // hop
+    if count <= 0:
+        return padded.new_zeros(padded.shape[:-1] + (0, cfg.num_filters))
+    c = _ct_mel_tensors(cfg, factors, padded.device, padded.dtype)
+    frames = _framing.frame_signal(padded, n, hop, count) * c["window"]
+    frames = frames.reshape(frames.shape[:-1] + (n2, n1))  # sample n = n1 + N1*n2
+    return ct_power_project(frames, n, n1, n2, c["proj"])
+
+
+def _librosa_ct_mel(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """librosa mel spectrogram for large transforms through the CT products,
+    the filterbank permuted onto the CT output plane (no spectrum
+    transpose)."""
+    n = cfg.fft_points
+    if cfg.center:
+        signal = _framing.pad_signal(signal, n // 2, n // 2, cfg.pad_mode)
+    return ct_frames_mel(signal, cfg, good_factorization(n)).transpose(-1, -2)
+
+
+def log_mel_spectrogram(signal: torch.Tensor, cfg: FeatureConfig, ref: float = 1.0,
+                        top_db: Optional[float] = 80.0) -> torch.Tensor:
+    """librosa ``power_to_db(melspectrogram)``."""
+    return power_to_db(mel_spectrogram_librosa(signal, cfg), ref=ref, top_db=top_db)
+
+
+def mfcc_librosa(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """librosa-compatible MFCC: DCT-II (ortho) over the log-mel,
+    (..., n_mfcc, frames).  Frame-major inside, so the kernel's output feeds
+    the DCT product without a copy."""
+    s = mel_spectrogram_librosa(signal, cfg).transpose(-1, -2)  # (..., T, M)
+    return dct2_ortho(power_to_db(s), cfg).transpose(-1, -2)

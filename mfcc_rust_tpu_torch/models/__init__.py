@@ -1,1 +1,8 @@
-from .pipelines import LogMFEPipeline, MFCCPipeline, MFEPipeline, Pipeline  # noqa: F401
+from .pipelines import (  # noqa: F401
+    LibrosaMelPipeline,
+    LibrosaMFCCPipeline,
+    LogMFEPipeline,
+    MFCCPipeline,
+    MFEPipeline,
+    Pipeline,
+)

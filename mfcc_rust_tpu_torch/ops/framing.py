@@ -20,6 +20,40 @@ def preemphasis(signal: torch.Tensor, shift: int = 1, cof: float = 0.98) -> torc
     return signal - cof * torch.roll(signal, shift, dims=-1)
 
 
+def pad_signal(signal: torch.Tensor, left: int, right: int,
+               mode: str = "reflect") -> torch.Tensor:
+    """``np.pad`` of the last axis by (left, right) in ``mode`` ("constant",
+    "reflect", "symmetric", "edge" or "wrap"), at any length.  A pad as long
+    as the signal or longer reflects again and again, as numpy does
+    (``torch.nn.functional.pad`` raises there), so each output sample is
+    read through a folded index; a 1-sample signal reflects to itself."""
+    if left == 0 and right == 0:
+        return signal
+    if mode == "constant":
+        return tF.pad(signal, (left, right))
+    t = signal.shape[-1]
+    if t == 0:
+        raise ValueError(f"cannot {mode}-pad an empty axis")
+    idx = torch.arange(-left, t + right, device=signal.device)
+    if mode == "reflect":
+        if t == 1:
+            idx = torch.zeros_like(idx)
+        else:
+            period = 2 * (t - 1)
+            m = idx % period
+            idx = torch.where(m >= t, period - m, m)
+    elif mode == "symmetric":
+        m = idx % (2 * t)
+        idx = torch.where(m >= t, 2 * t - 1 - m, m)
+    elif mode == "edge":
+        idx = idx.clamp(0, t - 1)
+    elif mode == "wrap":
+        idx = idx % t
+    else:
+        raise ValueError(f"unsupported pad mode {mode!r}")
+    return signal.index_select(-1, idx)
+
+
 def speechpy_frame_counts(
     length: int, frame_len: int, frame_step: int, zero_padding: bool
 ) -> Tuple[int, int]:

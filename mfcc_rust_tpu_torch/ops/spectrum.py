@@ -1,8 +1,8 @@
 """rFFT power spectra (port of ``mfcc_rust_tpu.ops.spectrum``).
 
 ``matmul`` computes the real DFT as two products against the cos/-sin
-matrices of :func:`..constants.rdft_matrices`; ``fft`` uses
-``torch.fft.rfft``.  The Cooley-Tukey lowering (``ct``) is not ported yet.
+matrices of :func:`..constants.rdft_matrices`; ``ct`` as the two-stage
+Cooley-Tukey products of :mod:`.fft`; ``fft`` uses ``torch.fft.rfft``.
 """
 
 from __future__ import annotations
@@ -15,22 +15,7 @@ import torch
 
 from ..config import FeatureConfig, fp32_matmul
 from ..constants import bundle_tensor
-
-
-def good_factorization(n: int) -> Optional[Tuple[int, int]]:
-    """N1·N2 = n for the reference's two-stage Cooley-Tukey lowering (the
-    JAX package's ``ops/fft.py``), used here only to resolve ``"auto"`` the
-    way the reference does."""
-    if n % 128 == 0 and n // 128 >= 8:
-        return (128, n // 128)
-    best = None
-    for n2 in range(int(math.isqrt(n)), 1, -1):
-        if n % n2 == 0:
-            n1 = n // n2
-            if n1 / n2 <= 8:
-                best = (n1, n2)
-            break
-    return best
+from .fft import good_factorization
 
 
 def resolve_fft_impl(cfg: FeatureConfig) -> str:
@@ -70,14 +55,13 @@ def rdft(
             )
         with fp32_matmul():
             return torch.matmul(frames, c), torch.matmul(frames, s)
-    if impl == "ct":
-        raise NotImplementedError(
-            "fft_impl='ct' (Cooley-Tukey, fft_points > 1024) is not ported "
-            "yet: ROADMAP.md Queue 1 item 7; pass fft_impl='fft'"
-        )
     if windowed:
         w = bundle_tensor(cfg, "window", frames.device, frames.dtype)
         frames = frames * w[: frames.shape[-1]]
+    if impl == "ct":
+        from .fft import rfft_ct
+
+        return rfft_ct(frames, n)
     spec = torch.fft.rfft(frames, n=n, dim=-1)
     return spec.real.to(frames.dtype), spec.imag.to(frames.dtype)
 
@@ -88,3 +72,22 @@ def power_spectrum(
     """speechpy power spectrum ``|X|^2 / fft_points``."""
     xr, xi = rdft(frames, cfg, windowed)
     return (xr * xr + xi * xi) * (1.0 / cfg.fft_points)
+
+
+def power_to_db(s: torch.Tensor, ref: float = 1.0, amin: float = 1e-10,
+                top_db: Optional[float] = 80.0, per_spectrogram: bool = True) -> torch.Tensor:
+    """librosa-compatible power to dB with the top_db clamp.  With
+    ``per_spectrogram`` (the default) the top_db reference maximum is taken
+    over the trailing two axes when ``s.ndim > 2``, so each spectrogram of a
+    batch is clamped against its own maximum, as librosa applied per
+    utterance; False takes librosa's literal whole-array maximum.  An empty
+    spectrogram (no frames) comes back empty."""
+    log_spec = 10.0 * torch.log10(torch.clamp_min(s, amin))
+    log_spec = log_spec - 10.0 * math.log10(max(amin, ref))
+    if top_db is not None and log_spec.numel():
+        if per_spectrogram and s.ndim > 2:
+            ref_max = torch.amax(log_spec, dim=(-2, -1), keepdim=True)
+        else:
+            ref_max = torch.amax(log_spec)
+        log_spec = torch.maximum(log_spec, ref_max - top_db)
+    return log_spec

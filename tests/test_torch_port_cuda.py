@@ -8,7 +8,9 @@ file imports no JAX, so that it runs where JAX is not installed:
 (``--noconftest``: ``tests/conftest.py`` sets JAX up for the reference's
 tests.)  Tolerance 1e-4 in max|Δ|/max|ref|: the kernel's FMA loops sum the
 320-long products in another order than cuBLAS, and the log of a small band
-energy turns that rounding into its relative error."""
+energy turns that rounding into its relative error; the CT mel kernel
+factors the FFT otherwise than its plain version.  ``mfcc_librosa`` is held
+at rtol 1e-3, atol 1e-4, the reference's own tolerance for its kernel."""
 
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ import torch
 
 import mfcc_rust_tpu_torch as P
 from mfcc_rust_tpu_torch import features as PF
+from mfcc_rust_tpu_torch.ops.cuda import ct_mel as ck
 from mfcc_rust_tpu_torch.ops.cuda import speechpy_mfcc as pk
 
 CONFIGS = [
@@ -76,3 +79,78 @@ def test_wrapper_refuses_float64_on_card(cuda_device):
     with pytest.raises(TypeError):
         pk.mfcc_fused(torch.zeros(4000, dtype=torch.float64, device=cuda_device),
                       P.speechpy_config(16000))
+
+
+# (name, librosa_config args, kwargs, input shape)
+LIBROSA = [
+    ("2048/512", (22050,), {}, (2, 22050)),
+    ("1024/256", (16000,), dict(n_fft=1024, hop_length=256), (2, 16000)),
+    ("512/160/80", (16000,), dict(n_fft=512, hop_length=160, n_mels=80), (2, 16000)),
+    ("512/130/64", (16000,), dict(n_fft=512, hop_length=130, n_mels=64), (2, 16000)),
+    ("2048/768", (16000,), dict(n_fft=2048, hop_length=768), (2, 16000)),
+    ("2048/100", (22050,), dict(hop_length=100), (2, 16000)),
+    ("uncentred", (22050,), dict(center=False), (2, 16000)),
+    ("1-D", (22050,), {}, (16000,)),
+    ("3-D", (22050,), {}, (2, 2, 8000)),
+    ("100 samples, centred", (22050,), {}, (100,)),
+    ("100 samples, uncentred", (22050,), dict(center=False), (100,)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,args,kw,shape", LIBROSA, ids=[c[0] for c in LIBROSA])
+def test_ct_mel_kernel_matches_plain_on_card(cuda_device, name, args, kw, shape):
+    kw = dict(kw)
+    center = kw.pop("center", True)
+    cfg = P.librosa_config(*args, **kw).replace(center=center)
+    x = torch.from_numpy(np.random.default_rng(16).normal(0, 0.1, shape).astype(np.float32))
+    xd = x.to(cuda_device)
+    before = ck.ct_mel.launches
+    out = PF.mel_spectrogram_librosa(xd, cfg)
+    torch.cuda.synchronize()
+    assert out.is_cuda
+    assert ck.ct_mel.launches == before + (1 if out.shape[-1] else 0)
+    assert rel(out, PF.mel_spectrogram_librosa(xd, cfg.replace(pallas="off"))) <= 1e-4, name
+    assert rel(out, PF.mel_spectrogram_librosa(x, cfg)) <= 1e-4, name
+    assert rel(ck.ct_mel(xd, cfg), ck.ct_mel_plain(xd, cfg)) <= 1e-4, name
+    if name == "100 samples, centred":
+        assert out.shape == (128, 1)
+    if name == "100 samples, uncentred":
+        assert out.shape == (128, 0)
+
+
+@pytest.mark.cuda
+def test_librosa_heads_go_through_the_kernel_on_card(cuda_device):
+    cfg = P.librosa_config()
+    x = torch.from_numpy(np.random.default_rng(17).normal(0, 0.1, (2, 22050)).astype(np.float32))
+    xd = x.to(cuda_device)
+    before = ck.ct_mel.launches
+    mf = PF.mfcc_librosa(xd, cfg)
+    lm = PF.log_mel_spectrogram(xd, cfg)
+    torch.cuda.synchronize()
+    assert ck.ct_mel.launches == before + 2
+    off = cfg.replace(pallas="off")
+    np.testing.assert_allclose(mf.cpu().numpy(), PF.mfcc_librosa(xd, off).cpu().numpy(),
+                               rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(lm.cpu().numpy(), PF.log_mel_spectrogram(xd, off).cpu().numpy(),
+                               rtol=1e-3, atol=1e-4)
+    api = P.mel_spectrogram_librosa(x.numpy())
+    assert api.is_cuda and api.shape == (2, 128, 44)
+    assert ck.ct_mel.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_ct_mel_grad_matches_plain_on_card(cuda_device):
+    cfg = P.librosa_config(16000, n_fft=512, hop_length=160, n_mels=80)
+    x = torch.from_numpy(np.random.default_rng(18).normal(0, 0.1, (2, 8000)).astype(np.float32))
+    a = x.to(cuda_device).requires_grad_(True)
+    PF.mel_spectrogram_librosa(a, cfg).sqrt().sum().backward()
+    b = x.to(cuda_device).requires_grad_(True)
+    PF.mel_spectrogram_librosa(b, cfg.replace(pallas="off")).sqrt().sum().backward()
+    assert rel(a.grad, b.grad) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_ct_mel_wrapper_refuses_float64_on_card(cuda_device):
+    with pytest.raises(TypeError):
+        ck.ct_mel(torch.zeros(4000, dtype=torch.float64, device=cuda_device), P.librosa_config())

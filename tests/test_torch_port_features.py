@@ -125,9 +125,11 @@ def test_gather_fallback_and_windowed_paths_match_jax(kw):
 
 
 def test_ct_impl_not_ported_yet():
-    cfg = P.speechpy_config(16000, fft_points=2048, frame_length=0.1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        PF.mfcc(torch.zeros(8000), cfg)
+    """fft_points > 1024 resolves to the Cooley-Tukey rFFT, which the port
+    computes as the reference does."""
+    jcfg, pcfg, jx, px = _pair({"fft_points": 2048, "frame_length": 0.1}, 8000, "float64", seed=16)
+    assert pspec.resolve_fft_impl(pcfg) == "ct"
+    assert rel(PF.mfcc(px, pcfg), JF.mfcc(jx, jcfg)) <= 1e-9
 
 
 def test_primitives_match_jax():

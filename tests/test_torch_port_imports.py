@@ -34,20 +34,29 @@ def test_import_pulls_in_no_jax_and_needs_cuda_by_default():
         assert not bad, bad
         assert not torch.cuda.is_available()
         x = np.zeros(16000, np.float32)
-        for fn in (P.mfcc, P.mfe, P.lmfe):
+        for fn in (P.mfcc, P.mfe, P.lmfe, P.mel_spectrogram_librosa,
+                   P.log_mel_spectrogram, P.mfcc_librosa):
             try:
                 fn(x, 16000)
             except RuntimeError as e:
                 assert "CUDA" in str(e)
             else:
                 raise AssertionError(fn.__name__ + " ran without CUDA")
-        try:
-            P.MFCCPipeline(P.speechpy_config(16000))
-        except RuntimeError:
-            pass
-        else:
-            raise AssertionError("pipeline built without CUDA")
+        for pipe, cfg in ((P.MFCCPipeline, P.speechpy_config(16000)),
+                          (P.LibrosaMelPipeline, P.librosa_config()),
+                          (P.LibrosaMFCCPipeline, P.librosa_config())):
+            try:
+                pipe(cfg)
+            except RuntimeError:
+                pass
+            else:
+                raise AssertionError(pipe.__name__ + " built without CUDA")
         assert P.mfcc(x, 16000, device="cpu").shape == (98, 13)
+        assert P.mel_spectrogram_librosa(x, 16000, device="cpu").shape == (128, 32)
+        assert P.log_mel_spectrogram(x, 16000, device="cpu").shape == (128, 32)
+        assert P.mfcc_librosa(x, 16000, device="cpu").shape == (20, 32)
+        assert P.LibrosaMelPipeline(P.librosa_config(), device="cpu")(
+            torch.from_numpy(x)).shape == (128, 32)
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -102,6 +111,23 @@ def test_constants_equal_reference(name, cfg):
     if jk.mfcc_pallas_supported(cfg):
         for a, b in zip(jk._mfcc_constants(cfg), pk._mfcc_constants(pcfg)):
             assert np.array_equal(a, b), name
+
+
+LIBROSA_PRESETS = [
+    ("librosa 22050/2048", (), {}),
+    ("librosa 16k 512/160", (16000,), dict(n_fft=512, hop_length=160, n_mels=80)),
+    ("librosa win 1024, fmin/fmax", (22050,), dict(win_length=1024, fmin=30.0, fmax=8000.0,
+                                                  n_mfcc=13, power=1.0)),
+]
+
+
+@pytest.mark.parametrize("name,args,kw", LIBROSA_PRESETS, ids=[p[0] for p in LIBROSA_PRESETS])
+def test_librosa_preset_equals_reference(name, args, kw):
+    jcfg = m.librosa_config(*args, **kw)
+    pcfg = P.librosa_config(*args, **kw)
+    assert pcfg == P.from_reference(dataclasses.asdict(jcfg)), name
+    assert (pcfg.frame_size, pcfg.frame_step, pcfg.win_length) == \
+        (jcfg.frame_size, jcfg.frame_step, jcfg.win_length)
 
 
 def test_from_reference_rejects_unknown_fields():
