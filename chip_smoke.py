@@ -14,11 +14,13 @@ launch count set to 0, failing unless the path's kernel launched:
   ``ct_mel``, then ``log_mel_spectrogram`` and ``mfcc_librosa``.
 
 Then it holds each kernel to its plain PyTorch version on the card
-(max|Δ|/max|ref| <= 1e-4: the kernels sum in another order than cuBLAS, and
-K2 factors the FFT otherwise), each path to its float64 oracle in
+(max|Δ|/max|ref| <= 1e-4: K1 runs an FFT where its plain version multiplies
+by a DFT matrix, and K2 factors the FFT otherwise), K1 at the headline also
+to a float64 rfft computation, each path to its float64 oracle in
 ``tests/golden/`` at the reference's float32 gate, the autograd gradients to
-the plain paths', and times each kernel, its plain version and a yardstick
-with CUDA events after an L2 flush.
+the plain paths', and times each kernel, its plain version and a cuFFT
+yardstick (library calls the port never makes) with CUDA events after an L2
+flush.  K1's entry of the kernels line names the FFT path it took.
 
 Any failed check raises, so the exit code is not 0.  Without a CUDA device
 it exits 1 before printing any result.  The last lines are the card's
@@ -72,12 +74,16 @@ def rel_err(a, ref) -> tuple:
 
 def cuda_ms(torch, fn, reps: int, flush) -> list:
     """Per-call device times in ms (CUDA events), each call after an L2
-    flush: the main path meets a freshly uploaded batch, not a warm cache."""
+    flush: the main path meets a freshly uploaded batch, not a warm cache.
+    A ~1 ms device spin after the flush keeps the card busy while the host
+    queues the start event, the call and the end event, so the host's own
+    launch time does not enter the interval as idle device time."""
     fn()
     torch.cuda.synchronize()
     out = []
     for _ in range(reps):
         flush()
+        torch.cuda._sleep(2_000_000)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -114,6 +120,59 @@ def k2_work(k2, cfg, batch: int, t: int) -> tuple:
     per_frame += 19.0 * kmax + 2.0 * wpack.size
     nbytes = 4.0 * (batch * t + frames * m + 3 * n + wpack.size) + 12.0 * m
     return frames * per_frame, nbytes
+
+
+def k1_work(k1, cfg, batch: int, t: int) -> tuple:
+    """(operations, bytes) of one speechpy_mfcc call on (batch, t) samples,
+    counted from K1's own design (speechpy_mfcc.cu), a multiply-add as two:
+    the sum of squares, the FFT passes (path 1 multiplies every input after
+    the first pass by its twiddle, path 2 only where k != 0, as k2_work
+    counts), the real split and power of the kmax bins, the projection over
+    each filter's nonzero bins and the DCT; every input read once, the output
+    written once."""
+    n, hop, fl = cfg.fft_points, cfg.frame_step, cfg.frame_size
+    m, c = cfg.num_filters, cfg.num_cepstral
+    nc = n // 2
+    _, wpack, _, _, kmax = k1._kernel_constants(cfg)
+    frames = batch * max((t - fl) // hop, 0)
+    butterfly = {2: 4.0, 4: 16.0, 8: 56.0}
+    per_frame, ns = 2.0 * fl, 1
+    for radix in k1.stage_plan(n):
+        if radix in butterfly:
+            if k1.fft_path(n) == 1:
+                twiddled = 1.0 if ns > 1 else 0.0
+            else:
+                twiddled = (ns - 1) / ns
+            per_frame += nc / radix * (butterfly[radix] + 6.0 * (radix - 1) * twiddled)
+        else:
+            per_frame += 8.0 * nc * radix  # the odd part's direct DFT
+        ns *= radix
+    per_frame += 19.0 * kmax + 2.0 * wpack.size
+    per_frame += 2.0 * m * (c - 1 if cfg.dc_elimination else c) + 8.0
+    nbytes = 4.0 * (batch * t + frames * c + 2 * n + wpack.size + 3 * m + m * c)
+    return frames * per_frame, nbytes
+
+
+def mfcc_float64(np, torch, x, cfg):
+    """The speechpy MFCC of x (B, T) in float64 on x's device, by rfft:
+    frames of fl samples every hop (F = (T - fl) // hop), |X|^2 / n, the
+    filterbank, f32-eps zero handling, log, the DCT, log frame energy in
+    column 0 (dc_elimination)."""
+    from mfcc_rust_tpu_torch.constants import constant_bundle
+
+    n, hop, fl = cfg.fft_points, cfg.frame_step, cfg.frame_size
+    b = constant_bundle(cfg)
+    fb = torch.as_tensor(b["fbank"].T, dtype=torch.float64, device=x.device)
+    dct = torch.as_tensor(b["dct"], dtype=torch.float64, device=x.device)
+    eps = float(np.finfo(np.float32).eps)
+    fr = x.double().unfold(-1, fl, hop)[:, :(x.shape[-1] - fl) // hop]
+    spec = torch.fft.rfft(fr, n=n)
+    mel = (spec.abs() ** 2 / n) @ fb
+    out = torch.log(torch.where(mel == 0, eps, mel)) @ dct
+    if cfg.dc_elimination:
+        en = (n * (fr * fr).sum(-1) + spec[..., 0].real ** 2 + spec[..., n // 2].real ** 2) / (2 * n)
+        out[..., 0] = torch.log(torch.where(en == 0, eps, en))
+    return out
 
 
 def librosa_phase(np, torch, P, k1, k2, flush) -> tuple:
@@ -314,6 +373,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import mfcc_rust_tpu_torch as P
     from mfcc_rust_tpu_torch import features as PF
+    from mfcc_rust_tpu_torch.config import fp32_matmul
+    from mfcc_rust_tpu_torch.constants import constant_bundle
     from mfcc_rust_tpu_torch.ops import framing
     from mfcc_rust_tpu_torch.ops.cuda import build
     from mfcc_rust_tpu_torch.ops.cuda import ct_mel as k2
@@ -333,7 +394,7 @@ def main() -> int:
     log(f"build: {k1.KERNEL}, {k2.KERNEL} in {record['build_s']:.3f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("registers", "spill", "smem", "entry function")):
                 log(f"  ptxas {name}: {line.strip()}")
     lib = k1._lib()
     lib2 = k2._lib()
@@ -344,12 +405,16 @@ def main() -> int:
         assert lib2.ct_mel_smem_bytes(mc.fft_points, g, nnz) == \
             k2.smem_bytes(mc.fft_points, g, nnz), "ct_mel smem mirror"
     cfg = P.speechpy_config(RATE)
-    wall, _, _, _, r, hop, fl = k1._mfcc_constants(cfg)
-    m, c = cfg.num_filters, cfg.num_cepstral
-    for mc in (cfg, cfg.replace(frame_length=0.025), cfg.replace(fft_points=1024)):
-        wc, _, _, _, rc, hc, _ = k1._mfcc_constants(mc)
-        assert lib.mfcc_fused_smem_bytes(hc, rc, mc.num_filters, wc.shape[1]) == \
-            k1.smem_bytes(hc, rc, mc.num_filters, wc.shape[1]), "smem mirror"
+    hop, fl = cfg.frame_step, cfg.frame_size
+    for n in range(2, 4098, 2):
+        assert lib.mfcc_fft_path(n) == k1.fft_path(n), ("fft path mirror", n)
+    for mc in (cfg, cfg.replace(frame_length=0.025), cfg.replace(fft_points=1024),
+               cfg.replace(fft_points=400, frame_length=0.025), cfg.replace(fft_points=256),
+               cfg.replace(fft_points=2048, fft_impl="matmul")):
+        _, wp, _, _, km = k1._kernel_constants(mc)
+        for warps in (1, 8):
+            a = (mc.fft_points, mc.frame_step, mc.frame_size, km, wp.size, mc.num_filters, warps)
+            assert lib.mfcc_fft_smem_bytes(*a) == k1.smem_bytes(*a), ("smem mirror", a)
 
     # ------------------------------------------------------ main path, once --
     rng = np.random.default_rng(0)
@@ -369,9 +434,13 @@ def main() -> int:
         raise AssertionError("the main path did not launch the speechpy_mfcc kernel")
     log(f"main path: mfcc({BATCH} x {t_true}) -> {tuple(feats.shape)} in {first_s:.3f} s "
         f"(first call); {k1.KERNEL} launches: {launches}")
+    t_main = bucket_length(t_true)  # the length the main path hands the kernel
+    f_main = (t_main - fl) // hop
+    plan = k1.launch_plan(cfg, BATCH, f_main)
+    log(f"K1 launch plan at ({BATCH}, {t_main}): {plan}")
+    assert plan["path"] == 1, "the headline must take the register-resident FFT"
 
     # ------------------------------------- K1 against its plain version -----
-    t_main = bucket_length(t_true)  # the length the main path hands the kernel
     x = torch.from_numpy(audio).to(dev)
     x_main = torch.nn.functional.pad(x, (0, t_main - t_true))
     out_k = k1.mfcc_fused(x_main, cfg)
@@ -380,6 +449,13 @@ def main() -> int:
     headline_rel, headline_abs = rel_err(out_k, out_p)
     log(f"K1 vs plain at ({BATCH}, {t_main}): rel {headline_rel:.3e} abs {headline_abs:.3e}")
     assert headline_rel <= REL_TOL, headline_rel
+    ref64 = mfcc_float64(np, torch, x_main, cfg)
+    k_rel64, _ = rel_err(out_k, ref64)
+    p_rel64, _ = rel_err(out_p, ref64)
+    c_rel64, _ = rel_err(PF.mfcc(x_main, cfg.replace(pallas="off")), ref64)
+    log(f"vs float64 rfft at ({BATCH}, {t_main}): K1 rel {k_rel64:.3e}, plain {p_rel64:.3e}, "
+        f"chunk-GEMM path {c_rel64:.3e}")
+    assert k_rel64 <= REL_TOL, k_rel64
     assert rel_err(feats, out_k[:, :n_frames])[0] == 0.0, "main path differs from the kernel"
 
     small = [
@@ -387,7 +463,10 @@ def main() -> int:
         ("10/10 r=1", cfg.replace(frame_length=0.01), (2, 16000)),
         ("dc_elimination=False", cfg.replace(dc_elimination=False), (2, 16000)),
         ("preemphasis 0.97", cfg.replace(preemphasis_cof=0.97), (2, 16000)),
-        ("fft 1024, W > 288 in two passes", cfg.replace(fft_points=1024), (2, 16000)),
+        ("fft 1024", cfg.replace(fft_points=1024), (2, 16000)),
+        ("fft 400, path 2", cfg.replace(fft_points=400, frame_length=0.025), (2, 16000)),
+        ("fft 256", cfg.replace(fft_points=256, frame_length=0.016), (2, 16000)),
+        ("T no multiple of 4 or hop", cfg, (3, 16001)),
         ("batched 3-D", cfg, (2, 3, 8000)),
         ("T < fl", cfg, (300,)),
     ]
@@ -408,9 +487,9 @@ def main() -> int:
         if name == "T < fl":
             assert got.shape == (0, 13), tuple(got.shape)
         record["small"][name] = {"rel": r1, "abs": a1, "rel_vs_chunk_gemm": r2,
-                                 "shape": list(got.shape)}
-        log(f"K1 vs plain, {name} {shape}: rel {r1:.3e} (vs chunk-GEMM path {r2:.3e}) "
-            f"-> {tuple(got.shape)}")
+                                 "shape": list(got.shape), "path": k1.fft_path(scfg.fft_points)}
+        log(f"K1 vs plain, {name} {shape}, path {k1.fft_path(scfg.fft_points)}: rel {r1:.3e} "
+            f"(vs chunk-GEMM path {r2:.3e}) -> {tuple(got.shape)}")
 
     # ------------------------------------------- main path vs the oracle ----
     sig = rng.normal(0.0, 0.1, RATE)
@@ -436,11 +515,31 @@ def main() -> int:
     flush_buf = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)  # 128 MB
     flush = lambda: flush_buf.zero_()
     off = cfg.replace(pallas="off")
+    fb_t = torch.as_tensor(constant_bundle(cfg)["fbank"].T, dtype=torch.float32, device=dev)
+    dct_t = torch.as_tensor(constant_bundle(cfg)["dct"], dtype=torch.float32, device=dev)
+
+    eps = float(np.finfo(np.float32).eps)
+
+    def library():
+        """cuFFT yardstick the port never calls: rfft of the unfolded frames,
+        |X|^2 / N, the dense filterbank, zero handling, log, the DCT (no
+        energy column)."""
+        with fp32_matmul():
+            spec = torch.fft.rfft(x_main.unfold(-1, fl, hop)[:, :f_main], n=cfg.fft_points)
+            mel = spec.abs() ** 2 / cfg.fft_points @ fb_t
+            return torch.log(torch.where(mel == 0, eps, mel)) @ dct_t
+
+    # cuFFT's DC bin is a float32 sum, so on the headline it sits as far off
+    # float64 as the chunk-GEMM path: held to the float32 gate there
+    lib_rel, _ = rel_err(library()[..., 1:], ref64[..., 1:])
+    log(f"cuFFT yardstick vs float64 (cepstra 1..): rel {lib_rel:.3e} (limit {ORACLE_TOL})")
+    assert lib_rel <= ORACLE_TOL, ("yardstick disagrees", lib_rel)
     runs = {"kernel": lambda: k1.mfcc_fused(x_main, cfg),
             "plain": lambda: k1.mfcc_fused_plain(x_main, cfg),
-            "chunk_gemm": lambda: PF.mfcc(x_main, off)}
+            "chunk_gemm": lambda: PF.mfcc(x_main, off), "library": library}
     times = {k: [] for k in runs}
-    for order in (("plain", "kernel", "chunk_gemm"), ("chunk_gemm", "kernel", "plain")):
+    for order in (("plain", "kernel", "chunk_gemm", "library"),
+                  ("library", "chunk_gemm", "kernel", "plain")):
         for k in order:
             times[k] += cuda_ms(torch, runs[k], 10, flush)
     med = {k: statistics.median(v) for k, v in times.items()}
@@ -454,10 +553,7 @@ def main() -> int:
     api_s = statistics.median(host)
     clocks = smi("clocks.sm,power.draw,power.limit,temperature.gpu")
 
-    f_main = (t_main - fl) // hop
-    kdim, w = wall.shape
-    flops = 2.0 * BATCH * f_main * (kdim * w + w * (m + 1) + m * c)
-    nbytes = 4.0 * (BATCH * t_main + BATCH * f_main * c + kdim * w + w * (m + 1) + m * c)
+    flops, nbytes = k1_work(k1, cfg, BATCH, t_main)
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     bound_ms = 1e3 * max(t_ops, t_bytes)
     audio_s = BATCH * SECONDS
@@ -468,6 +564,7 @@ def main() -> int:
         f"{flops / med['kernel'] / 1e9:.3f} TFLOP/s achieved")
     log(f"audio-s/s: kernel {audio_s / med['kernel'] * 1e3:.1f}, "
         f"chunk-GEMM path {audio_s / med['chunk_gemm'] * 1e3:.1f}, "
+        f"cuFFT yardstick {audio_s / med['library'] * 1e3:.1f}, "
         f"api.mfcc from host numpy {audio_s / api_s:.1f} ({api_s * 1e3:.3f} ms)")
     log(f"clocks.sm, power.draw, power.limit, temperature: {clocks}")
 
@@ -479,12 +576,14 @@ def main() -> int:
         "launches": launches, "max_abs_err": headline_abs,
         "ms": med["kernel"], "plain_ms": med["plain"], "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
+        "library_ms": med["library"], "path": plan["path"],
     }, k2_entry]
     record.update({
         "main_path": {"shape": [BATCH, t_true], "bucket": t_main, "launches": launches,
                       "first_call_s": first_s, "api_ms": api_s * 1e3, "api_ms_all": [h * 1e3 for h in host]},
-        "headline": {"rel": headline_rel, "abs": headline_abs},
+        "headline": {"rel": headline_rel, "abs": headline_abs, "library_rel": lib_rel,
+                     "rel_float64": {"kernel": k_rel64, "plain": p_rel64, "chunk_gemm": c_rel64}},
+        "plan": plan,
         "oracle_rel": oracle_rel, "grad_rel": grad_rel,
         "times_ms": times, "median_ms": med, "flops": flops, "bytes": nbytes,
         "clocks": clocks, "kernels": kernels,

@@ -2,8 +2,8 @@
 
 Each ``<name>.cu`` has a plain C interface and is compiled by one ``nvcc``
 call into ``_build/lib<name>-<hash>.so`` for ``sm_90a``, then loaded with
-``ctypes``.  The hash covers the source and the flags, so an edited source
-builds anew.  ``nvcc`` is called directly rather than through
+``ctypes``.  The hash covers the source, the shared ``*.cuh`` headers it
+may include and the flags, so an edited source or header builds anew.  ``nvcc`` is called directly rather than through
 ``torch.utils.cpp_extension.load``: that needs ``ninja`` and compiles
 PyTorch's headers, which takes minutes where a plain C file takes seconds.
 A failed build raises.
@@ -44,6 +44,7 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = (HERE / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(HERE.glob("*.cuh")))  # the shared headers
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

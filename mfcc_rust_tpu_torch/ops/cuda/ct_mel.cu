@@ -13,7 +13,8 @@
 // complex FFT is Stockham's self-sorting Cooley-Tukey: radix-4 stages, one
 // radix-2 stage when log2 of the power-of-two part is odd, then one direct
 // DFT stage for the odd part m of Nc (none when Nc is a power of two), each
-// stage reading one buffer of shared memory and writing the other.
+// stage reading one buffer of shared memory and writing the other.  The
+// stages and the split live in fft_stages.cuh, which speechpy_mfcc.cu shares.
 //
 // What bounds it.  At the librosa main path (n 2048, 128 slaney mels) the
 // FFT is ~45 kFLOP a frame, the split, power and sparse projection ~25 kFLOP
@@ -44,15 +45,14 @@
 //   blocks fit on an SM and the L1 keeps room for the table and window.
 //
 // Work mapping: 256 threads, 256/G of them on each frame of the block, a
-// block barrier between stages.  Ns is a power of two through the radix-4
-// and radix-2 stages, so indices are masks and shifts: no loop divides by a
-// run-time size.  Stage reads in[j + q*Nc/R] are consecutive over j; writes
-// land at (j >> lg) << (lg + log2 R) + (j & (Ns - 1)) + r*Ns.
+// block barrier between stages.
 //
 // The C interface is loaded with ctypes (ops/cuda/ct_mel.py): it launches on
 // the caller's stream, allocates nothing and returns the CUDA error code.
 
 #include <cuda_runtime.h>
+
+#include "fft_stages.cuh"
 
 namespace {
 
@@ -73,14 +73,6 @@ struct Layout {
     total = wts + round4(nnz);
   }
 };
-
-// a * W with W = (cos, sin) standing for cos - i sin
-__device__ __forceinline__ float2 cmulw(float2 a, float2 w) {
-  return make_float2(fmaf(a.x, w.x, a.y * w.y), fmaf(a.y, w.x, -a.x * w.y));
-}
-
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
-__device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
 
 __global__ void __launch_bounds__(kThreads, 3)
 ct_mel_kernel(const float* __restrict__ sig, const float* __restrict__ win,
@@ -116,85 +108,17 @@ ct_mel_kernel(const float* __restrict__ sig, const float* __restrict__ win,
   for (int i = threadIdx.x; i < nnz; i += kThreads) wts[i] = __ldg(wpack + i);
   __syncthreads();
 
-  // Stockham stages, radix 4 and 2 first so that Ns = 1 << lg;
-  // W_{Ns R}^{k q} = W_n^{k q step} with step = 2 Nc / (Ns R)
-  int src = 0;
-  int lg = 0;
-  for (int s = 0; s < n4; ++s) {
-    const int q4 = nc / 4;
-    const int step = 2 * (nc / (4 << lg));
-    const float2* in = bufs(src);
-    float2* ob = bufs(src ^ 1);
-    for (int j = lt; j < q4; j += tpf) {
-      const int k = j & ((1 << lg) - 1);
-      float2 a0 = in[j], a1 = in[j + q4], a2 = in[j + 2 * q4], a3 = in[j + 3 * q4];
-      if (k) {
-        const int t1 = k * step;
-        a1 = cmulw(a1, __ldg(tw + t1));
-        a2 = cmulw(a2, __ldg(tw + 2 * t1));
-        a3 = cmulw(a3, __ldg(tw + 3 * t1));
-      }
-      const float2 s0 = cadd(a0, a2), d0 = csub(a0, a2);
-      const float2 s1 = cadd(a1, a3), d1 = csub(a1, a3);
-      float2* o = ob + ((j >> lg) << (lg + 2)) + k;
-      o[0] = cadd(s0, s1);
-      o[1 << lg] = make_float2(d0.x + d1.y, d0.y - d1.x);  // d0 - i d1
-      o[2 << lg] = csub(s0, s1);
-      o[3 << lg] = make_float2(d0.x - d1.y, d0.y + d1.x);  // d0 + i d1
-    }
-    src ^= 1;
-    lg += 2;
-    __syncthreads();
-  }
-  if (has2) {
-    const int h = nc / 2;
-    const int step = 2 * (nc / (2 << lg));
-    const float2* in = bufs(src);
-    float2* ob = bufs(src ^ 1);
-    for (int j = lt; j < h; j += tpf) {
-      const int k = j & ((1 << lg) - 1);
-      const float2 a0 = in[j];
-      const float2 a1 = k ? cmulw(in[j + h], __ldg(tw + k * step)) : in[j + h];
-      float2* o = ob + ((j >> lg) << (lg + 1)) + k;
-      o[0] = cadd(a0, a1);
-      o[1 << lg] = csub(a0, a1);
-    }
-    src ^= 1;
-    lg += 1;
-    __syncthreads();
-  }
-  if (m_odd > 1) {
-    // the odd part last, a direct DFT of p = m_odd points: Ns * p = Nc, so
-    // j < Ns and b_r = sum_q a_q W_Nc^{j q} W_p^{q r} lands at j + r Ns
-    const int p = m_odd;
-    const int ns = 1 << lg;
-    const float2* in = bufs(src);
-    float2* ob = bufs(src ^ 1);
-    for (int it = lt; it < nc; it += tpf) {
-      const int j = it / p;
-      const int r = it - j * p;
-      float2 acc = make_float2(0.f, 0.f);
-      for (int q = 0; q < p; ++q) {
-        const long long e = 2LL * q * ((long long)j + (long long)r * ns);
-        acc = cadd(acc, cmulw(in[j + q * ns], __ldg(tw + (int)(e % n))));
-      }
-      ob[j + r * ns] = acc;
-    }
-    src ^= 1;
-    __syncthreads();
-  }
+  // Stockham stages (fft_stages.cuh), a block barrier after each
+  const int src = fft::stockham(buf0, buf1, tw, nc, n, m_odd, n4, has2, lt, tpf,
+                                fft::BlockSync{});
 
   // real split and power of the kmax bins the filterbank needs, into the
-  // free buffer: E = (Z[k] + conj Z[Nc-k])/2, O = -i (Z[k] - conj Z[Nc-k])/2
+  // free buffer
   {
     const float2* z = bufs(src);
     float* pw = reinterpret_cast<float*>(bufs(src ^ 1));
     for (int k = lt; k < kmax; k += tpf) {
-      const float2 zk = z[k == nc ? 0 : k];
-      const float2 zm = z[k == 0 ? 0 : nc - k];
-      const float2 e = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
-      const float2 o = make_float2(0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
-      const float2 x = cadd(e, cmulw(o, __ldg(tw + k)));
+      const float2 x = fft::real_split([z](int i) { return z[i]; }, k, nc, tw);
       pw[k] = fmaf(x.x, x.x, x.y * x.y);
     }
   }

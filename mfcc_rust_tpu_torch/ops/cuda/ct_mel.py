@@ -78,6 +78,29 @@ def ct_mel_supported(cfg: FeatureConfig) -> bool:
             and frames_per_block(n, _kernel_constants(cfg)[2].size) > 0)
 
 
+def twiddle_table(n: int) -> np.ndarray:
+    """(n, 2) float32 (cos, sin)(2πj/n) from float64: W_n^j of the kernels'
+    FFTs (``fft_stages.cuh``)."""
+    ang = 2.0 * np.pi * np.arange(n) / n
+    return np.ascontiguousarray(np.stack([np.cos(ang), np.sin(ang)], axis=1), np.float32)
+
+
+def pack_filterbank(fb: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """A (M, K) filterbank packed for the kernels' sparse projections: wpack
+    (nnz,) float32, each filter's weights over its nonzero bins [lo, hi) in
+    turn, and ranges (M, 3) int32 (lo, hi, offset into wpack); an all-zero
+    filter gets lo = hi = 0."""
+    k = fb.shape[1]
+    nz = fb != 0
+    any_nz = nz.any(axis=1)
+    lo = np.where(any_nz, np.argmax(nz, axis=1), 0)
+    hi = np.where(any_nz, k - np.argmax(nz[:, ::-1], axis=1), 0)
+    off = np.concatenate([[0], np.cumsum(hi - lo)[:-1]])
+    wpack = np.concatenate([fb[i, lo[i]:hi[i]] for i in range(fb.shape[0])])
+    return (np.ascontiguousarray(wpack, np.float32),
+            np.ascontiguousarray(np.stack([lo, hi, off], axis=1), np.int32))
+
+
 @functools.lru_cache(maxsize=16)
 def _kernel_constants(cfg: FeatureConfig):
     """float32 numpy constants: win (n,), tw (n, 2) = (cos, sin)(2πj/n),
@@ -85,19 +108,9 @@ def _kernel_constants(cfg: FeatureConfig):
     turn, ranges (M, 3) int32 (lo, hi, offset into wpack), and kmax =
     max(hi), the bins the kernel computes."""
     bundle = constant_bundle(cfg)
-    fb = bundle["fbank"]
-    n, k = cfg.fft_points, fb.shape[1]
-    nz = fb != 0
-    any_nz = nz.any(axis=1)
-    lo = np.where(any_nz, np.argmax(nz, axis=1), 0)
-    hi = np.where(any_nz, k - np.argmax(nz[:, ::-1], axis=1), 0)
-    off = np.concatenate([[0], np.cumsum(hi - lo)[:-1]])
-    wpack = np.concatenate([fb[i, lo[i]:hi[i]] for i in range(fb.shape[0])])
-    ang = 2.0 * np.pi * np.arange(n) / n
-    f32 = lambda x: np.ascontiguousarray(x, np.float32)
-    return (f32(bundle["window"]), f32(np.stack([np.cos(ang), np.sin(ang)], axis=1)),
-            f32(wpack), np.ascontiguousarray(np.stack([lo, hi, off], axis=1), np.int32),
-            int(hi.max(initial=0)))
+    wpack, ranges = pack_filterbank(bundle["fbank"])
+    return (np.ascontiguousarray(bundle["window"], np.float32), twiddle_table(cfg.fft_points),
+            wpack, ranges, int(ranges[:, 1].max(initial=0)))
 
 
 @functools.lru_cache(maxsize=16)

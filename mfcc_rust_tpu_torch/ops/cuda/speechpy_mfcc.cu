@@ -1,256 +1,565 @@
-// Fused speechpy MFCC for Hopper (sm_90a), plain FP32.
+// Fused speechpy MFCC for Hopper (sm_90a), plain FP32: one FFT per frame.
 //
-// Replaces the TPU kernel mfcc_rust_tpu/ops/pallas/speechpy_mfcc.py
-// (mfcc_pallas / _kernel).  Same lowering: the frame matrix is never built;
-// frame f of a hop-chunked signal is the contiguous run of r*hop samples
-// starting at f*hop, so
+// Replaces the TPU kernel mfcc_rust_tpu/ops/pallas/speechpy_mfcc.py:155
+// (mfcc_pallas / _kernel).  Frame f of row b is the fl samples at f*hop,
+// zero-padded to n = fft_points (rect window); for each frame
 //
-//   y   = big @ wall            wall = [C_trim | S_trim | w | ±w]  (K x W)
-//   s2  = sum(big^2 over the first fl samples)          (Parseval, emask)
-//   P   = (y*y) @ proj          proj = [fb/N | e-select]          (W x M+1)
-//   en  = (N*s2 + P[:, M]) / 2N
-//   out = log(zh(P[:, :M])) @ dct,  out[:, 0] = log(zh(en)) with dc_elim
+//   X   = rFFT_n(frame)              a complex FFT of nc = n/2 points of
+//                                    z[t] = x[2t] + i x[2t+1], then the split
+//   mel = sum_k fb[m, k]/n |X_k|^2   over each filter's nonzero bins k < kmax
+//   en  = (n sum_{t<fl} x_t^2 + X_0^2 + X_{n/2}^2) / 2n          (Parseval)
+//   out = log(zh(mel)) @ dct,  out[0] = log(zh(en)) with dc_elim
 //
-// What bounds it: the chunk GEMM, 2*F*K*W operations per batch row (8.0
-// GFLOP of the 9.0 at the B=48 x 10 s headline) against 30.7 MB read, so it
-// is compute-bound in FP32.  The design keeps every intermediate (y, y*y,
-// P, the logs) in shared memory and writes only the (B, F, C) answer.
+// and only the (B, F, C) answer is written.
 //
-// Layout.  The TPU kernel holds a whole chunk row per batch element in
-// VMEM (640 KB at 10 s), which does not fit in shared memory, so the frame
-// axis is tiled instead: one block per (tile of TF frames, batch row),
-// staging (TF + r - 1)*hop samples, which includes the r-1 chunk halo.
-// 8 warps; warp w owns frames 8w..8w+7 of the tile, lane l owns columns
-// l + 32j (j < 9) of a 288-column pass over W, so the signal operand is a
-// warp-wide broadcast from shared memory and the wall operand a
-// conflict-free row read.  The wall streams through shared memory KT rows
-// at a time.  W > 288 takes several passes, each adding its share of P.
-// Each warp projects its own frames' y*y onto P, so the projection needs no
-// block-wide barrier; when one pass covers W, y*y reuses the space of the
-// signal and wall tiles, which keeps a block near 90 KB at the default
-// config and lets two blocks (16 warps) share an SM.
+// The TPU kernel evaluates the DFT as a dense GEMM against a [C|S|w|±w]
+// wall to fill its MXU, ~190 kFLOP a frame at the default config (fl 320,
+// n 512, 40 mels), and projects onto the filterbank densely.  The FFT form
+// needs ~11 kFLOP: the split and power of the kmax = 129 bins the filters
+// weigh, and a sparse projection (a bin feeds at most two speechpy filters).
+//
+// What bounds it.  At the B=48 x 177,664 headline this design counts ~0.6
+// GFLOP (~0.009 ms at the FP32 peak) against 36.9 MB that must move (each
+// sample read once, each cepstrum written once: 0.011 ms at 3.35 TB/s), so
+// the bound is the bytes, with the operations close behind.  What the kernel
+// waits on in practice is the shared-memory traffic between FFT passes and
+// the latency of its loads, so:
+//
+// * Samples are read once from device memory.  A block stages the samples of
+//   a tile of kTileF consecutive frames of one row, (kTileF-1)*hop + fl of
+//   them, into shared memory with cp.async: 16-byte copies where the global
+//   and shared addresses agree modulo 16 (the slab is shifted by the tile's
+//   misalignment, so any T and hop work), 4-byte copies at the ragged head
+//   and tail, zeros past the row's end.  The slab is double-buffered over a
+//   persistent grid (as many blocks as are resident at once), so the next
+//   tile's copy overlaps this tile's work.  No frame matrix is built.
+// * Path 1, nc a power of two from 64 to 512 (n 128 ... 1024; the headline
+//   n 512): a register-resident FFT with no block barrier.  TPF = min(32,
+//   nc/8) lanes of one warp own a frame and each holds P = nc/TPF (8 or 16)
+//   complex points in registers.  The passes are radix 8, 8 and nc/64 in
+//   Stockham order with the butterflies in registers; between two passes
+//   the points go through the frame's own bank-padded shared buffers under
+//   __syncwarp.  Twiddles come from one n-entry table through the read-only
+//   cache.
+// * Path 2, every other even n (400, 2048, ...): the shared-memory Stockham
+//   stages of fft_stages.cuh, which ct_mel.cu shares, one warp a frame and
+//   __syncwarp between stages.
+// * Only the kmax bins any filter weighs are split and squared.  X_0 and
+//   X_{n/2} (the DC bin, the energy) are float64 sums of the frame (see
+//   frame_tail).  Each filter sums its nonzero range of the packed weights
+//   fb/n, which sit in shared memory with the ranges.
+// * Log, the DCT-II ortho (read through the read-only cache) and
+//   dc-elimination run on the warp's own frames, so nothing but the tile's
+//   slab needs a block barrier.
 //
 // The C interface is loaded with ctypes (ops/cuda/speechpy_mfcc.py): it
 // launches on the caller's stream, allocates nothing and returns the CUDA
 // error code of the launch.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "fft_stages.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kFramesPerWarp = 8;
-constexpr int kTileF = kWarps * kFramesPerWarp;  // frames per block
-constexpr int kColsPerLane = 9;
-constexpr int kPassW = 32 * kColsPerLane;  // wall columns per pass
-constexpr int kTileK = 32;                 // wall rows staged per step
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxSmem = 232448;           // 227 KB, the per-block limit
+constexpr int kTileF = 32;     // frames of a tile
+constexpr int kMaxWarps = 8;   // warps of a block
+constexpr int kMaxSmem = 232448;  // 227 KB, the per-block limit
 
-__host__ __device__ inline long long round4(long long n) { return (n + 3) / 4 * 4; }
+__host__ __device__ constexpr long long round4(long long n) { return (n + 3) / 4 * 4; }
 
-// Shared-memory layout in floats: [slab | wall tile] (or y*y over both when
-// one pass covers W), then y*y of a pass (several passes), P, s2.
+// Path 1 when nc = n/2 is a power of two from 64 to 512, else path 2.
+__host__ __device__ inline int fft_path(int n) {
+  const int nc = n / 2;
+  return (n % 2 == 0 && nc >= 64 && nc <= 512 && (nc & (nc - 1)) == 0) ? 1 : 2;
+}
+
+// lanes of a path-1 frame
+__host__ __device__ constexpr int lanes_per_frame(int nc) { return nc >= 256 ? 32 : nc / 8; }
+
+// index into a path-1 exchange buffer: one float skipped every eight, so
+// the scattered writes of a pass and the strided reads of the next spread
+// over the banks
+__host__ __device__ constexpr int pad8(int i) { return i + (i >> 3); }
+
+// Shared memory in floats: two slabs of a tile's samples (each with 3 floats
+// of room for the alignment shift), the packed weights, the ranges (ints),
+// then each warp's scratch.  Path 1, per frame of the warp: the re and im
+// exchange buffers (pad8(nc) each), the power spectrum (kmax) and the log
+// mels (M).  Path 2: two Stockham buffers of nc complex values (the power
+// spectrum reuses the one the last stage did not write) and the log mels.
 struct Layout {
-  long long slab, ysq, pacc, s2, total;
-  __host__ __device__ Layout(int hop, int r, int m, int w) {
-    const long long slab_len = round4((long long)(kTileF + r - 1) * hop);
-    const long long stage = slab_len + (long long)kTileK * kPassW;
-    const long long ysq_len = (long long)kTileF * kPassW;
-    slab = 0;
-    long long body;
-    if (w <= kPassW) {
-      ysq = 0;
-      body = stage > ysq_len ? stage : ysq_len;
+  long long slab, wts, rng, warp, frame, per_warp, total;
+  __host__ __device__ Layout(int n, int hop, int fl, int kmax, int nnz, int m, int warps) {
+    const int nc = n / 2;
+    slab = round4((long long)(kTileF - 1) * hop + fl + 3);
+    wts = 2 * slab;
+    rng = wts + round4(nnz);
+    warp = rng + round4(3LL * m);
+    if (fft_path(n) == 1) {
+      frame = 2 * round4(pad8(nc)) + round4(kmax) + round4(m);
+      per_warp = (32 / lanes_per_frame(nc)) * frame;
     } else {
-      ysq = stage;
-      body = stage + ysq_len;
+      frame = 0;
+      per_warp = 2 * round4(n) + round4(m);
     }
-    pacc = body;
-    s2 = pacc + round4((long long)kTileF * (m + 1));
-    total = s2 + kTileF;
+    total = warp + (long long)warps * per_warp;
   }
 };
 
-__global__ void __launch_bounds__(kThreads, 2)
-mfcc_fused_kernel(const float* __restrict__ sig, const float* __restrict__ wall,
-                  const float* __restrict__ proj, const float* __restrict__ dct,
-                  float* __restrict__ out, long long T, int F, int hop, int r,
-                  int fl, int W, int M, int C, int n_fft, int dc_elim,
-                  float eps) {
-  extern __shared__ __align__(16) float smem[];
-  const Layout lay(hop, r, M, W);
-  const int K = r * hop;
-  const int M1 = M + 1;
-  const int slab_len = (kTileF + r - 1) * hop;
-  float* slab = smem + lay.slab;           // (TF + r - 1) * hop samples
-  float* wt = slab + round4(slab_len);     // kTileK x kPassW wall rows
-  float* ysq = smem + lay.ysq;             // per warp: kPassW x 8 frames
-  float* pacc = smem + lay.pacc;           // TF x (M+1), P
-  float* s2 = smem + lay.s2;               // TF, sum of squares
+struct Args {
+  const float* sig;
+  const float2* tw;      // (n,) (cos, sin)(2 pi j / n)
+  const float* wpack;    // (nnz,) each filter's weights fb/n over [lo, hi)
+  const int* ranges;     // (M, 3) lo, hi, offset into wpack
+  const float* dct;      // (M, C)
+  float* out;            // (B, F, C)
+  long long T, n_tiles;
+  int F, tiles_per_row, hop, fl, n, m_odd, n4, has2, kmax, nnz, M, C, dc_elim;
+  float eps;
+};
 
-  const int n_tiles = (F + kTileF - 1) / kTileF;
-  const int b = blockIdx.x / n_tiles;
-  const int f0 = (blockIdx.x - b * n_tiles) * kTileF;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const long long start = (long long)f0 * hop;
-  const float* x = sig + (long long)b * T + start;
-  const long long avail = T - start;
+// ------------------------------------------------------------- cp.async ----
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
 
-  // samples past the end of the signal read as zeros: they only reach
-  // frames past F (not written) or zero wall rows (hop-misaligned frames)
-  for (int i = tid; i < slab_len; i += kThreads) slab[i] = i < avail ? __ldg(x + i) : 0.f;
-  for (int i = tid; i < kTileF * M1; i += kThreads) pacc[i] = 0.f;
-  __syncthreads();
+// A tile's samples sit at slab + head: head is the misalignment of its first
+// sample in floats, so a sample and its slot agree modulo 16 bytes.
+__device__ __forceinline__ int tile_head(const float* x) { return (int)(((uintptr_t)x >> 2) & 3); }
 
-  // Parseval term: the first fl samples of each frame only (emask), so the
-  // zero wall rows of hop-misaligned frames add nothing
-  for (int i = 0; i < kFramesPerWarp; ++i) {
-    const int f = warp * kFramesPerWarp + i;
-    const float* fr = slab + f * hop;
-    float acc = 0.f;
-    for (int k = lane; k < fl; k += 32) acc = fmaf(fr[k], fr[k], acc);
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == 0) s2[f] = acc;
-  }
+// Start the copy of len samples from x (avail of them before the row's end)
+// into slab + head; the rest are zeros.  Every thread of the block takes part.
+__device__ __forceinline__ void stage_tile(float* slab, const float* x, int avail, int len) {
+  const int head = tile_head(x);
+  const int pre = min((4 - head) & 3, avail);
+  const int n16 = (avail - pre) / 4;
+  const int tail = pre + 4 * n16;
+  float* s = slab + head;
+  for (int i = threadIdx.x; i < pre; i += blockDim.x) cp_async4(s + i, x + i);
+  for (int v = threadIdx.x; v < n16; v += blockDim.x) cp_async16(s + pre + 4 * v, x + pre + 4 * v);
+  for (int i = tail + threadIdx.x; i < avail; i += blockDim.x) cp_async4(s + i, x + i);
+  for (int i = avail + threadIdx.x; i < len; i += blockDim.x) s[i] = 0.f;
+}
 
-  const float* xw = slab + warp * kFramesPerWarp * hop;
-  float* yw = ysq + warp * kFramesPerWarp * kPassW;  // this warp's y*y
-  for (int c0 = 0; c0 < W; c0 += kPassW) {
-    float acc[kFramesPerWarp][kColsPerLane];
-#pragma unroll
-    for (int i = 0; i < kFramesPerWarp; ++i)
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < K; k0 += kTileK) {
-      const int kn = min(kTileK, K - k0);
-      __syncthreads();  // the previous wall tile is consumed
-      for (int kk = warp; kk < kTileK; kk += kWarps) {
-        float* dst = wt + kk * kPassW;
-        for (int c = lane; c < kPassW; c += 32)
-          dst[c] = (kk < kn && c0 + c < W)
-                       ? __ldg(wall + (long long)(k0 + kk) * W + c0 + c)
-                       : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < kn; ++kk) {
-        float a[kFramesPerWarp];
-        float w[kColsPerLane];
-#pragma unroll
-        for (int i = 0; i < kFramesPerWarp; ++i) a[i] = xw[i * hop + k0 + kk];
-#pragma unroll
-        for (int j = 0; j < kColsPerLane; ++j) w[j] = wt[kk * kPassW + lane + 32 * j];
-#pragma unroll
-        for (int i = 0; i < kFramesPerWarp; ++i)
-#pragma unroll
-          for (int j = 0; j < kColsPerLane; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-      }
+// ------------------------------------------------------- frame epilogue ----
+// Split and power of the kmax bins, sparse mel, log, DCT and energy of one
+// frame whose FFT Z sits in shared memory (z(i) reads Z[i]); tpf lanes of
+// one warp, lane lt.  X_0 = sum x_t and X_{n/2} = sum (-1)^t x_t come from
+// the caller, summed in float64: the DC bin is real and cancels (on random
+// frames |X_0|^2 falls to 1e-11 of its mean), and a speechpy bank's first
+// filter weighs that bin alone, so its log would carry the FFT's rounding.
+// out is the frame's row of C, or null for a frame past F.  Ends with the
+// warp in step, the frame's buffers free again.
+template <class ZAt>
+__device__ __forceinline__ void frame_tail(ZAt z, float* pw, float* lm, float s2, float x0,
+                                           float xn, const Args& A, const float* wts,
+                                           const int* rng, float* out, int lt, int tpf) {
+  const int nc = A.n / 2;
+  for (int k = lt; k < A.kmax; k += tpf) {
+    if (k == 0 || k == nc) {
+      pw[k] = k ? xn * xn : x0 * x0;
+    } else {
+      const float2 x = fft::real_split(z, k, nc, A.tw);
+      pw[k] = fmaf(x.x, x.x, x.y * x.y);
     }
-    // y*y of this pass, column-major over the warp's 8 frames; columns past
-    // W are zero (their wall columns were).  With one pass it overwrites
-    // the signal and wall tiles, so every warp must be done with them.
-    if (W <= kPassW) __syncthreads();
+  }
+  __syncwarp();
+  for (int m = lt; m < A.M; m += tpf) {
+    const int lo = rng[3 * m], hi = rng[3 * m + 1];
+    const float* w = wts + rng[3 * m + 2] - lo;
+    float acc = 0.f;
+    for (int k = lo; k < hi; ++k) acc = fmaf(w[k], pw[k], acc);
+    lm[m] = logf(acc == 0.f ? A.eps : acc);  // zero handling (f32 epsilon)
+  }
+  __syncwarp();
+  if (out) {
+    for (int c = lt; c < A.C; c += tpf) {
+      float v;
+      if (A.dc_elim && c == 0) {
+        const float en = ((float)A.n * s2 + (x0 * x0 + xn * xn)) * (1.f / (2.f * (float)A.n));
+        v = logf(en == 0.f ? A.eps : en);
+      } else {
+        v = 0.f;
+        for (int m = 0; m < A.M; ++m) v = fmaf(lm[m], __ldg(A.dct + m * A.C + c), v);
+      }
+      out[c] = v;
+    }
+  }
+  __syncwarp();
+}
+
+// --------------------------------------------- path 1: FFT in registers ----
+template <int NC>
+struct P1 {
+  static constexpr int TPF = lanes_per_frame(NC);
+  static constexpr int P = NC / TPF;     // points a lane holds, 8 or 16
+  static constexpr int FPW = 32 / TPF;   // frames a warp holds at once
+  static constexpr int BUF = (int)round4(pad8(NC));
+};
+
+// in-place R-point DFT, natural order in and out
+template <int R>
+__device__ __forceinline__ void dft(float2 (&v)[R]) {
+  if constexpr (R == 2) {
+    const float2 a = v[0];
+    v[0] = fft::cadd(a, v[1]);
+    v[1] = fft::csub(a, v[1]);
+  } else if constexpr (R == 4) {
+    const float2 s0 = fft::cadd(v[0], v[2]), d0 = fft::csub(v[0], v[2]);
+    const float2 s1 = fft::cadd(v[1], v[3]), d1 = fft::csub(v[1], v[3]);
+    v[0] = fft::cadd(s0, s1);
+    v[1] = make_float2(d0.x + d1.y, d0.y - d1.x);  // d0 - i d1
+    v[2] = fft::csub(s0, s1);
+    v[3] = make_float2(d0.x - d1.y, d0.y + d1.x);  // d0 + i d1
+  } else {
+    static_assert(R == 8, "radix 2, 4 or 8");
+    float2 e[4] = {v[0], v[2], v[4], v[6]};
+    float2 o[4] = {v[1], v[3], v[5], v[7]};
+    dft<4>(e);
+    dft<4>(o);
+    const float c = 0.70710678118654752f;
+    o[1] = make_float2((o[1].x + o[1].y) * c, (o[1].y - o[1].x) * c);   // W8
+    o[2] = make_float2(o[2].y, -o[2].x);                                 // W8^2 = -i
+    o[3] = make_float2((o[3].y - o[3].x) * c, -(o[3].x + o[3].y) * c);  // W8^3
 #pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) {
-      float* d = yw + (lane + 32 * j) * kFramesPerWarp;
-      *reinterpret_cast<float4*>(d) =
-          make_float4(acc[0][j] * acc[0][j], acc[1][j] * acc[1][j],
-                      acc[2][j] * acc[2][j], acc[3][j] * acc[3][j]);
-      *reinterpret_cast<float4*>(d + 4) =
-          make_float4(acc[4][j] * acc[4][j], acc[5][j] * acc[5][j],
-                      acc[6][j] * acc[6][j], acc[7][j] * acc[7][j]);
+    for (int k = 0; k < 4; ++k) {
+      v[k] = fft::cadd(e[k], o[k]);
+      v[k + 4] = fft::csub(e[k], o[k]);
+    }
+  }
+}
+
+// One Stockham pass of radix R over sub-transforms of NS points.  Lane lt
+// holds point lt + TPF*q in a[q] and runs the butterflies lt + TPF*u (u <
+// P/R), whose inputs are all its own; outputs go to their Stockham places
+// (b / NS) * NS * R + k + r * NS of the exchange buffers.
+template <int NC, int R, int NS>
+__device__ __forceinline__ void pass(float2 (&a)[P1<NC>::P], float* re, float* im,
+                                     const float2* __restrict__ tw, int lt) {
+  constexpr int TPF = P1<NC>::TPF, U = P1<NC>::P / R;
+  constexpr int STEP = 2 * NC / (NS * R);  // W_{NS R}^{k q} = W_n^{k q STEP}
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    float2 v[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) v[q] = a[u + q * U];
+    const int b = lt + TPF * u;
+    const int k = b & (NS - 1);
+    if constexpr (NS > 1) {
+#pragma unroll
+      for (int q = 1; q < R; ++q) v[q] = fft::cmulw(v[q], __ldg(tw + k * q * STEP));
+    }
+    dft<R>(v);
+    const int base = (b - k) * R + k;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = pad8(base + r * NS);
+      re[i] = v[r].x;
+      im[i] = v[r].y;
+    }
+  }
+}
+
+template <int NC>
+__device__ __forceinline__ void gather(float2 (&a)[P1<NC>::P], const float* re, const float* im,
+                                       int lt) {
+#pragma unroll
+  for (int q = 0; q < P1<NC>::P; ++q) {
+    const int i = pad8(lt + P1<NC>::TPF * q);
+    a[q] = make_float2(re[i], im[i]);
+  }
+}
+
+// nc = 8 * 8 * (NC / 64): the last pass writes Z in natural order
+template <int NC>
+__device__ __forceinline__ void fft_regs(float2 (&a)[P1<NC>::P], float* re, float* im,
+                                         const float2* __restrict__ tw, int lt) {
+  pass<NC, 8, 1>(a, re, im, tw, lt);
+  __syncwarp();
+  gather<NC>(a, re, im, lt);
+  __syncwarp();
+  pass<NC, 8, 8>(a, re, im, tw, lt);
+  if constexpr (NC > 64) {
+    __syncwarp();
+    gather<NC>(a, re, im, lt);
+    __syncwarp();
+    pass<NC, NC / 64, 64>(a, re, im, tw, lt);
+  }
+  __syncwarp();
+}
+
+// The frames of a tile on path 1: warp w's frame groups take frames
+// w*FPW + g, then every nw*FPW further (the same count for every lane).
+template <int NC>
+__device__ __forceinline__ void tile_path1(const Args& A, const float* slab, float* scratch,
+                                           long long frame_floats, const float* wts,
+                                           const int* rng, int f0, float* out_row, int warp,
+                                           int lane, int nw) {
+  using Q = P1<NC>;
+  const int g = lane / Q::TPF;
+  const int lt = lane - g * Q::TPF;
+  float* re = scratch + g * frame_floats;
+  float* im = re + Q::BUF;
+  float* pw = im + Q::BUF;
+  float* lm = pw + round4(A.kmax);
+  for (int s = warp * Q::FPW + g; s < kTileF; s += nw * Q::FPW) {
+    const float* x = slab + s * A.hop;
+    float2 a[Q::P];
+    float s2 = 0.f;
+    double d0 = 0.0, dn = 0.0;
+#pragma unroll
+    for (int q = 0; q < Q::P; ++q) {
+      const int i = 2 * (lt + Q::TPF * q);  // samples past fl are the zero pad
+      const float x0 = i < A.fl ? x[i] : 0.f;
+      const float x1 = i + 1 < A.fl ? x[i + 1] : 0.f;
+      s2 = fmaf(x0, x0, fmaf(x1, x1, s2));
+      d0 += (double)x0 + (double)x1;
+      dn += (double)x0 - (double)x1;
+      a[q] = make_float2(x0, x1);
+    }
+    fft_regs<NC>(a, re, im, A.tw, lt);
+#pragma unroll
+    for (int o = Q::TPF / 2; o > 0; o >>= 1) {
+      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+      d0 += __shfl_xor_sync(0xffffffffu, d0, o);
+      dn += __shfl_xor_sync(0xffffffffu, dn, o);
+    }
+    const int f = f0 + s;
+    frame_tail([re, im](int i) { return make_float2(re[pad8(i)], im[pad8(i)]); }, pw, lm, s2,
+               (float)d0, (float)dn, A, wts, rng,
+               f < A.F ? out_row + (long long)f * A.C : nullptr, lt, Q::TPF);
+  }
+}
+
+// ------------------------------------ path 2: Stockham in shared memory ----
+__device__ __forceinline__ void tile_path2(const Args& A, const float* slab, float* scratch,
+                                           const float* wts, const int* rng, int f0,
+                                           float* out_row, int warp, int lane, int nw) {
+  const int nc = A.n / 2;
+  float2* buf0 = reinterpret_cast<float2*>(scratch);
+  float2* buf1 = reinterpret_cast<float2*>(scratch + round4(A.n));
+  float* lm = scratch + 2 * round4(A.n);
+  for (int s = warp; s < kTileF; s += nw) {
+    const float* x = slab + s * A.hop;
+    float s2 = 0.f;
+    double d0 = 0.0, dn = 0.0;
+    for (int t = lane; t < nc; t += 32) {
+      const int i = 2 * t;
+      const float x0 = i < A.fl ? x[i] : 0.f;
+      const float x1 = i + 1 < A.fl ? x[i + 1] : 0.f;
+      s2 = fmaf(x0, x0, fmaf(x1, x1, s2));
+      d0 += (double)x0 + (double)x1;
+      dn += (double)x0 - (double)x1;
+      buf0[t] = make_float2(x0, x1);
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+      d0 += __shfl_xor_sync(0xffffffffu, d0, o);
+      dn += __shfl_xor_sync(0xffffffffu, dn, o);
     }
     __syncwarp();
-    // P[warp's frames, j] += (y*y) @ proj over this pass's columns; lane l
-    // owns the P columns l and l + 32 (M + 1 <= 64) or loops for more
-    const int wn = min(kPassW, W - c0);
-    for (int j0 = 0; j0 < M1; j0 += 64) {
-      const int ja = j0 + lane;
-      const int jb = j0 + 32 + lane;
-      const bool oka = ja < M1;
-      const bool okb = jb < M1;
-      float pa[kFramesPerWarp], pb[kFramesPerWarp];
-#pragma unroll
-      for (int i = 0; i < kFramesPerWarp; ++i) pa[i] = pb[i] = 0.f;
-      const float* pr = proj + (long long)c0 * M1;
-#pragma unroll 2
-      for (int c = 0; c < wn; ++c) {
-        const float va = oka ? __ldg(pr + (long long)c * M1 + ja) : 0.f;
-        const float vb = okb ? __ldg(pr + (long long)c * M1 + jb) : 0.f;
-        const float4 y0 = *reinterpret_cast<const float4*>(yw + c * kFramesPerWarp);
-        const float4 y1 = *reinterpret_cast<const float4*>(yw + c * kFramesPerWarp + 4);
-        const float yv[kFramesPerWarp] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
-#pragma unroll
-        for (int i = 0; i < kFramesPerWarp; ++i) {
-          pa[i] = fmaf(yv[i], va, pa[i]);
-          pb[i] = fmaf(yv[i], vb, pb[i]);
-        }
-      }
-      float* prow = pacc + warp * kFramesPerWarp * M1;
-#pragma unroll
-      for (int i = 0; i < kFramesPerWarp; ++i) {
-        if (oka) prow[i * M1 + ja] += pa[i];
-        if (okb) prow[i * M1 + jb] += pb[i];
-      }
-    }
+    const int src = fft::stockham(buf0, buf1, A.tw, nc, A.n, A.m_odd, A.n4, A.has2, lane, 32,
+                                  fft::WarpSync{});
+    const float2* z = src ? buf1 : buf0;
+    float* pw = reinterpret_cast<float*>(src ? buf0 : buf1);
+    const int f = f0 + s;
+    frame_tail([z](int i) { return z[i]; }, pw, lm, s2, (float)d0, (float)dn, A, wts, rng,
+               f < A.F ? out_row + (long long)f * A.C : nullptr, lane, 32);
   }
-  __syncthreads();
+}
 
-  // zero handling (f32 epsilon) and log of the mel energies, in place
-  for (int o = tid; o < kTileF * M; o += kThreads) {
-    const int f = o / M;
-    const int m = o - f * M;
-    const float v = pacc[f * M1 + m];
-    pacc[f * M1 + m] = logf(v == 0.f ? eps : v);
+// ------------------------------------------------------------- kernel ----
+// NC > 0: path 1 for that nc; NC == 0: path 2.  A persistent loop over the
+// tiles (row b, frames f0 .. f0 + kTileF - 1) with the next tile's slab in
+// flight while this one is worked on.
+template <int NC>
+__global__ void __launch_bounds__(kMaxWarps * 32, 2) mfcc_fft_kernel(const Args A) {
+  extern __shared__ __align__(16) float smem[];
+  const int nw = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const Layout lay(A.n, A.hop, A.fl, A.kmax, A.nnz, A.M, nw);
+  float* wts = smem + lay.wts;
+  int* rng = reinterpret_cast<int*>(smem + lay.rng);
+  float* scratch = smem + lay.warp + warp * lay.per_warp;
+  for (int i = threadIdx.x; i < A.nnz; i += blockDim.x) wts[i] = __ldg(A.wpack + i);
+  for (int i = threadIdx.x; i < 3 * A.M; i += blockDim.x) rng[i] = __ldg(A.ranges + i);
+
+  const int len = (kTileF - 1) * A.hop + A.fl;
+  auto tile_x = [&](long long t, long long& b, int& f0) {
+    b = t / A.tiles_per_row;
+    f0 = (int)(t - b * A.tiles_per_row) * kTileF;
+    return A.sig + b * A.T + (long long)f0 * A.hop;
+  };
+  auto stage = [&](long long t, int buf) {
+    long long b;
+    int f0;
+    const float* x = tile_x(t, b, f0);
+    const long long left = A.T - (long long)f0 * A.hop;
+    stage_tile(smem + buf * lay.slab, x, (int)(left < len ? left : len), len);
+  };
+
+  long long t = blockIdx.x;
+  int cur = 0;
+  if (t < A.n_tiles) stage(t, cur);
+  cp_async_commit();
+  for (; t < A.n_tiles; t += gridDim.x) {
+    if (t + gridDim.x < A.n_tiles) stage(t + gridDim.x, cur ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copy is done; the next may run on
+    __syncthreads();
+    long long b;
+    int f0;
+    const float* x = tile_x(t, b, f0);
+    const float* slab = smem + cur * lay.slab + tile_head(x);
+    float* out_row = A.out + b * A.F * A.C;
+    if constexpr (NC > 0)
+      tile_path1<NC>(A, slab, scratch, lay.frame, wts, rng, f0, out_row, warp, lane, nw);
+    else
+      tile_path2(A, slab, scratch, wts, rng, f0, out_row, warp, lane, nw);
+    __syncthreads();  // every warp is done with this slab before it refills
+    cur ^= 1;
   }
-  __syncthreads();
+  cp_async_wait<0>();
+}
 
-  // DCT-II ortho M -> C, and log frame energy into column 0 (dc_elim)
-  const float inv2n = 1.f / (2.f * (float)n_fft);
-  for (int o = tid; o < kTileF * C; o += kThreads) {
-    const int f = o / C;
-    const int c = o - f * C;
-    if (f0 + f >= F) continue;
-    const float* lm = pacc + f * M1;
-    float v;
-    if (dc_elim && c == 0) {
-      const float en = ((float)n_fft * s2[f] + lm[M]) * inv2n;
-      v = logf(en == 0.f ? eps : en);
-    } else {
-      v = 0.f;
-      for (int m = 0; m < M; ++m) v = fmaf(lm[m], __ldg(dct + m * C + c), v);
-    }
-    out[((long long)b * F + f0 + f) * C + c] = v;
+// Launch shape: path, warps, dynamic shared memory, resident blocks per SM
+// and the grid.  warps: the most (of 8, 4, 2, 1) for which two blocks share
+// an SM, else the most for which one block fits.
+struct Plan {
+  int path, warps, blocks_per_sm, grid;
+  long long smem;
+};
+
+template <int NC>
+cudaError_t plan_for(Plan& p, long long n_tiles) {
+  auto kern = mfcc_fft_kernel<NC>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)p.smem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.blocks_per_sm, kern, p.warps * 32,
+                                                    (size_t)p.smem);
+  if (e != cudaSuccess) return e;
+  if (p.blocks_per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long resident = (long long)p.blocks_per_sm * sms;
+  p.grid = (int)(n_tiles < resident ? n_tiles : resident);
+  return cudaSuccess;
+}
+
+template <int NC>
+cudaError_t launch_as(const Args& A, const Plan& p, cudaStream_t stream) {
+  mfcc_fft_kernel<NC><<<p.grid, p.warps * 32, (size_t)p.smem, stream>>>(A);
+  return cudaGetLastError();
+}
+
+cudaError_t make_plan(Plan& p, int n, int hop, int fl, int kmax, int nnz, int m,
+                      long long n_tiles) {
+  p.path = fft_path(n);
+  p.warps = 0;
+  for (int w = kMaxWarps; w >= 1 && !p.warps; w /= 2)
+    if (Layout(n, hop, fl, kmax, nnz, m, w).total * 4 <= kMaxSmem / 2) p.warps = w;
+  for (int w = kMaxWarps; w >= 1 && !p.warps; w /= 2)
+    if (Layout(n, hop, fl, kmax, nnz, m, w).total * 4 <= kMaxSmem) p.warps = w;
+  if (!p.warps || n_tiles <= 0) return cudaErrorInvalidValue;
+  p.smem = Layout(n, hop, fl, kmax, nnz, m, p.warps).total * (long long)sizeof(float);
+  if (p.path == 2) return plan_for<0>(p, n_tiles);
+  switch (n / 2) {
+    case 64: return plan_for<64>(p, n_tiles);
+    case 128: return plan_for<128>(p, n_tiles);
+    case 256: return plan_for<256>(p, n_tiles);
+    default: return plan_for<512>(p, n_tiles);
   }
 }
 
 }  // namespace
 
-extern "C" long long mfcc_fused_smem_bytes(int hop, int r, int m, int w) {
-  return Layout(hop, r, m, w).total * (long long)sizeof(float);
+extern "C" int mfcc_fft_path(int n) { return fft_path(n); }
+
+extern "C" long long mfcc_fft_smem_bytes(int n, int hop, int fl, int kmax, int nnz, int m,
+                                         int warps) {
+  return Layout(n, hop, fl, kmax, nnz, m, warps).total * (long long)sizeof(float);
 }
 
-// sig (B, T), wall (r*hop, W), proj (W, M+1), dct (M, C), out (B, F, C):
-// contiguous float32 on the current device.  Returns a cudaError_t.
-extern "C" int mfcc_fused_launch(const float* sig, const float* wall,
-                                 const float* proj, const float* dct,
-                                 float* out, int B, long long T, int F,
-                                 int hop, int r, int fl, int W, int M, int C,
-                                 int n_fft, int dc_elim, float eps,
-                                 void* stream) {
-  const long long smem = mfcc_fused_smem_bytes(hop, r, M, W);
-  const long long blocks = (long long)B * ((F + kTileF - 1) / kTileF);
-  if (smem > kMaxSmem || B <= 0 || F <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      mfcc_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The launch shape for n_tiles tiles on the current device: info = (path,
+// warps, shared bytes, blocks per SM, grid).  Returns a cudaError_t.
+extern "C" int mfcc_fft_plan(int n, int hop, int fl, int kmax, int nnz, int m,
+                             long long n_tiles, long long* info) {
+  Plan p;
+  const cudaError_t e = make_plan(p, n, hop, fl, kmax, nnz, m, n_tiles);
   if (e != cudaSuccess) return (int)e;
-  mfcc_fused_kernel<<<(unsigned)blocks, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
-      sig, wall, proj, dct, out, T, F, hop, r, fl, W, M, C, n_fft, dc_elim, eps);
-  return (int)cudaGetLastError();
+  info[0] = p.path;
+  info[1] = p.warps;
+  info[2] = p.smem;
+  info[3] = p.blocks_per_sm;
+  info[4] = p.grid;
+  return 0;
+}
+
+// sig (B, T), tw (n, 2) = (cos, sin)(2 pi j / n), wpack (nnz,), ranges (M, 3)
+// int32 (lo, hi, offset into wpack) with hi <= kmax <= n/2 + 1, dct (M, C),
+// out (B, F, C): contiguous on the current device, F = (T - fl) // hop > 0.
+// n/2 = m_odd * 4^n4 * 2^has2 with m_odd odd (path 2's stages).  Returns a
+// cudaError_t.
+extern "C" int mfcc_fft_launch(const float* sig, const float* tw, const float* wpack,
+                               const int* ranges, const float* dct, float* out, int B,
+                               long long T, int F, int hop, int fl, int n, int m_odd, int n4,
+                               int has2, int kmax, int nnz, int M, int C, int dc_elim,
+                               float eps, void* stream) {
+  long long prod = m_odd;
+  for (int s = 0; s < n4; ++s) prod *= 4;
+  if (has2) prod *= 2;
+  if (B <= 0 || F <= 0 || hop <= 0 || fl <= 0 || fl > n || n % 2 || m_odd % 2 == 0 ||
+      prod != n / 2 || kmax > n / 2 + 1 || nnz < 0 || M <= 0 || C <= 0 ||
+      (long long)(F - 1) * hop + fl > T)
+    return (int)cudaErrorInvalidValue;
+  Args A;
+  A.sig = sig;
+  A.tw = reinterpret_cast<const float2*>(tw);
+  A.wpack = wpack;
+  A.ranges = ranges;
+  A.dct = dct;
+  A.out = out;
+  A.T = T;
+  A.F = F;
+  A.tiles_per_row = (F + kTileF - 1) / kTileF;
+  A.n_tiles = (long long)B * A.tiles_per_row;
+  A.hop = hop;
+  A.fl = fl;
+  A.n = n;
+  A.m_odd = m_odd;
+  A.n4 = n4;
+  A.has2 = has2;
+  A.kmax = kmax;
+  A.nnz = nnz;
+  A.M = M;
+  A.C = C;
+  A.dc_elim = dc_elim;
+  A.eps = eps;
+  Plan p;
+  cudaError_t e = make_plan(p, n, hop, fl, kmax, nnz, M, A.n_tiles);
+  if (e != cudaSuccess) return (int)e;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (p.path == 2) return (int)launch_as<0>(A, p, s);
+  switch (n / 2) {
+    case 64: return (int)launch_as<64>(A, p, s);
+    case 128: return (int)launch_as<128>(A, p, s);
+    case 256: return (int)launch_as<256>(A, p, s);
+    default: return (int)launch_as<512>(A, p, s);
+  }
 }
 
 extern "C" const char* mfcc_cuda_error_string(int e) {

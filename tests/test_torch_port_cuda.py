@@ -6,9 +6,9 @@ file imports no JAX, so that it runs where JAX is not installed:
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -q
 
 (``--noconftest``: ``tests/conftest.py`` sets JAX up for the reference's
-tests.)  Tolerance 1e-4 in max|Δ|/max|ref|: the kernel's FMA loops sum the
-320-long products in another order than cuBLAS, and the log of a small band
-energy turns that rounding into its relative error; the CT mel kernel
+tests.)  Tolerance 1e-4 in max|Δ|/max|ref|: the MFCC kernel runs an FFT
+where its plain version multiplies by a DFT matrix, and the log of a small
+band energy turns that rounding into its relative error; the CT mel kernel
 factors the FFT otherwise than its plain version.  ``mfcc_librosa`` is held
 at rtol 1e-3, atol 1e-4, the reference's own tolerance for its kernel."""
 
@@ -31,6 +31,10 @@ CONFIGS = [
     ("T < fl", {}, (300,)),
     ("128 mels", {"num_filters": 128, "num_cepstral": 40}, (2, 8000)),
     ("fft 1024, two passes", {"fft_points": 1024}, (2, 8000)),
+    ("fft 400, path 2", {"fft_points": 400, "frame_length": 0.025}, (2, 8000)),
+    ("fft 256", {"fft_points": 256, "frame_length": 0.016}, (2, 8000)),
+    ("T no multiple of 4 or hop", {}, (3, 8001)),
+    ("headline", {}, (48, 177664)),
 ]
 
 
@@ -59,6 +63,14 @@ def test_kernel_matches_plain_on_card(cuda_device, name, kw, shape):
     out = PF.mfcc(xd, cfg)
     torch.cuda.synchronize()
     assert pk.mfcc_fused.launches == before + (1 if out.shape[-2] else 0)
+    xp = xd if not cfg.preemphasis_cof else PF._framing.preemphasis(xd, 1, cfg.preemphasis_cof)
+    assert rel(pk.mfcc_fused(xp, cfg), pk.mfcc_fused_plain(xp, cfg)) <= 1e-4, name
+    if name == "headline":
+        # the chunk-GEMM path takes the DC bin from a float32 product: among
+        # 53k random frames some X_0 nearly cancels, and that path then sits
+        # 2e-4 to 6e-4 off a float64 computation (PERF.md), where the kernel
+        # and its plain version sum X_0 in float64
+        return
     assert rel(out, PF.mfcc(xd, cfg.replace(pallas="off"))) <= 1e-4, name
     assert rel(out, PF.mfcc(x, cfg.replace(pallas="off"))) <= 1e-4, name
 

@@ -10,6 +10,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import mfcc_rust_tpu as m
 from mfcc_rust_tpu import constants as jc
@@ -17,6 +18,7 @@ from mfcc_rust_tpu.ops.pallas import speechpy_mfcc as jk
 
 import mfcc_rust_tpu_torch as P
 from mfcc_rust_tpu_torch import constants as pc
+from mfcc_rust_tpu_torch import features as PF
 from mfcc_rust_tpu_torch.ops.cuda import speechpy_mfcc as pk
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -109,8 +111,13 @@ def test_constants_equal_reference(name, cfg):
         jv, pv = jc.vorbis_chunk_wall(cfg), pc.vorbis_chunk_wall(pcfg)
         assert all(np.array_equal(jv[k], pv[k]) for k in jv)
     if jk.mfcc_pallas_supported(cfg):
-        for a, b in zip(jk._mfcc_constants(cfg), pk._mfcc_constants(pcfg)):
-            assert np.array_equal(a, b), name
+        # the TPU kernel's constants are those of the port's plain version
+        wall, proj, dct, emask, r, hop, fl = jk._mfcc_constants(cfg)
+        pt = PF._speechpy_tensors(pcfg, torch.device("cpu"), torch.float32)
+        for a, k in ((wall, "wall"), (proj, "proj"), (dct, "dct")):
+            assert np.array_equal(a, pt[k].numpy()), (name, k)
+        assert pk._shape(pcfg, pt["wall"]) == (r, hop, fl), name
+        assert np.array_equal(emask[0], np.arange(r * hop) < fl), name
 
 
 LIBROSA_PRESETS = [

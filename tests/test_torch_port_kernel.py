@@ -107,7 +107,8 @@ def test_support_predicate_matches_jax(name, kw):
 def test_support_predicate_drops_tpu_lane_bound():
     pcfg = P.speechpy_config(16000, num_filters=128)
     assert pk.mfcc_kernel_supported(pcfg)
-    assert pk.smem_bytes(160, 2, 128, 260) <= 232448
+    _, wpack, _, _, kmax = pk._kernel_constants(pcfg)
+    assert pk.smem_bytes(512, 160, 320, kmax, wpack.size, 128, 8) <= 232448
     # a tile that cannot fit in shared memory is refused, not launched
     assert not pk.mfcc_kernel_supported(
         P.speechpy_config(16000, fft_points=4096, frame_length=0.2,
