@@ -20,7 +20,9 @@ to a float64 rfft computation, each path to its float64 oracle in
 ``tests/golden/`` at the reference's float32 gate, the autograd gradients to
 the plain paths', and times each kernel, its plain version and a cuFFT
 yardstick (library calls the port never makes) with CUDA events after an L2
-flush.  K1's entry of the kernels line names the FFT path it took.
+flush.  Each kernel's entry of the kernels line names the FFT path it took
+at the headline (path 1, the register FFT, for both), and the launch plans
+are printed.
 
 Any failed check raises, so the exit code is not 0.  Without a CUDA device
 it exits 1 before printing any result.  The last lines are the card's
@@ -97,13 +99,13 @@ def cuda_ms(torch, fn, reps: int, flush) -> list:
 L_BATCH, L_RATE = 32, 22050
 
 
-def k2_work(k2, cfg, batch: int, t: int) -> tuple:
+def k2_work_stockham(k2, cfg, batch: int, t: int) -> tuple:
     """(operations, bytes) of one ct_mel call on (batch, t) uncentred
-    samples, counted from K2's own design (ct_mel.cu), a multiply-add as
-    two: the window, the Stockham stages (a twiddle only where k != 0), the
-    real split and power of the kmax bins the filterbank needs, and the
-    projection over each filter's nonzero bins; every input read once, the
-    output written once."""
+    samples, counted from the design of K2's path 2 (v4, ct_mel.cu's
+    ct_mel_kernel), a multiply-add as two: the window, the Stockham stages
+    (a twiddle only where k != 0), the real split and power of the kmax bins
+    the filterbank needs, and the projection over each filter's nonzero
+    bins; every input read once, the output written once."""
     n, hop, m = cfg.fft_points, cfg.frame_step, cfg.num_filters
     nc = n // 2
     m_odd, n4, has2 = k2.fft_plan(n)
@@ -120,6 +122,36 @@ def k2_work(k2, cfg, batch: int, t: int) -> tuple:
     per_frame += 19.0 * kmax + 2.0 * wpack.size
     nbytes = 4.0 * (batch * t + frames * m + 3 * n + wpack.size) + 12.0 * m
     return frames * per_frame, nbytes
+
+
+# operations of fft_regs.cuh's dft<R>: the halves, the W_R^k products that
+# are not 1 or -i (6 each), the butterflies (4 each)
+DFT_OPS = {2: 4.0, 4: 16.0, 8: 56.0, 16: 180.0, 32: 508.0}
+
+
+def k2_work(k2, cfg, batch: int, t: int) -> tuple:
+    """(operations, bytes) of one ct_mel call on (batch, t) uncentred
+    samples, counted from the design of the path K2 takes: path 2 as
+    k2_work_stockham counts; path 1 the window, the register passes (every
+    input after the first pass times its twiddle; at nc = 1024 the 31
+    products a lane that make the last pass's twiddles, and W_n^k of the
+    split as a product of two), the real split and power of the kmax bins,
+    and the projection over each filter's nonzero bins.  Bytes as path 2's."""
+    if k2.path_for(cfg) == 2:
+        return k2_work_stockham(k2, cfg, batch, t)
+    n, hop = cfg.fft_points, cfg.frame_step
+    nc = n // 2
+    _, _, wpack, _, kmax = k2._kernel_constants(cfg)
+    frames = batch * (1 + (t - n) // hop)
+    radices = (32, 32) if nc == 1024 else (8, 8) + ((nc // 64,) if nc > 64 else ())
+    per_frame, ns = float(n), 1
+    for radix in radices:
+        per_frame += nc / radix * (DFT_OPS[radix] + (6.0 * (radix - 1) if ns > 1 else 0.0))
+        ns *= radix
+    per_frame += 19.0 * kmax + 2.0 * wpack.size
+    if nc == 1024:
+        per_frame += 32 * 31 * 6.0 + 6.0 * kmax
+    return frames * per_frame, k2_work_stockham(k2, cfg, batch, t)[1]
 
 
 def k1_work(k1, cfg, batch: int, t: int) -> tuple:
@@ -217,6 +249,10 @@ def librosa_phase(np, torch, P, k1, k2, flush) -> tuple:
     # -------------------------- K2 against its plain version, main shape --
     cfg = P.librosa_config(L_RATE)
     x_main, cfg_main, count = PA._prep_librosa(audio, cfg, True, None)
+    plan = k2.launch_plan(cfg_main, L_BATCH, 1 + (x_main.shape[1] - 2048) // 512)
+    log(f"K2 launch plan at {tuple(x_main.shape)}: {plan}")
+    assert plan["path"] == 1, "the librosa headline must take K2's register FFT (path 1)"
+    rec["plan"] = plan
     out_k = k2.ct_mel(x_main, cfg_main)
     out_p = k2.ct_mel_plain(x_main, cfg_main)
     torch.cuda.synchronize()
@@ -238,6 +274,11 @@ def librosa_phase(np, torch, P, k1, k2, flush) -> tuple:
          (2, 16000)),
         ("2048/768", P.librosa_config(16000, n_fft=2048, hop_length=768), (2, 16000)),
         ("2048/100", P.librosa_config(22050, hop_length=100), (2, 16000)),
+        ("2048/333, odd hop", P.librosa_config(22050, hop_length=333), (2, 16001)),
+        ("256/64", P.librosa_config(8000, n_fft=256, n_mels=40), (2, 8000)),
+        ("768/192, path 2", P.librosa_config(16000, n_fft=768, n_mels=64), (2, 16000)),
+        ("4096/1024, path 2", P.librosa_config(44100, n_fft=4096), (2, 30000)),
+        ("T no multiple of 4", cfg, (3, 16003)),
         ("center=False", cfg.replace(center=False), (2, 22050)),
         ("1-D", cfg, (22050,)),
         ("3-D", cfg, (2, 3, 8000)),
@@ -258,8 +299,9 @@ def librosa_phase(np, torch, P, k1, k2, flush) -> tuple:
             assert got.shape == (128, 1), tuple(got.shape)
         if name == "100 samples, uncentred":
             assert got.shape == (128, 0), tuple(got.shape)
-        rec["small"][name] = {"rel": r1, "abs": a1, "shape": list(got.shape)}
-        log(f"K2 vs plain path, {name} {shape}: rel {r1:.3e} -> {tuple(got.shape)}")
+        path = k2.path_for(scfg)
+        rec["small"][name] = {"rel": r1, "abs": a1, "shape": list(got.shape), "path": path}
+        log(f"K2 vs plain path, {name} {shape}, path {path}: rel {r1:.3e} -> {tuple(got.shape)}")
 
     xs = torch.from_numpy(rng.normal(0.0, 0.1, (2, 22050)).astype(np.float32)).to(dev)
     a = PF.mfcc_librosa(xs, cfg).cpu().numpy()
@@ -312,6 +354,12 @@ def librosa_phase(np, torch, P, k1, k2, flush) -> tuple:
                                       16000, n_fft=512, hop_length=160, n_mels=80), 48, 16000)):
         au = rng.normal(0.0, 0.1, (batch, SECONDS * rate)).astype(np.float32)
         xb, cb, _ = PA._prep_librosa(au, c, True, None)
+        plan_t = k2.launch_plan(cb, batch, 1 + (xb.shape[1] - c.fft_points) // c.frame_step)
+        log(f"K2 launch plan, {label} at {tuple(xb.shape)}: {plan_t}")
+        _, _, wp, _, km = k2._kernel_constants(cb)
+        a = (c.fft_points, c.frame_step, km, wp.size, c.num_filters)
+        assert plan_t["path"] == 1 and plan_t["warps"] == k2.fft_warps(*a), (label, plan_t)
+        assert plan_t["smem_bytes"] == k2.fft_smem_bytes(*a, plan_t["warps"]), (label, plan_t)
         yard = yardstick(xb, cb)
         y_rel, _ = rel_err(yard().transpose(1, 2), k2.ct_mel(xb, cb))
         assert y_rel <= REL_TOL, ("yardstick disagrees", label, y_rel)
@@ -330,12 +378,14 @@ def librosa_phase(np, torch, P, k1, k2, flush) -> tuple:
             torch.cuda.synchronize()
             host.append(time.perf_counter() - t0)
         flops, nbytes = k2_work(k2, cb, xb.shape[0], xb.shape[1])
+        v4_flops, _ = k2_work_stockham(k2, cb, xb.shape[0], xb.shape[1])
         t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
         timing[label] = {
             "shape": list(xb.shape), "times_ms": times, "median_ms": med,
             "api_ms": statistics.median(host) * 1e3, "api_ms_all": [h * 1e3 for h in host],
             "flops": flops, "bytes": nbytes, "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "yardstick_rel": y_rel,
+            "plan": plan_t, "v4_flops": v4_flops,
         }
         log(f"K2 times, {label} at {tuple(xb.shape)}, median of {len(times['kernel'])}: "
             + ", ".join(f"{k} {med[k]:.4f} ms" for k in runs)
@@ -344,6 +394,8 @@ def librosa_phase(np, torch, P, k1, k2, flush) -> tuple:
             f"{timing[label]['bound_ms']:.4f} ms ({timing[label]['bound_by']}), "
             f"{flops / med['kernel'] / 1e9:.3f} TFLOP/s achieved; audio-s/s kernel "
             f"{batch * SECONDS / med['kernel'] * 1e3:.1f}")
+        log(f"K2 work by v4's (path 2's) design count, {label}: {v4_flops / 1e9:.3f} GFLOP, "
+            f"bound {1e3 * max(v4_flops / PEAK_FP32_FLOPS, t_bytes):.4f} ms")
     rec["timing"] = timing
     rec["clocks"] = smi("clocks.sm,power.draw,power.limit,temperature.gpu")
     log(f"clocks.sm, power.draw, power.limit, temperature: {rec['clocks']}")
@@ -355,7 +407,7 @@ def librosa_phase(np, torch, P, k1, k2, flush) -> tuple:
         "launches": launches, "max_abs_err": main_abs,
         "ms": head["median_ms"]["kernel"], "plain_ms": head["median_ms"]["plain"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["median_ms"]["yardstick"],
+        "library_ms": head["median_ms"]["yardstick"], "path": plan["path"],
     }
     return entry, rec
 
@@ -399,11 +451,21 @@ def main() -> int:
     lib = k1._lib()
     lib2 = k2._lib()
     for mc in (P.librosa_config(22050), P.librosa_config(16000, n_fft=512, hop_length=160,
-                                                         n_mels=80), P.librosa_config(16000, n_fft=768)):
-        nnz = k2._kernel_constants(mc)[2].size
+                                                         n_mels=80), P.librosa_config(16000, n_fft=768),
+               P.librosa_config(22050, hop_length=333), P.librosa_config(8000, n_fft=256, n_mels=40)):
+        _, _, wp, _, km = k2._kernel_constants(mc)
+        nnz = wp.size
         g = k2.frames_per_block(mc.fft_points, nnz)
         assert lib2.ct_mel_smem_bytes(mc.fft_points, g, nnz) == \
             k2.smem_bytes(mc.fft_points, g, nnz), "ct_mel smem mirror"
+        for warps in (1, 8):
+            a = (mc.fft_points, mc.frame_step, km, nnz, mc.num_filters)
+            assert lib2.ct_mel_fft_smem_bytes(*a, warps) == k2.fft_smem_bytes(*a, warps), \
+                ("ct_mel path-1 smem mirror", a, warps)
+    for n in range(2, 4098, 2):
+        for hop in (n // 4 or 1, 333, 4000):
+            a = (n, hop, n // 2 + 1, n + 2, 128)
+            assert lib2.ct_mel_path(*a) == k2.fft_path(*a), ("ct_mel path mirror", a)
     cfg = P.speechpy_config(RATE)
     hop, fl = cfg.frame_step, cfg.frame_size
     for n in range(2, 4098, 2):

@@ -5,7 +5,11 @@ Replaces the TPU kernel ``mfcc_rust_tpu/ops/pallas/ct_mel.py``
 (``ct_mel_pallas``): window, real FFT, |X|² and the mel projection in one
 launch that reads the (centre-padded) signal and writes only the
 (B, F, n_mels) answer, frame-major.  The kernel takes its own
-factorization, a radix-4 Stockham FFT (see the note in the .cu source).
+factorization (see the note in the .cu source): path 1, a warp-per-frame
+register FFT over cp.async-staged tiles (``fft_regs.cuh``), when n/2 is a
+power of two from 64 to 1024 and the tile fits; path 2, the radix-4
+Stockham stages of ``fft_stages.cuh`` with G frames a block, for every
+other even n.
 
 :func:`ct_mel` launches the kernel for a CUDA tensor and runs
 :func:`ct_mel_plain` for a CPU tensor; it never falls back from one to the
@@ -29,8 +33,10 @@ from ..framing import pad_signal
 
 KERNEL = "ct_mel"
 
-# ct_mel.cu: kMaxSmem
-_MAX_SMEM = 232448
+# ct_mel.cu: kMaxSmem and path 1's kTileF
+_MAX_SMEM, _TILE_F = 232448, 16
+
+_round4 = lambda x: -(-x // 4) * 4
 
 
 def fft_plan(n: int) -> Optional[Tuple[int, int, int]]:
@@ -47,21 +53,67 @@ def fft_plan(n: int) -> Optional[Tuple[int, int, int]]:
 
 
 def smem_bytes(n: int, g: int, nnz: int) -> int:
-    """Dynamic shared memory of one block (``Layout`` in the .cu): two
-    buffers of n/2 complex values per frame, then the nnz packed filterbank
-    weights."""
-    round4 = lambda x: -(-x // 4) * 4
-    return 4 * (g * 2 * round4(n) + round4(nnz))
+    """Path 2's dynamic shared memory of one block (``Layout`` in the .cu):
+    two buffers of n/2 complex values per frame, then the nnz packed
+    filterbank weights."""
+    return 4 * (g * 2 * _round4(n) + _round4(nnz))
 
 
 def frames_per_block(n: int, nnz: int) -> int:
-    """G, a power of two (each frame of a block gets 256/G threads): the
-    most frames (<= 8) for which three blocks share an SM, else 1 (0 when
-    even one frame does not fit)."""
+    """Path 2's G, a power of two (each frame of a block gets 256/G
+    threads): the most frames (<= 8) for which three blocks share an SM,
+    else 1 (0 when even one frame does not fit)."""
     for g in (8, 4, 2, 1):
         if smem_bytes(n, g, nnz) <= _MAX_SMEM // 3:
             return g
     return 1 if smem_bytes(n, 1, nnz) <= _MAX_SMEM else 0
+
+
+def lanes_per_frame(nc: int) -> int:
+    """Path 1's lanes of a frame (``lanes_per_frame`` in ``fft_regs.cuh``)."""
+    return 32 if nc >= 256 else nc // 8
+
+
+def xpad(nc: int, i: int) -> int:
+    """Path 1's exchange-buffer index (``xpad`` in ``fft_regs.cuh``): one
+    float skipped every 32 at nc = 1024, every 8 below."""
+    return i + (i >> 5) if nc == 1024 else i + (i >> 3)
+
+
+def fft_smem_bytes(n: int, hop: int, kmax: int, nnz: int, m: int, warps: int) -> int:
+    """Path 1's dynamic shared memory of one block (``Layout1`` in the .cu):
+    two slabs of a tile's (16 - 1) * hop + n samples, the window, the packed
+    weights and ranges, then per frame of each warp the padded re and im
+    exchange buffers and the power spectrum (which reuses re at nc = 1024)."""
+    nc = n // 2
+    slab = _round4((_TILE_F - 1) * hop + n + 3)
+    frame = 2 * _round4(xpad(nc, nc)) + (0 if nc == 1024 else _round4(kmax))
+    per_warp = 32 // lanes_per_frame(nc) * frame
+    return 4 * (2 * slab + _round4(n) + _round4(nnz) + _round4(3 * m) + warps * per_warp)
+
+
+def fft_path(n: int, hop: int, kmax: int, nnz: int, m: int) -> int:
+    """The kernel's path (``ct_path`` in the .cu): 1, the register FFT, when
+    n/2 is a power of two from 64 to 1024 and a block of one warp fits in
+    shared memory; else 2, the Stockham stages."""
+    nc = n // 2
+    size = n % 2 == 0 and 64 <= nc <= 1024 and nc & (nc - 1) == 0
+    return 1 if size and fft_smem_bytes(n, hop, kmax, nnz, m, 1) <= _MAX_SMEM else 2
+
+
+def path_for(cfg: FeatureConfig) -> int:
+    """The kernel's path for a supported config."""
+    _, _, wpack, _, kmax = _kernel_constants(cfg)
+    return fft_path(cfg.fft_points, cfg.frame_step, kmax, wpack.size, cfg.num_filters)
+
+
+def fft_warps(n: int, hop: int, kmax: int, nnz: int, m: int) -> int:
+    """Path 1's warps a block (``make_plan`` in the .cu): the most of 8, 4,
+    2, 1 whose block fits."""
+    for w in (8, 4, 2, 1):
+        if fft_smem_bytes(n, hop, kmax, nnz, m, w) <= _MAX_SMEM:
+            return w
+    return 0
 
 
 def ct_mel_supported(cfg: FeatureConfig) -> bool:
@@ -139,15 +191,60 @@ def ct_mel_plain(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     from .build import library
 
-    lib = library(KERNEL)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ct_mel_launch.argtypes = [p, p, p, p, p, p, i, ctypes.c_longlong] + [i] * 10 + [p]
+    return _bind(library(KERNEL))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of the C interface."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ct_mel_launch.argtypes = [p, p, p, p, p, p, i, ll] + [i] * 10 + [p]
     lib.ct_mel_launch.restype = i
+    lib.ct_mel_plan.argtypes = [i] * 8 + [ctypes.POINTER(ll)]
+    lib.ct_mel_plan.restype = i
+    lib.ct_mel_path.argtypes = [i] * 5
+    lib.ct_mel_path.restype = i
     lib.ct_mel_smem_bytes.argtypes = [i, i, i]
-    lib.ct_mel_smem_bytes.restype = ctypes.c_longlong
+    lib.ct_mel_smem_bytes.restype = ll
+    lib.ct_mel_fft_smem_bytes.argtypes = [i] * 6
+    lib.ct_mel_fft_smem_bytes.restype = ll
     lib.ct_mel_error_string.argtypes = [i]
     lib.ct_mel_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} failed: {lib.ct_mel_error_string(err).decode()}")
+
+
+def launch_plan(cfg: FeatureConfig, batch: int, frames: int) -> dict:
+    """The launch shape the kernel's host code picks for (batch, frames) on
+    the current CUDA device: path, warps a block, shared bytes a block,
+    resident blocks per SM and the grid."""
+    lib = _lib()
+    _, _, wpack, _, kmax = _kernel_constants(cfg)
+    info = (ctypes.c_longlong * 5)()
+    n = cfg.fft_points
+    _check(lib, lib.ct_mel_plan(n, cfg.frame_step, kmax, wpack.size, cfg.num_filters, batch,
+                                frames, frames_per_block(n, wpack.size), info), "ct_mel_plan")
+    return dict(zip(("path", "warps", "smem_bytes", "blocks_per_sm", "grid"), info))
+
+
+def _launch(lib: ctypes.CDLL, x: torch.Tensor, cfg: FeatureConfig, out: torch.Tensor,
+            stream: int) -> int:
+    """One launch of the kernel in ``lib`` on x (B, T), centre-padded, into
+    out (B, F, M), both contiguous float32 on the kernel's device, F > 0.
+    Returns the C interface's error code."""
+    n = cfg.fft_points
+    m_odd, n4, has2 = fft_plan(n)
+    c = _kernel_tensors(cfg, x.device)
+    kmax, nnz = _kernel_constants(cfg)[4], c["wpack"].numel()
+    return lib.ct_mel_launch(
+        x.data_ptr(), c["win"].data_ptr(), c["tw"].data_ptr(), c["wpack"].data_ptr(),
+        c["ranges"].data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], out.shape[1],
+        cfg.frame_step, n, m_odd, n4, has2, kmax, nnz, cfg.num_filters,
+        frames_per_block(n, nnz), stream,
+    )
 
 
 def ct_mel(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
@@ -168,19 +265,10 @@ def ct_mel(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
     out = torch.empty((x.shape[0], count, m), dtype=torch.float32, device=x.device)
     if count == 0 or x.shape[0] == 0:
         return out.reshape(lead + out.shape[1:])
-    m_odd, n4, has2 = fft_plan(n)
-    c = _kernel_tensors(cfg, x.device)
-    kmax, nnz = _kernel_constants(cfg)[4], c["wpack"].numel()
     lib = _lib()
     with torch.cuda.device(x.device):
-        err = lib.ct_mel_launch(
-            x.data_ptr(), c["win"].data_ptr(), c["tw"].data_ptr(), c["wpack"].data_ptr(),
-            c["ranges"].data_ptr(), out.data_ptr(), x.shape[0], t, count, hop, n, m_odd, n4,
-            has2, kmax, nnz, m, frames_per_block(n, nnz),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"ct_mel_launch failed: {lib.ct_mel_error_string(err).decode()}")
+        err = _launch(lib, x, cfg, out, torch.cuda.current_stream().cuda_stream)
+    _check(lib, err, "ct_mel_launch")
     ct_mel.launches += 1
     return out.reshape(lead + out.shape[1:])
 

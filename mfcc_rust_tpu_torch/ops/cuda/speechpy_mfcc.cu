@@ -40,7 +40,8 @@
 //   Stockham order with the butterflies in registers; between two passes
 //   the points go through the frame's own bank-padded shared buffers under
 //   __syncwarp.  Twiddles come from one n-entry table through the read-only
-//   cache.
+//   cache.  The passes and the tile staging live in fft_regs.cuh, which
+//   ct_mel.cu shares.
 // * Path 2, every other even n (400, 2048, ...): the shared-memory Stockham
 //   stages of fft_stages.cuh, which ct_mel.cu shares, one warp a frame and
 //   __syncwarp between stages.
@@ -57,31 +58,21 @@
 // error code of the launch.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "fft_stages.cuh"
+#include "fft_regs.cuh"
 
 namespace {
+
+using namespace fft;
 
 constexpr int kTileF = 32;     // frames of a tile
 constexpr int kMaxWarps = 8;   // warps of a block
 constexpr int kMaxSmem = 232448;  // 227 KB, the per-block limit
-
-__host__ __device__ constexpr long long round4(long long n) { return (n + 3) / 4 * 4; }
 
 // Path 1 when nc = n/2 is a power of two from 64 to 512, else path 2.
 __host__ __device__ inline int fft_path(int n) {
   const int nc = n / 2;
   return (n % 2 == 0 && nc >= 64 && nc <= 512 && (nc & (nc - 1)) == 0) ? 1 : 2;
 }
-
-// lanes of a path-1 frame
-__host__ __device__ constexpr int lanes_per_frame(int nc) { return nc >= 256 ? 32 : nc / 8; }
-
-// index into a path-1 exchange buffer: one float skipped every eight, so
-// the scattered writes of a pass and the strided reads of the next spread
-// over the banks
-__host__ __device__ constexpr int pad8(int i) { return i + (i >> 3); }
 
 // Shared memory in floats: two slabs of a tile's samples (each with 3 floats
 // of room for the alignment shift), the packed weights, the ranges (ints),
@@ -119,37 +110,6 @@ struct Args {
   int F, tiles_per_row, hop, fl, n, m_odd, n4, has2, kmax, nnz, M, C, dc_elim;
   float eps;
 };
-
-// ------------------------------------------------------------- cp.async ----
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
-
-// A tile's samples sit at slab + head: head is the misalignment of its first
-// sample in floats, so a sample and its slot agree modulo 16 bytes.
-__device__ __forceinline__ int tile_head(const float* x) { return (int)(((uintptr_t)x >> 2) & 3); }
-
-// Start the copy of len samples from x (avail of them before the row's end)
-// into slab + head; the rest are zeros.  Every thread of the block takes part.
-__device__ __forceinline__ void stage_tile(float* slab, const float* x, int avail, int len) {
-  const int head = tile_head(x);
-  const int pre = min((4 - head) & 3, avail);
-  const int n16 = (avail - pre) / 4;
-  const int tail = pre + 4 * n16;
-  float* s = slab + head;
-  for (int i = threadIdx.x; i < pre; i += blockDim.x) cp_async4(s + i, x + i);
-  for (int v = threadIdx.x; v < n16; v += blockDim.x) cp_async16(s + pre + 4 * v, x + pre + 4 * v);
-  for (int i = tail + threadIdx.x; i < avail; i += blockDim.x) cp_async4(s + i, x + i);
-  for (int i = avail + threadIdx.x; i < len; i += blockDim.x) s[i] = 0.f;
-}
 
 // ------------------------------------------------------- frame epilogue ----
 // Split and power of the kmax bins, sparse mel, log, DCT and energy of one
@@ -199,105 +159,6 @@ __device__ __forceinline__ void frame_tail(ZAt z, float* pw, float* lm, float s2
 }
 
 // --------------------------------------------- path 1: FFT in registers ----
-template <int NC>
-struct P1 {
-  static constexpr int TPF = lanes_per_frame(NC);
-  static constexpr int P = NC / TPF;     // points a lane holds, 8 or 16
-  static constexpr int FPW = 32 / TPF;   // frames a warp holds at once
-  static constexpr int BUF = (int)round4(pad8(NC));
-};
-
-// in-place R-point DFT, natural order in and out
-template <int R>
-__device__ __forceinline__ void dft(float2 (&v)[R]) {
-  if constexpr (R == 2) {
-    const float2 a = v[0];
-    v[0] = fft::cadd(a, v[1]);
-    v[1] = fft::csub(a, v[1]);
-  } else if constexpr (R == 4) {
-    const float2 s0 = fft::cadd(v[0], v[2]), d0 = fft::csub(v[0], v[2]);
-    const float2 s1 = fft::cadd(v[1], v[3]), d1 = fft::csub(v[1], v[3]);
-    v[0] = fft::cadd(s0, s1);
-    v[1] = make_float2(d0.x + d1.y, d0.y - d1.x);  // d0 - i d1
-    v[2] = fft::csub(s0, s1);
-    v[3] = make_float2(d0.x - d1.y, d0.y + d1.x);  // d0 + i d1
-  } else {
-    static_assert(R == 8, "radix 2, 4 or 8");
-    float2 e[4] = {v[0], v[2], v[4], v[6]};
-    float2 o[4] = {v[1], v[3], v[5], v[7]};
-    dft<4>(e);
-    dft<4>(o);
-    const float c = 0.70710678118654752f;
-    o[1] = make_float2((o[1].x + o[1].y) * c, (o[1].y - o[1].x) * c);   // W8
-    o[2] = make_float2(o[2].y, -o[2].x);                                 // W8^2 = -i
-    o[3] = make_float2((o[3].y - o[3].x) * c, -(o[3].x + o[3].y) * c);  // W8^3
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      v[k] = fft::cadd(e[k], o[k]);
-      v[k + 4] = fft::csub(e[k], o[k]);
-    }
-  }
-}
-
-// One Stockham pass of radix R over sub-transforms of NS points.  Lane lt
-// holds point lt + TPF*q in a[q] and runs the butterflies lt + TPF*u (u <
-// P/R), whose inputs are all its own; outputs go to their Stockham places
-// (b / NS) * NS * R + k + r * NS of the exchange buffers.
-template <int NC, int R, int NS>
-__device__ __forceinline__ void pass(float2 (&a)[P1<NC>::P], float* re, float* im,
-                                     const float2* __restrict__ tw, int lt) {
-  constexpr int TPF = P1<NC>::TPF, U = P1<NC>::P / R;
-  constexpr int STEP = 2 * NC / (NS * R);  // W_{NS R}^{k q} = W_n^{k q STEP}
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    float2 v[R];
-#pragma unroll
-    for (int q = 0; q < R; ++q) v[q] = a[u + q * U];
-    const int b = lt + TPF * u;
-    const int k = b & (NS - 1);
-    if constexpr (NS > 1) {
-#pragma unroll
-      for (int q = 1; q < R; ++q) v[q] = fft::cmulw(v[q], __ldg(tw + k * q * STEP));
-    }
-    dft<R>(v);
-    const int base = (b - k) * R + k;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = pad8(base + r * NS);
-      re[i] = v[r].x;
-      im[i] = v[r].y;
-    }
-  }
-}
-
-template <int NC>
-__device__ __forceinline__ void gather(float2 (&a)[P1<NC>::P], const float* re, const float* im,
-                                       int lt) {
-#pragma unroll
-  for (int q = 0; q < P1<NC>::P; ++q) {
-    const int i = pad8(lt + P1<NC>::TPF * q);
-    a[q] = make_float2(re[i], im[i]);
-  }
-}
-
-// nc = 8 * 8 * (NC / 64): the last pass writes Z in natural order
-template <int NC>
-__device__ __forceinline__ void fft_regs(float2 (&a)[P1<NC>::P], float* re, float* im,
-                                         const float2* __restrict__ tw, int lt) {
-  pass<NC, 8, 1>(a, re, im, tw, lt);
-  __syncwarp();
-  gather<NC>(a, re, im, lt);
-  __syncwarp();
-  pass<NC, 8, 8>(a, re, im, tw, lt);
-  if constexpr (NC > 64) {
-    __syncwarp();
-    gather<NC>(a, re, im, lt);
-    __syncwarp();
-    pass<NC, NC / 64, 64>(a, re, im, tw, lt);
-  }
-  __syncwarp();
-}
-
 // The frames of a tile on path 1: warp w's frame groups take frames
 // w*FPW + g, then every nw*FPW further (the same count for every lane).
 template <int NC>

@@ -105,9 +105,16 @@ def test_support_covers_the_tpu_kernel(name, kw):
     if pk.ct_mel_supported(pcfg):
         m_odd, n4, has2 = pk.fft_plan(pcfg.fft_points)
         assert m_odd % 2 == 1 and m_odd * 4 ** n4 * 2 ** has2 == pcfg.fft_points // 2
-        nnz = pk._kernel_constants(pcfg)[2].size
+        _, _, wpack, _, kmax = pk._kernel_constants(pcfg)
+        nnz = wpack.size
         g = pk.frames_per_block(pcfg.fft_points, nnz)
         assert 1 <= g <= 8 and pk.smem_bytes(pcfg.fft_points, g, nnz) <= 232448
+        args = (pcfg.fft_points, pcfg.frame_step, kmax, nnz, pcfg.num_filters)
+        nc = pcfg.fft_points // 2
+        assert pk.path_for(pcfg) == (1 if nc in (64, 128, 256, 512, 1024) else 2), name
+        if pk.path_for(pcfg) == 1:
+            w = pk.fft_warps(*args)
+            assert w == 8 and pk.fft_smem_bytes(*args, w) <= 232448, name
     assert pk.ct_mel_supported(pcfg) == (pcfg.power == 2.0)
 
 

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import mfcc_rust_tpu_torch as P
+from mfcc_rust_tpu_torch import api as PA
 from mfcc_rust_tpu_torch import features as PF
 from mfcc_rust_tpu_torch.ops.cuda import ct_mel as ck
 from mfcc_rust_tpu_torch.ops.cuda import speechpy_mfcc as pk
@@ -166,3 +167,57 @@ def test_ct_mel_grad_matches_plain_on_card(cuda_device):
 def test_ct_mel_wrapper_refuses_float64_on_card(cuda_device):
     with pytest.raises(TypeError):
         ck.ct_mel(torch.zeros(4000, dtype=torch.float64, device=cuda_device), P.librosa_config())
+
+
+# (name, librosa_config args, kwargs, input shape, the kernel's path):
+# path 1 (register FFT, n/2 a power of two to 1024) at the librosa headline
+# and the sizes and hops around it, path 2 (Stockham stages) elsewhere
+K2_PATHS = [
+    ("2048/512 headline", (22050,), {}, (32, 220500), 1),
+    ("1024/256", (16000,), dict(n_fft=1024, hop_length=256), (2, 16000), 1),
+    ("512/160/80", (16000,), dict(n_fft=512, hop_length=160, n_mels=80), (2, 16000), 1),
+    ("256/64", (8000,), dict(n_fft=256, n_mels=40), (2, 8000), 1),
+    ("2048/100", (22050,), dict(hop_length=100), (2, 16000), 1),
+    ("2048/333 odd hop", (22050,), dict(hop_length=333), (2, 16001), 1),
+    ("768/192", (16000,), dict(n_fft=768, n_mels=64), (2, 16000), 2),
+    ("1280/320", (16000,), dict(n_fft=1280), (2, 16000), 2),
+    ("4096/1024", (44100,), dict(n_fft=4096), (2, 30000), 2),
+    ("T not a multiple of 4", (22050,), {}, (3, 16003), 1),
+    ("1-D", (22050,), {}, (16001,), 1),
+    ("3-D", (22050,), {}, (2, 3, 8000), 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,args,kw,shape,path", K2_PATHS, ids=[c[0] for c in K2_PATHS])
+def test_ct_mel_paths_on_card(cuda_device, name, args, kw, shape, path):
+    cfg = P.librosa_config(*args, **kw)
+    x = np.random.default_rng(19).normal(0, 0.1, shape).astype(np.float32)
+    if name.endswith("headline"):  # the main path's bucketed, centre-padded batch
+        xd, cfg, _ = PA._prep_librosa(x, cfg, True, None)
+    else:
+        xd = torch.from_numpy(x).to(cuda_device)
+    t = xd.shape[-1] + (cfg.fft_points if cfg.center else 0)
+    frames = 1 + (t - cfg.fft_points) // cfg.frame_step
+    assert ck.path_for(cfg) == path, name
+    plan = ck.launch_plan(cfg, int(np.prod(xd.shape[:-1])), frames)
+    assert plan["path"] == path and plan["grid"] >= 1, (name, plan)
+    before = ck.ct_mel.launches
+    out = ck.ct_mel(xd, cfg)
+    torch.cuda.synchronize()
+    assert ck.ct_mel.launches == before + 1, name
+    assert out.shape == xd.shape[:-1] + (frames, cfg.num_filters)
+    assert rel(out, ck.ct_mel_plain(xd, cfg)) <= 1e-4, name
+
+
+@pytest.mark.cuda
+def test_ct_mel_grad_through_path1_at_2048_on_card(cuda_device):
+    cfg = P.librosa_config(22050)
+    x = torch.from_numpy(np.random.default_rng(20).normal(0, 0.1, (2, 22050)).astype(np.float32))
+    a = x.to(cuda_device).requires_grad_(True)
+    before = ck.ct_mel.launches
+    PF.mel_spectrogram_librosa(a, cfg).sqrt().sum().backward()
+    assert ck.ct_mel.launches == before + 1
+    b = x.to(cuda_device).requires_grad_(True)
+    PF.mel_spectrogram_librosa(b, cfg.replace(pallas="off")).sqrt().sum().backward()
+    assert rel(a.grad, b.grad) <= 1e-4
