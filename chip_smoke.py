@@ -20,9 +20,10 @@ to a float64 rfft computation, each path to its float64 oracle in
 ``tests/golden/`` at the reference's float32 gate, the autograd gradients to
 the plain paths', and times each kernel, its plain version and a cuFFT
 yardstick (library calls the port never makes) with CUDA events after an L2
-flush.  Each kernel's entry of the kernels line names the FFT path it took
-at the headline (path 1, the register FFT, for both), and the launch plans
-are printed.
+flush, and the host time of one launch through each binding.  Each
+kernel's entry of the kernels line names the FFT path it took at the
+headline (path 1, the register FFT, for both), and the launch plans are
+printed.
 
 Any failed check raises, so the exit code is not 0.  Without a CUDA device
 it exits 1 before printing any result.  The last lines are the card's
@@ -96,6 +97,22 @@ def cuda_ms(torch, fn, reps: int, flush) -> list:
     return out
 
 
+def host_us(torch, fn, reps: int = 500) -> float:
+    """Median host time in microseconds of one call of fn, a launch through
+    a kernel's binding (its arguments, the launch plan, the launch), on a
+    small input; the device is waited on only after the last call."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter_ns()
+        fn()
+        out.append((time.perf_counter_ns() - t0) / 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(out)
+
+
 L_BATCH, L_RATE = 32, 22050
 
 
@@ -136,7 +153,9 @@ def k2_work(k2, cfg, batch: int, t: int) -> tuple:
     input after the first pass times its twiddle; at nc = 1024 the 31
     products a lane that make the last pass's twiddles, and W_n^k of the
     split as a product of two), the real split and power of the kmax bins,
-    and the projection over each filter's nonzero bins.  Bytes as path 2's."""
+    and the projection over each filter's nonzero bins.  Bytes as path 2's.
+    A design's count is not the least the function needs: the bound takes
+    the least of this and k2_work_stockham."""
     if k2.path_for(cfg) == 2:
         return k2_work_stockham(k2, cfg, batch, t)
     n, hop = cfg.fft_points, cfg.frame_step
@@ -379,24 +398,40 @@ def librosa_phase(np, torch, P, k1, k2, flush) -> tuple:
             host.append(time.perf_counter() - t0)
         flops, nbytes = k2_work(k2, cb, xb.shape[0], xb.shape[1])
         v4_flops, _ = k2_work_stockham(k2, cb, xb.shape[0], xb.shape[1])
-        t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+        least = min(flops, v4_flops)  # the least operation count known
+        t_ops, t_bytes = least / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
         timing[label] = {
             "shape": list(xb.shape), "times_ms": times, "median_ms": med,
             "api_ms": statistics.median(host) * 1e3, "api_ms_all": [h * 1e3 for h in host],
-            "flops": flops, "bytes": nbytes, "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "flops": flops, "bound_flops": least, "bytes": nbytes,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "yardstick_rel": y_rel,
             "plan": plan_t, "v4_flops": v4_flops,
         }
         log(f"K2 times, {label} at {tuple(xb.shape)}, median of {len(times['kernel'])}: "
             + ", ".join(f"{k} {med[k]:.4f} ms" for k in runs)
             + f"; api from host numpy {timing[label]['api_ms']:.3f} ms")
-        log(f"K2 work, {label}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB; bound "
-            f"{timing[label]['bound_ms']:.4f} ms ({timing[label]['bound_by']}), "
-            f"{flops / med['kernel'] / 1e9:.3f} TFLOP/s achieved; audio-s/s kernel "
-            f"{batch * SECONDS / med['kernel'] * 1e3:.1f}")
-        log(f"K2 work by v4's (path 2's) design count, {label}: {v4_flops / 1e9:.3f} GFLOP, "
-            f"bound {1e3 * max(v4_flops / PEAK_FP32_FLOPS, t_bytes):.4f} ms")
+        log(f"K2 work, {label}: {least / 1e9:.3f} GFLOP (the least count known), "
+            f"{nbytes / 1e6:.3f} MB; bound {timing[label]['bound_ms']:.4f} ms "
+            f"({timing[label]['bound_by']}), {least / med['kernel'] / 1e9:.3f} TFLOP/s of it "
+            f"achieved; audio-s/s kernel {batch * SECONDS / med['kernel'] * 1e3:.1f}")
+        log(f"K2 design counts, {label}: path {plan_t['path']}'s {flops / 1e9:.3f} GFLOP "
+            f"({1e3 * max(flops / PEAK_FP32_FLOPS, t_bytes):.4f} ms), v4's (path 2's) "
+            f"{v4_flops / 1e9:.3f} GFLOP ({1e3 * max(v4_flops / PEAK_FP32_FLOPS, t_bytes):.4f} ms)")
     rec["timing"] = timing
+    # host cost of a launch through the binding, path 1 and path 2
+    rec["host_launch_us"] = {}
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, c in (("2048/512, path 1", cfg),
+                     ("768/192, path 2", P.librosa_config(16000, n_fft=768, n_mels=64))):
+        xh = k2._center(torch.zeros((2, 22050), device=dev), c).contiguous()
+        oh = torch.empty((2, 1 + (xh.shape[1] - c.fft_points) // c.frame_step, c.num_filters),
+                         device=dev)
+        lib2 = k2._lib()
+        assert k2._launch(lib2, xh, c, oh, stream) == 0, label
+        rec["host_launch_us"][label] = host_us(torch, lambda: k2._launch(lib2, xh, c, oh, stream))
+        log(f"K2 host time of a launch through the binding, {label} at {tuple(xh.shape)}: "
+            f"median {rec['host_launch_us'][label]:.2f} us")
     rec["clocks"] = smi("clocks.sm,power.draw,power.limit,temperature.gpu")
     log(f"clocks.sm, power.draw, power.limit, temperature: {rec['clocks']}")
     head = timing["2048/512"]
@@ -613,6 +648,10 @@ def main() -> int:
         torch.cuda.synchronize()
         host.append(time.perf_counter() - t0)
     api_s = statistics.median(host)
+    xh = torch.zeros((2, 16000), device=dev)
+    oh = torch.empty((2, (16000 - fl) // hop, cfg.num_cepstral), device=dev)
+    host_launch = host_us(torch, lambda: k1._launch(lib, xh, cfg, oh))
+    log(f"K1 host time of a launch through the binding at (2, 16000): median {host_launch:.2f} us")
     clocks = smi("clocks.sm,power.draw,power.limit,temperature.gpu")
 
     flops, nbytes = k1_work(k1, cfg, BATCH, t_main)
@@ -646,7 +685,7 @@ def main() -> int:
         "headline": {"rel": headline_rel, "abs": headline_abs, "library_rel": lib_rel,
                      "rel_float64": {"kernel": k_rel64, "plain": p_rel64, "chunk_gemm": c_rel64}},
         "plan": plan,
-        "oracle_rel": oracle_rel, "grad_rel": grad_rel,
+        "oracle_rel": oracle_rel, "grad_rel": grad_rel, "host_launch_us": host_launch,
         "times_ms": times, "median_ms": med, "flops": flops, "bytes": nbytes,
         "clocks": clocks, "kernels": kernels,
     })

@@ -76,7 +76,7 @@ EDITS = {
 EDITS["neither"] = EDITS["no FFT"] + EDITS["no epilogue"]
 CHECKED = ("shipped", "path 2", "float32 DC", "fast log", "16 lanes a frame")
 
-K2_PATH1 = "return path1_size(n) && Layout1(n, hop, kmax, nnz, m, 1).total * 4 <= kMaxSmem ? 1 : 2;"
+K2_PATH1 = "return path1_warps(n, hop, kmax, nnz, m) ? 1 : 2;"
 K2_FFT = "      fft_regs<NC>(a, re, im, A.tw, lt, w1, w8);"
 K2_SPLIT = ("      // real split of bins k = lt + 32 j: Z[k] = a[j], Z[nc - k] by shuffle\n"
             "#pragma unroll\n      for (int j = 0; j < 32; ++j) {")

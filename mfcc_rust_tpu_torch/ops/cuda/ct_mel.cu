@@ -25,7 +25,8 @@
 //   frame.  A persistent grid of as many blocks as are resident at once
 //   walks over tiles of kTileF consecutive frames of one row; a tile's
 //   (kTileF-1)*hop + n samples are staged by cp.async, double-buffered, the
-//   next tile in flight (as K1 does).  The window, the packed weights and
+//   next tile in flight (tile_loop of fft_regs.cuh, which K1 shares; so is
+//   the launch planning).  The window, the packed weights and
 //   the ranges go into shared memory once per block.  A lane loads its
 //   points from the slab with the window applied, as float2 pairs where the
 //   frame starts on an even offset of the slab and as scalars where it does
@@ -60,7 +61,6 @@ namespace {
 using namespace fft;
 
 constexpr int kThreads = 256;
-constexpr int kMaxSmem = 232448;  // 227 KB, the per-block limit
 
 // ------------------------------------ path 2: Stockham in shared memory ----
 
@@ -143,10 +143,9 @@ ct_mel_kernel(const float* __restrict__ sig, const float* __restrict__ win,
 
 // ------------------------------------- path 1: register FFT per warp ----
 constexpr int kTileF = 16;    // frames of a path-1 tile
-constexpr int kMaxWarps = 8;  // warps of a path-1 block
 
 // nc = n/2 is a power of two from 64 to 1024
-__host__ __device__ inline bool path1_size(int n) {
+inline bool path1_size(int n) {
   const int nc = n / 2;
   return n % 2 == 0 && nc >= 64 && nc <= 1024 && (nc & (nc - 1)) == 0;
 }
@@ -171,10 +170,16 @@ struct Layout1 {
   }
 };
 
-// Path 1 for such an n when a block of one warp fits (the slab grows with
-// the hop), else path 2.
-__host__ __device__ inline int ct_path(int n, int hop, int kmax, int nnz, int m) {
-  return path1_size(n) && Layout1(n, hop, kmax, nnz, m, 1).total * 4 <= kMaxSmem ? 1 : 2;
+// Path 1's warps a block: the most of 8, 4, 2, 1 whose block fits (the slab
+// grows with the hop); 0 where n is no path-1 size or not even one warp
+// fits, and then the kernel takes path 2.
+inline int path1_warps(int n, int hop, int kmax, int nnz, int m) {
+  if (!path1_size(n)) return 0;
+  return most_warps([&](int w) { return Layout1(n, hop, kmax, nnz, m, w).total * 4; }, kMaxSmem);
+}
+
+inline int ct_path(int n, int hop, int kmax, int nnz, int m) {
+  return path1_warps(n, hop, kmax, nnz, m) ? 1 : 2;
 }
 
 struct Args {
@@ -272,8 +277,7 @@ __device__ __forceinline__ void tile_path1(const Args& A, const float* slab, con
   }
 }
 
-// A persistent loop over the tiles (row b, frames f0 .. f0 + kTileF - 1)
-// with the next tile's slab in flight while this one is worked on.
+// The persistent tile loop of fft_regs.cuh over tiles of kTileF frames.
 template <int NC>
 __global__ void __launch_bounds__(kMaxWarps * 32, NC == 1024 ? 1 : 2)
 ct_mel_fft_kernel(const Args A) {
@@ -289,96 +293,37 @@ ct_mel_fft_kernel(const Args A) {
   for (int i = threadIdx.x; i < A.n; i += blockDim.x) win[i] = __ldg(A.win + i);
   for (int i = threadIdx.x; i < A.nnz; i += blockDim.x) wts[i] = __ldg(A.wpack + i);
   for (int i = threadIdx.x; i < 3 * A.M; i += blockDim.x) rng[i] = __ldg(A.ranges + i);
-
-  const int len = (kTileF - 1) * A.hop + A.n;
-  auto tile_x = [&](long long t, long long& b, int& f0) {
-    b = t / A.tiles_per_row;
-    f0 = (int)(t - b * A.tiles_per_row) * kTileF;
-    return A.sig + b * A.T + (long long)f0 * A.hop;
-  };
-  auto stage = [&](long long t, int buf) {
-    long long b;
-    int f0;
-    const float* x = tile_x(t, b, f0);
-    const long long left = A.T - (long long)f0 * A.hop;
-    stage_tile(smem + buf * lay.slab, x, (int)(left < len ? left : len), len);
-  };
-
-  long long t = blockIdx.x;
-  int cur = 0;
-  if (t < A.n_tiles) stage(t, cur);
-  cp_async_commit();
-  for (; t < A.n_tiles; t += gridDim.x) {
-    if (t + gridDim.x < A.n_tiles) stage(t + gridDim.x, cur ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile's copy is done; the next may run on
-    __syncthreads();
-    long long b;
-    int f0;
-    const float* x = tile_x(t, b, f0);
-    const float* slab = smem + cur * lay.slab + tile_head(x);
-    float* out_row = A.out + b * A.F * A.M;
-    tile_path1<NC>(A, slab, win, scratch, lay.frame, wts, rng, f0, out_row, warp, lane, nw);
-    __syncthreads();  // every warp is done with this slab before it refills
-    cur ^= 1;
-  }
-  cp_async_wait<0>();
+  tile_loop(smem, lay.slab, A.sig, A.T, A.n_tiles, A.tiles_per_row, kTileF, A.hop,
+            (kTileF - 1) * A.hop + A.n, [&](const float* slab, long long b, int f0) {
+              tile_path1<NC>(A, slab, win, scratch, lay.frame, wts, rng, f0,
+                             A.out + b * A.F * A.M, warp, lane, nw);
+            });
 }
 
 // ------------------------------------------------------------ host side ----
-// Launch shape: path, warps, dynamic shared memory, resident blocks per SM
-// and the grid.  Path 1: the most warps (of 8, 4, 2, 1) whose block fits, a
-// persistent grid of every resident block.  Path 2: 256 threads, G frames a
-// block, one block per G frames.
-struct Plan {
-  int path, warps, blocks_per_sm;
-  long long smem, grid;
-};
-
-template <class Kern>
-cudaError_t occupancy(Plan& p, Kern kern) {
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)p.smem);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.blocks_per_sm, kern, p.warps * 32,
-                                                    (size_t)p.smem);
-  if (e != cudaSuccess) return e;
-  return p.blocks_per_sm < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
-}
-
-template <int NC>
-cudaError_t plan1(Plan& p, long long n_tiles) {
-  cudaError_t e = occupancy(p, ct_mel_fft_kernel<NC>);
-  if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return e;
-  const long long resident = (long long)p.blocks_per_sm * sms;
-  p.grid = n_tiles < resident ? n_tiles : resident;
-  return cudaSuccess;
-}
-
+// Launch shape.  Path 1: path1_warps warps, a persistent grid of every
+// resident block.  Path 2: 256 threads, G frames a block, one block per G
+// frames.  The occupancy query behind blocks_per_sm runs once per shape
+// (residency in fft_regs.cuh).
 cudaError_t make_plan(Plan& p, int n, int hop, int kmax, int nnz, int m, int B, int F, int G) {
-  p.path = ct_path(n, hop, kmax, nnz, m);
+  p.warps = path1_warps(n, hop, kmax, nnz, m);
+  p.path = p.warps ? 1 : 2;
   if (p.path == 2) {
     p.warps = kThreads / 32;
     p.smem = Layout(n, G, nnz).total * (long long)sizeof(float);
     p.grid = ((long long)B * F + G - 1) / G;
     if (p.smem > kMaxSmem) return cudaErrorInvalidValue;
-    return occupancy(p, ct_mel_kernel);
+    int sms = 0;
+    return residency(ct_mel_kernel, p.warps, p.smem, p.blocks_per_sm, sms);
   }
-  p.warps = 0;
-  for (int w = kMaxWarps; w >= 1 && !p.warps; w /= 2)
-    if (Layout1(n, hop, kmax, nnz, m, w).total * 4 <= kMaxSmem) p.warps = w;
   p.smem = Layout1(n, hop, kmax, nnz, m, p.warps).total * (long long)sizeof(float);
   const long long n_tiles = (long long)B * ((F + kTileF - 1) / kTileF);
   switch (n / 2) {
-    case 64: return plan1<64>(p, n_tiles);
-    case 128: return plan1<128>(p, n_tiles);
-    case 256: return plan1<256>(p, n_tiles);
-    case 512: return plan1<512>(p, n_tiles);
-    default: return plan1<1024>(p, n_tiles);
+    case 64: return persistent_grid(p, ct_mel_fft_kernel<64>, n_tiles);
+    case 128: return persistent_grid(p, ct_mel_fft_kernel<128>, n_tiles);
+    case 256: return persistent_grid(p, ct_mel_fft_kernel<256>, n_tiles);
+    case 512: return persistent_grid(p, ct_mel_fft_kernel<512>, n_tiles);
+    default: return persistent_grid(p, ct_mel_fft_kernel<1024>, n_tiles);
   }
 }
 

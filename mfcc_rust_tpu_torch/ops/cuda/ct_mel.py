@@ -69,51 +69,46 @@ def frames_per_block(n: int, nnz: int) -> int:
     return 1 if smem_bytes(n, 1, nnz) <= _MAX_SMEM else 0
 
 
-def lanes_per_frame(nc: int) -> int:
-    """Path 1's lanes of a frame (``lanes_per_frame`` in ``fft_regs.cuh``)."""
-    return 32 if nc >= 256 else nc // 8
-
-
-def xpad(nc: int, i: int) -> int:
-    """Path 1's exchange-buffer index (``xpad`` in ``fft_regs.cuh``): one
-    float skipped every 32 at nc = 1024, every 8 below."""
-    return i + (i >> 5) if nc == 1024 else i + (i >> 3)
-
-
 def fft_smem_bytes(n: int, hop: int, kmax: int, nnz: int, m: int, warps: int) -> int:
-    """Path 1's dynamic shared memory of one block (``Layout1`` in the .cu):
-    two slabs of a tile's (16 - 1) * hop + n samples, the window, the packed
-    weights and ranges, then per frame of each warp the padded re and im
-    exchange buffers and the power spectrum (which reuses re at nc = 1024)."""
+    """Path 1's dynamic shared memory of one block (``Layout1`` in the .cu),
+    n/2 a power of two from 64 to 1024: two slabs of a tile's (16 - 1) * hop
+    + n samples, the window, the packed weights and ranges, then per frame
+    of each warp the re and im exchange buffers (one float skipped every 32
+    points at n/2 = 1024, every 8 below) and the power spectrum (which
+    reuses re at n/2 = 1024); a frame has min(32, n/16) lanes."""
     nc = n // 2
     slab = _round4((_TILE_F - 1) * hop + n + 3)
-    frame = 2 * _round4(xpad(nc, nc)) + (0 if nc == 1024 else _round4(kmax))
-    per_warp = 32 // lanes_per_frame(nc) * frame
+    if nc == 1024:
+        frame = 2 * _round4(nc + nc // 32)
+    else:
+        frame = 2 * _round4(nc + nc // 8) + _round4(kmax)
+    per_warp = 32 // min(32, nc // 8) * frame
     return 4 * (2 * slab + _round4(n) + _round4(nnz) + _round4(3 * m) + warps * per_warp)
 
 
-def fft_path(n: int, hop: int, kmax: int, nnz: int, m: int) -> int:
-    """The kernel's path (``ct_path`` in the .cu): 1, the register FFT, when
-    n/2 is a power of two from 64 to 1024 and a block of one warp fits in
-    shared memory; else 2, the Stockham stages."""
+def fft_warps(n: int, hop: int, kmax: int, nnz: int, m: int) -> int:
+    """Path 1's warps a block (``path1_warps`` in the .cu): the most of 8,
+    4, 2, 1 whose block fits; 0 where n/2 is no power of two from 64 to
+    1024 or not even one warp fits, and then the kernel takes path 2."""
     nc = n // 2
-    size = n % 2 == 0 and 64 <= nc <= 1024 and nc & (nc - 1) == 0
-    return 1 if size and fft_smem_bytes(n, hop, kmax, nnz, m, 1) <= _MAX_SMEM else 2
+    if n % 2 or not 64 <= nc <= 1024 or nc & (nc - 1):
+        return 0
+    for w in (8, 4, 2, 1):
+        if fft_smem_bytes(n, hop, kmax, nnz, m, w) <= _MAX_SMEM:
+            return w
+    return 0
+
+
+def fft_path(n: int, hop: int, kmax: int, nnz: int, m: int) -> int:
+    """The kernel's path (``ct_path`` in the .cu): 1, the register FFT,
+    where path 1 has warps; else 2, the Stockham stages."""
+    return 1 if fft_warps(n, hop, kmax, nnz, m) else 2
 
 
 def path_for(cfg: FeatureConfig) -> int:
     """The kernel's path for a supported config."""
     _, _, wpack, _, kmax = _kernel_constants(cfg)
     return fft_path(cfg.fft_points, cfg.frame_step, kmax, wpack.size, cfg.num_filters)
-
-
-def fft_warps(n: int, hop: int, kmax: int, nnz: int, m: int) -> int:
-    """Path 1's warps a block (``make_plan`` in the .cu): the most of 8, 4,
-    2, 1 whose block fits."""
-    for w in (8, 4, 2, 1):
-        if fft_smem_bytes(n, hop, kmax, nnz, m, w) <= _MAX_SMEM:
-            return w
-    return 0
 
 
 def ct_mel_supported(cfg: FeatureConfig) -> bool:

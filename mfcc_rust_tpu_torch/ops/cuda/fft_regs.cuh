@@ -1,5 +1,6 @@
-// Register-resident complex FFT for one warp and cp.async tile staging,
-// shared by speechpy_mfcc.cu (K1, path 1) and ct_mel.cu (K2, path 1).
+// Register-resident complex FFT for one warp, cp.async tile staging over a
+// persistent grid and its launch planning, shared by speechpy_mfcc.cu (K1)
+// and ct_mel.cu (K2).
 //
 // fft_regs<NC> transforms nc = NC points, a power of two from 64 to 1024.
 // TPF = lanes_per_frame(NC) lanes of one warp own a frame; lane lt holds
@@ -23,6 +24,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 #include "fft_stages.cuh"
 
@@ -261,6 +264,124 @@ __device__ __forceinline__ void stage_tile(float* slab, const float* x, int avai
   for (int v = threadIdx.x; v < n16; v += blockDim.x) cp_async16(s + pre + 4 * v, x + pre + 4 * v);
   for (int i = tail + threadIdx.x; i < avail; i += blockDim.x) cp_async4(s + i, x + i);
   for (int i = avail + threadIdx.x; i < len; i += blockDim.x) s[i] = 0.f;
+}
+
+// -------------------------------------------------- persistent tile loop ----
+// The grid walks n_tiles tiles persistently.  Tile t is row b = t /
+// tiles_per_row, frames f0 = (t % tiles_per_row) * tile_f onward: the len
+// samples from sig + b*T + f0*hop (zeros past the row's end) go by cp.async
+// into one of two slabs of slab_floats at smem, the next tile's copy in
+// flight while body(slab, b, f0) works on this one (slab points at the
+// tile's first sample).  The only block barriers are the two per tile
+// around the slab.  Every thread of the block calls it.
+template <class Body>
+__device__ __forceinline__ void tile_loop(float* smem, long long slab_floats, const float* sig,
+                                          long long T, long long n_tiles, int tiles_per_row,
+                                          int tile_f, int hop, int len, Body body) {
+  auto tile_x = [&](long long t, long long& b, int& f0) {
+    b = t / tiles_per_row;
+    f0 = (int)(t - b * tiles_per_row) * tile_f;
+    return sig + b * T + (long long)f0 * hop;
+  };
+  auto stage = [&](long long t, int buf) {
+    long long b;
+    int f0;
+    const float* x = tile_x(t, b, f0);
+    const long long left = T - (long long)f0 * hop;
+    stage_tile(smem + buf * slab_floats, x, (int)(left < len ? left : len), len);
+  };
+
+  long long t = blockIdx.x;
+  int cur = 0;
+  if (t < n_tiles) stage(t, cur);
+  cp_async_commit();
+  for (; t < n_tiles; t += gridDim.x) {
+    if (t + gridDim.x < n_tiles) stage(t + gridDim.x, cur ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copy is done; the next may run on
+    __syncthreads();
+    long long b;
+    int f0;
+    const float* x = tile_x(t, b, f0);
+    body(smem + cur * slab_floats + tile_head(x), b, f0);
+    __syncthreads();  // every warp is done with this slab before it refills
+    cur ^= 1;
+  }
+  cp_async_wait<0>();
+}
+
+// ------------------------------------------------------ launch planning ----
+constexpr int kMaxSmem = 232448;  // 227 KB, the per-block limit
+constexpr int kMaxWarps = 8;      // warps of a persistent block, at most
+
+// A launch shape: path, warps a block, dynamic shared bytes, resident
+// blocks per SM and the grid.
+struct Plan {
+  int path, warps, blocks_per_sm;
+  long long smem, grid;
+};
+
+// The most warps (of 8, 4, 2, 1) whose block's bytes(warps) fit in limit,
+// else 0.
+template <class Bytes>
+int most_warps(Bytes bytes, long long limit) {
+  for (int w = kMaxWarps; w >= 1; w /= 2)
+    if (bytes(w) <= limit) return w;
+  return 0;
+}
+
+// Resident blocks of kern per SM at warps * 32 threads and smem dynamic
+// bytes, and the SMs of the current device.  The queries run once per
+// (device, kernel, warps, smem), raising the kernel's dynamic shared-memory
+// limit to kMaxSmem; later launches read the answer from a small cache.
+template <class Kern>
+cudaError_t residency(Kern kern, int warps, long long smem, int& blocks_per_sm, int& sms) {
+  struct Entry {
+    const void* fn;
+    int dev, warps, blocks_per_sm, sms;
+    long long smem;
+  };
+  constexpr int kEntries = 32;
+  static std::mutex mu;
+  static Entry cache[kEntries];
+  static int filled = 0, next = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const void* fn = reinterpret_cast<const void*>(kern);
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < filled; ++i) {
+    const Entry& c = cache[i];
+    if (c.fn == fn && c.dev == dev && c.warps == warps && c.smem == smem) {
+      blocks_per_sm = c.blocks_per_sm;
+      sms = c.sms;
+      return cudaSuccess;
+    }
+  }
+  if ((e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem)) !=
+      cudaSuccess)
+    return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_per_sm, kern, warps * 32, (size_t)smem);
+  if (e != cudaSuccess) return e;
+  if (blocks_per_sm < 1) return cudaErrorInvalidConfiguration;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  cache[next] = Entry{fn, dev, warps, blocks_per_sm, sms, smem};
+  next = (next + 1) % kEntries;
+  filled = filled < kEntries ? filled + 1 : kEntries;
+  return cudaSuccess;
+}
+
+// p.blocks_per_sm and the persistent grid of kern for p.warps and p.smem:
+// every block that is resident at once, at most n_tiles.
+template <class Kern>
+cudaError_t persistent_grid(Plan& p, Kern kern, long long n_tiles) {
+  int sms = 0;
+  const cudaError_t e = residency(kern, p.warps, p.smem, p.blocks_per_sm, sms);
+  if (e != cudaSuccess) return e;
+  const long long resident = (long long)p.blocks_per_sm * sms;
+  p.grid = n_tiles < resident ? n_tiles : resident;
+  return cudaSuccess;
 }
 
 }  // namespace fft

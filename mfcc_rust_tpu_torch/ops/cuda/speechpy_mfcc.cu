@@ -40,8 +40,8 @@
 //   Stockham order with the butterflies in registers; between two passes
 //   the points go through the frame's own bank-padded shared buffers under
 //   __syncwarp.  Twiddles come from one n-entry table through the read-only
-//   cache.  The passes and the tile staging live in fft_regs.cuh, which
-//   ct_mel.cu shares.
+//   cache.  The passes, the tile loop and the launch planning live in
+//   fft_regs.cuh, which ct_mel.cu shares.
 // * Path 2, every other even n (400, 2048, ...): the shared-memory Stockham
 //   stages of fft_stages.cuh, which ct_mel.cu shares, one warp a frame and
 //   __syncwarp between stages.
@@ -65,8 +65,6 @@ namespace {
 using namespace fft;
 
 constexpr int kTileF = 32;     // frames of a tile
-constexpr int kMaxWarps = 8;   // warps of a block
-constexpr int kMaxSmem = 232448;  // 227 KB, the per-block limit
 
 // Path 1 when nc = n/2 is a power of two from 64 to 512, else path 2.
 __host__ __device__ inline int fft_path(int n) {
@@ -240,9 +238,8 @@ __device__ __forceinline__ void tile_path2(const Args& A, const float* slab, flo
 }
 
 // ------------------------------------------------------------- kernel ----
-// NC > 0: path 1 for that nc; NC == 0: path 2.  A persistent loop over the
-// tiles (row b, frames f0 .. f0 + kTileF - 1) with the next tile's slab in
-// flight while this one is worked on.
+// NC > 0: path 1 for that nc; NC == 0: path 2.  The persistent tile loop of
+// fft_regs.cuh over tiles of kTileF frames.
 template <int NC>
 __global__ void __launch_bounds__(kMaxWarps * 32, 2) mfcc_fft_kernel(const Args A) {
   extern __shared__ __align__(16) float smem[];
@@ -255,94 +252,41 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2) mfcc_fft_kernel(const Args 
   float* scratch = smem + lay.warp + warp * lay.per_warp;
   for (int i = threadIdx.x; i < A.nnz; i += blockDim.x) wts[i] = __ldg(A.wpack + i);
   for (int i = threadIdx.x; i < 3 * A.M; i += blockDim.x) rng[i] = __ldg(A.ranges + i);
-
-  const int len = (kTileF - 1) * A.hop + A.fl;
-  auto tile_x = [&](long long t, long long& b, int& f0) {
-    b = t / A.tiles_per_row;
-    f0 = (int)(t - b * A.tiles_per_row) * kTileF;
-    return A.sig + b * A.T + (long long)f0 * A.hop;
-  };
-  auto stage = [&](long long t, int buf) {
-    long long b;
-    int f0;
-    const float* x = tile_x(t, b, f0);
-    const long long left = A.T - (long long)f0 * A.hop;
-    stage_tile(smem + buf * lay.slab, x, (int)(left < len ? left : len), len);
-  };
-
-  long long t = blockIdx.x;
-  int cur = 0;
-  if (t < A.n_tiles) stage(t, cur);
-  cp_async_commit();
-  for (; t < A.n_tiles; t += gridDim.x) {
-    if (t + gridDim.x < A.n_tiles) stage(t + gridDim.x, cur ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile's copy is done; the next may run on
-    __syncthreads();
-    long long b;
-    int f0;
-    const float* x = tile_x(t, b, f0);
-    const float* slab = smem + cur * lay.slab + tile_head(x);
-    float* out_row = A.out + b * A.F * A.C;
-    if constexpr (NC > 0)
-      tile_path1<NC>(A, slab, scratch, lay.frame, wts, rng, f0, out_row, warp, lane, nw);
-    else
-      tile_path2(A, slab, scratch, wts, rng, f0, out_row, warp, lane, nw);
-    __syncthreads();  // every warp is done with this slab before it refills
-    cur ^= 1;
-  }
-  cp_async_wait<0>();
-}
-
-// Launch shape: path, warps, dynamic shared memory, resident blocks per SM
-// and the grid.  warps: the most (of 8, 4, 2, 1) for which two blocks share
-// an SM, else the most for which one block fits.
-struct Plan {
-  int path, warps, blocks_per_sm, grid;
-  long long smem;
-};
-
-template <int NC>
-cudaError_t plan_for(Plan& p, long long n_tiles) {
-  auto kern = mfcc_fft_kernel<NC>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)p.smem);
-  if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.blocks_per_sm, kern, p.warps * 32,
-                                                    (size_t)p.smem);
-  if (e != cudaSuccess) return e;
-  if (p.blocks_per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long resident = (long long)p.blocks_per_sm * sms;
-  p.grid = (int)(n_tiles < resident ? n_tiles : resident);
-  return cudaSuccess;
+  tile_loop(smem, lay.slab, A.sig, A.T, A.n_tiles, A.tiles_per_row, kTileF, A.hop,
+            (kTileF - 1) * A.hop + A.fl, [&](const float* slab, long long b, int f0) {
+              float* out_row = A.out + b * A.F * A.C;
+              if constexpr (NC > 0)
+                tile_path1<NC>(A, slab, scratch, lay.frame, wts, rng, f0, out_row, warp, lane,
+                               nw);
+              else
+                tile_path2(A, slab, scratch, wts, rng, f0, out_row, warp, lane, nw);
+            });
 }
 
 template <int NC>
 cudaError_t launch_as(const Args& A, const Plan& p, cudaStream_t stream) {
-  mfcc_fft_kernel<NC><<<p.grid, p.warps * 32, (size_t)p.smem, stream>>>(A);
+  mfcc_fft_kernel<NC><<<(unsigned)p.grid, p.warps * 32, (size_t)p.smem, stream>>>(A);
   return cudaGetLastError();
 }
 
+// Launch shape: warps, the most (of 8, 4, 2, 1) for which two blocks share
+// an SM, else the most for which one block fits; a persistent grid of every
+// resident block (persistent_grid in fft_regs.cuh, its occupancy query run
+// once per shape).
 cudaError_t make_plan(Plan& p, int n, int hop, int fl, int kmax, int nnz, int m,
                       long long n_tiles) {
   p.path = fft_path(n);
-  p.warps = 0;
-  for (int w = kMaxWarps; w >= 1 && !p.warps; w /= 2)
-    if (Layout(n, hop, fl, kmax, nnz, m, w).total * 4 <= kMaxSmem / 2) p.warps = w;
-  for (int w = kMaxWarps; w >= 1 && !p.warps; w /= 2)
-    if (Layout(n, hop, fl, kmax, nnz, m, w).total * 4 <= kMaxSmem) p.warps = w;
+  auto bytes = [&](int w) { return Layout(n, hop, fl, kmax, nnz, m, w).total * 4; };
+  p.warps = most_warps(bytes, kMaxSmem / 2);
+  if (!p.warps) p.warps = most_warps(bytes, kMaxSmem);
   if (!p.warps || n_tiles <= 0) return cudaErrorInvalidValue;
-  p.smem = Layout(n, hop, fl, kmax, nnz, m, p.warps).total * (long long)sizeof(float);
-  if (p.path == 2) return plan_for<0>(p, n_tiles);
+  p.smem = bytes(p.warps);
+  if (p.path == 2) return persistent_grid(p, mfcc_fft_kernel<0>, n_tiles);
   switch (n / 2) {
-    case 64: return plan_for<64>(p, n_tiles);
-    case 128: return plan_for<128>(p, n_tiles);
-    case 256: return plan_for<256>(p, n_tiles);
-    default: return plan_for<512>(p, n_tiles);
+    case 64: return persistent_grid(p, mfcc_fft_kernel<64>, n_tiles);
+    case 128: return persistent_grid(p, mfcc_fft_kernel<128>, n_tiles);
+    case 256: return persistent_grid(p, mfcc_fft_kernel<256>, n_tiles);
+    default: return persistent_grid(p, mfcc_fft_kernel<512>, n_tiles);
   }
 }
 

@@ -28,6 +28,17 @@ from mfcc_rust_tpu_torch.ops.cuda import ct_mel as pk
 TILE_F = 16  # ct_mel.cu: kTileF
 
 
+def _lanes(nc):
+    """lanes_per_frame of fft_regs.cuh: the lanes of a path-1 frame."""
+    return 32 if nc >= 256 else nc // 8
+
+
+def _xpad(nc, i):
+    """xpad of fft_regs.cuh, the exchange-buffer index: one float skipped
+    every 32 at nc = 1024, every 8 below."""
+    return i + (i >> 5) if nc == 1024 else i + (i >> 3)
+
+
 def rel(a, ref):
     a, ref = np.asarray(a), np.asarray(ref)
     assert a.shape == ref.shape, (a.shape, ref.shape)
@@ -99,7 +110,7 @@ def _path1_fft(z):
     natural order, and at nc = 1024 also the registers a (..., lane, r)."""
     nc = z.shape[-1]
     n = 2 * nc
-    tpf = pk.lanes_per_frame(nc)
+    tpf = _lanes(nc)
     p = nc // tpf
     tw = np.exp(-2j * np.pi * np.arange(n) / n)
     lt = np.arange(tpf)
@@ -122,7 +133,7 @@ def _path1_fft(z):
             a = _dft(a * twq)  # a[..., lt, r] = Z[lt + 32 r]
             return a.reshape(a.shape[:-2] + (-1,))[..., _natural(tpf)], a
         u_n, step = p // r, 2 * nc // (ns * r)
-        buf = np.full(z.shape[:-1] + (pk.xpad(nc, nc) + 1,), np.nan, complex)
+        buf = np.full(z.shape[:-1] + (_xpad(nc, nc) + 1,), np.nan, complex)
         written = np.zeros(buf.shape[-1], int)
         for u in range(u_n):
             b = lt + tpf * u
@@ -132,14 +143,14 @@ def _path1_fft(z):
             if ns > 1:
                 v = v * tw[(k[:, None] * q[None, :] * step)]
             base = (b - k) * r + k
-            idx = np.array([[pk.xpad(nc, int(bb) + rr * ns) for rr in range(r)] for bb in base])
+            idx = np.array([[_xpad(nc, int(bb) + rr * ns) for rr in range(r)] for bb in base])
             buf[..., idx] = _dft(v)
             np.add.at(written, idx.ravel(), 1)
         assert written.max() == 1 and written.sum() == nc  # each place once
         ns *= r
-        gidx = np.array([[pk.xpad(nc, int(ll) + tpf * qq) for qq in range(p)] for ll in lt])
+        gidx = np.array([[_xpad(nc, int(ll) + tpf * qq) for qq in range(p)] for ll in lt])
         a = buf[..., gidx]
-    return buf[..., [pk.xpad(nc, i) for i in range(nc)]], None
+    return buf[..., [_xpad(nc, i) for i in range(nc)]], None
 
 
 def _natural(tpf):
@@ -162,8 +173,8 @@ def test_exchange_padding_is_conflict_free_at_1024():
     touches 32 distinct banks."""
     lanes = np.arange(32)
     for r in range(32):
-        assert len({pk.xpad(1024, 32 * int(l) + r) % 32 for l in lanes}) == 32
-        assert len({pk.xpad(1024, int(l) + 32 * r) % 32 for l in lanes}) == 32
+        assert len({_xpad(1024, 32 * int(l) + r) % 32 for l in lanes}) == 32
+        assert len({_xpad(1024, int(l) + 32 * r) % 32 for l in lanes}) == 32
 
 
 def test_register_split_partner_and_twiddle():
