@@ -42,7 +42,8 @@ clips).
 
 Every variant that computes the function is held to the plain version
 (max|Δ|/max|ref| printed; <= 1e-4 asserted for the shipped builds and the
-path-2 copies).  Times are CUDA events after an L2 flush, in turns (the
+path-2 copies), and the launch plans of the shipped and path-2 builds are
+asserted to take the path each name claims.  Times are CUDA events after an L2 flush, in turns (the
 variants in order, then in reverse), 25 samples a turn.  Prints the card's
 name and power limit, then one JSON line.  Without a CUDA device it exits 1.
 """
@@ -76,14 +77,14 @@ EDITS = {
 EDITS["neither"] = EDITS["no FFT"] + EDITS["no epilogue"]
 CHECKED = ("shipped", "path 2", "float32 DC", "fast log", "16 lanes a frame")
 
-K2_PATH1 = "return path1_warps(n, hop, kmax, nnz, m) ? 1 : 2;"
+K2_PATH1 = "  if (!path1_size(n)) return 0;"  # path1_warps: no warps, so path 2
 K2_FFT = "      fft_regs<NC>(a, re, im, A.tw, lt, w1, w8);"
 K2_SPLIT = ("      // real split of bins k = lt + 32 j: Z[k] = a[j], Z[nc - k] by shuffle\n"
             "#pragma unroll\n      for (int j = 0; j < 32; ++j) {")
 K2_SPLIT_END = "      }\n      if (lt == 0 && A.kmax > NC) {"
 K2_MEL = "    if (f < A.F) {"
 K2_EDITS = {
-    "path 2": [(K2_PATH1, "return 2;")],
+    "path 2": [(K2_PATH1, "  return 0;")],
     "shared split": [
         ("    frame = nc == 1024 ? 2 * round4(xpad<1024>(nc)) : 2 * round4(pad8(nc)) + round4(kmax);",
          "    frame = 2 * round4(nc == 1024 ? xpad<1024>(nc) : pad8(nc)) + round4(kmax);"),
@@ -143,6 +144,14 @@ def compile_variants(build, source: str, edits: dict, tmp: Path, record: dict) -
     return out
 
 
+def plan_path(plan, *args) -> int:
+    """The path a build's plan function (``mfcc_fft_plan`` or
+    ``ct_mel_plan``) picks for its arguments."""
+    info = (ctypes.c_longlong * 5)()
+    assert plan(*args, info) == 0, args
+    return info[0]
+
+
 def time_in_turns(torch, cuda_ms, runs: dict, flush) -> dict:
     times = {k: [] for k in runs}
     for k in list(runs) + list(runs)[::-1]:
@@ -184,6 +193,10 @@ def main() -> int:
         libs = {"shipped": k1._lib()}
         for name, path in compile_variants(build, "speechpy_mfcc.cu", EDITS, tmp, record).items():
             libs[name] = k1._bind(ctypes.CDLL(str(path)))
+        _, wp, _, _, km = k1._kernel_constants(cfg)
+        k1_args = (cfg.fft_points, cfg.frame_step, cfg.frame_size, km, wp.size, cfg.num_filters,
+                   48 * -(-frames // k1._TILE_F))
+        assert [plan_path(libs[k].mfcc_fft_plan, *k1_args) for k in ("shipped", "path 2")] == [1, 2]
         ref = k1.mfcc_fused_plain(x, cfg)
         outs = {k: torch.empty((48, frames, cfg.num_cepstral), device=x.device) for k in libs}
         runs = {k: (lambda k=k: k1._launch(libs[k], x, cfg, outs[k])) for k in libs}
@@ -210,6 +223,15 @@ def main() -> int:
             def run(k):
                 err = k2._launch(libs2[k], xb, c, outs2[k], stream())
                 assert err == 0, (k, libs2[k].ct_mel_error_string(err))
+            # the launch plan of each build takes the path its name claims
+            _, _, wp, _, km = k2._kernel_constants(c)
+            n = c.fft_points
+            args = (n, c.frame_step, km, wp.size, c.num_filters, xb.shape[0], f,
+                    k2.frames_per_block(n, wp.size))
+            for k in names:
+                if k in ("shipped", "path 2"):
+                    want = 2 if k == "path 2" else k2.fft_path(*args[:5])
+                    assert plan_path(libs2[k].ct_mel_plan, *args) == want, (k, n)
             return outs2, {k: (lambda k=k: run(k)) for k in names}
 
         audio = rng.normal(0.0, 0.1, (32, 220500)).astype(np.float32)
