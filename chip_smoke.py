@@ -11,7 +11,13 @@ launch count set to 0, failing unless the path's kernel launched:
   (the MFCC-13 default) through kernel K1, ``speechpy_mfcc``;
 * librosa: ``mfcc_rust_tpu_torch.mel_spectrogram_librosa`` on B=32 x 10 s at
   22,050 Hz (n_fft 2048, hop 512, 128 slaney mels) through kernel K2,
-  ``ct_mel``, then ``log_mel_spectrogram`` and ``mfcc_librosa``.
+  ``ct_mel``, then ``log_mel_spectrogram`` and ``mfcc_librosa``;
+* speechpy suite: ``resample`` of B=48 x 10 s at 44.1 kHz to 16 kHz, one
+  ``extract`` of all five speechpy heads, the vorbis ``mel_spectrogram``,
+  then ``cmvnw``, ``cmvn``, ``delta``, ``delta_librosa`` and the derivative
+  cube.  These paths have no kernel (their products run on cuBLAS) and must
+  launch none; ``FeatureExtractor`` and the ``transforms`` modules then
+  must launch K1 or K2, each with the counts zeroed just before.
 
 Then it holds each kernel to its plain PyTorch version on the card
 (max|Δ|/max|ref| <= 1e-4: K1 runs an FFT where its plain version multiplies
@@ -20,7 +26,10 @@ to a float64 rfft computation, each path to its float64 oracle in
 ``tests/golden/`` at the reference's float32 gate, the autograd gradients to
 the plain paths', and times each kernel, its plain version and a cuFFT
 yardstick (library calls the port never makes) with CUDA events after an L2
-flush, and the host time of one launch through each binding.  Each
+flush, and the host time of one launch through each binding.  The suite
+holds each ``extract`` head to the separate call, and resampling, SSC, the
+vorbis mel and the post-processing to their float64 oracles, and times
+each step (``"suite"`` in the record; not in the kernels line).  Each
 kernel's entry of the kernels line names the FFT path it took at the
 headline (path 1, the register FFT, for both), and the launch plans are
 printed.
@@ -447,6 +456,190 @@ def librosa_phase(np, torch, P, k1, k2, flush) -> tuple:
     return entry, rec
 
 
+SUITE_HEADS = ("mfcc", "lmfe", "mfe", "ssc", "energy")
+SUITE_RATE_IN = 44100
+
+
+def resample_segment_ok(np, resample_ref, x_row, y_row, up: int, down: int, s0: int,
+                        n: int, margin: int = 32) -> float:
+    """Hold one resampled row to the float64 oracle on an n-sample segment
+    starting at s0 (a multiple of ``down``, so the segment's output m is the
+    row's output s0*up/down + m), away from the segment's cut edges (the
+    filter reaches ~half/up input samples; ``margin`` outputs cover it).
+    The whole row would cost the literal oracle a 70M-point convolution.
+    Returns max|Δ| over the compared outputs."""
+    ref = resample_ref.resample_poly_ref(x_row[s0:s0 + n], up, down)
+    o0 = s0 * up // down
+    lo = 0 if s0 == 0 else margin
+    hi = len(ref) - margin
+    got = y_row[o0 + lo:o0 + hi]
+    np.testing.assert_allclose(got, ref[lo:hi], rtol=2e-4, atol=2e-5)
+    return float(np.abs(got - ref[lo:hi]).max())
+
+
+def suite_phase(np, torch, P, k1, k2, flush) -> dict:
+    """The speechpy suite: a 44.1 kHz corpus brought to the MFCC-13 front end
+    at full width.  Resample (48, 441,000) to 16 kHz, one ``extract`` of all
+    five heads, the vorbis mel spectrogram, then sliding CMVN, CMVN and
+    deltas on the MFCCs; each held to the port's separate calls and to the
+    float64 oracles.  These paths have no kernel of their own (their
+    products run on cuBLAS): they are driven with both launch counts at 0
+    and must leave them there.  Then ``FeatureExtractor`` and the
+    ``transforms`` modules, each with the counts zeroed just before, must
+    launch K1 or K2.  Returns the record (times in ms, CUDA events)."""
+    import torch.nn.functional as tF
+
+    from mfcc_rust_tpu_torch import features as PF
+    from mfcc_rust_tpu_torch import transforms as T
+    from mfcc_rust_tpu_torch.utils.bucketing import bucket_length
+    from tests.golden import dfn_ref, resample_ref, speechpy_ref
+
+    dev = torch.device("cuda")
+    rec = {}
+    rng = np.random.default_rng(0)
+    audio44 = rng.normal(0.0, 0.1, (BATCH, SECONDS * SUITE_RATE_IN)).astype(np.float32)
+    x44 = torch.from_numpy(audio44).to(dev)
+    torch.cuda.synchronize()
+
+    def rel(a, ref):
+        return rel_err(a, ref if isinstance(ref, torch.Tensor) else torch.from_numpy(ref))[0]
+
+    # ------------------------------------------ the suite's main path, once --
+    k1.mfcc_fused.launches = k2.ct_mel.launches = 0
+    t0 = time.perf_counter()
+    y = P.resample(x44, SUITE_RATE_IN, RATE)
+    ex = P.extract(y, RATE, which=SUITE_HEADS)
+    mel = P.mel_spectrogram(y, RATE)
+    mf = ex["mfcc"]
+    post = {"cmvnw": P.cmvnw(mf, 301, True), "cmvn": P.cmvn(mf),
+            "delta": P.delta(mf), "delta_librosa": P.delta_librosa(mf.transpose(1, 2)),
+            "derivative": P.extract_derivative_feature(mf)}
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = (k1.mfcc_fused.launches, k2.ct_mel.launches)
+    assert launches == (0, 0), ("the suite's paths launched a kernel", launches)
+    f_true = (RATE * SECONDS - 320) // 160
+    assert tuple(y.shape) == (BATCH, RATE * SECONDS) and y.is_cuda, tuple(y.shape)
+    assert tuple(mf.shape) == (BATCH, f_true, 13), tuple(mf.shape)
+    assert tuple(mel.shape) == (BATCH, 40, -(-RATE * SECONDS // 320)), tuple(mel.shape)
+    assert tuple(post["derivative"].shape) == (BATCH, f_true, 13, 3)
+    for name, t in [("resample", y), ("mel", mel)] + list(post.items()) + \
+            [(k, v if k != "mfe" else v[0]) for k, v in ex.items()]:
+        assert bool(torch.isfinite(t).all()), f"non-finite {name}"
+    log(f"suite main path: resample {tuple(x44.shape)} 44.1 -> 16 kHz {tuple(y.shape)}, "
+        f"extract {SUITE_HEADS} -> mfcc {tuple(mf.shape)}, mel_spectrogram {tuple(mel.shape)}, "
+        f"cmvnw/cmvn/delta/delta_librosa/derivatives in {first_s:.3f} s (first call); "
+        f"launches K1, K2: {launches}")
+
+    # 1. resample: two rows against the float64 oracle (segments, see above)
+    y_np = y.cpu().numpy()
+    rec["resample_abs"] = [
+        resample_segment_ok(np, resample_ref, audio44[0].astype(np.float64), y_np[0],
+                            160, 441, 0, 2205),
+        resample_segment_ok(np, resample_ref, audio44[-1].astype(np.float64), y_np[-1],
+                            160, 441, 441 * (audio44.shape[1] // 882), 2205),
+    ]
+    log(f"resample rows 0 and {BATCH - 1} vs float64 oracle (rtol 2e-4, atol 2e-5): "
+        f"max abs {rec['resample_abs']}")
+
+    # 2. extract: each head vs the separate call on the same tensor (plain)
+    cfg = P.speechpy_config(RATE)
+    off = cfg.replace(pallas="off")
+    yb = tF.pad(y, (0, bucket_length(y.shape[1]) - y.shape[1]))
+    k = f_true
+    sep_mfe = PF.mfe(yb, cfg)
+    separate = {"mfcc": PF.mfcc(yb, off), "lmfe": PF.lmfe(yb, cfg), "mfe": sep_mfe[0],
+                "energy": sep_mfe[1], "ssc": PF.ssc(yb, cfg)}
+    rec["extract_rel"] = {}
+    for name, ref in separate.items():
+        got = ex[name] if name != "mfe" else ex["mfe"][0]
+        rec["extract_rel"][name] = rel(got, ref[:, :k])
+        assert rec["extract_rel"][name] <= 1e-5, (name, rec["extract_rel"][name])
+    assert rel(ex["mfe"][1], sep_mfe[1][:, :k]) <= 1e-5
+    k1_mfcc = P.mfcc(y, RATE)
+    rec["extract_mfcc_vs_k1"] = rel(mf, k1_mfcc)
+    assert rec["extract_mfcc_vs_k1"] <= ORACLE_TOL, rec["extract_mfcc_vs_k1"]
+    y0 = y_np[0].astype(np.float64)
+    rec["ssc_oracle_rel"] = rel(ex["ssc"][0], speechpy_ref.ssc(y0, RATE))
+    assert rec["ssc_oracle_rel"] <= ORACLE_TOL, rec["ssc_oracle_rel"]
+    log(f"extract heads vs separate plain calls: {rec['extract_rel']} (limit 1e-5); mfcc head "
+        f"vs K1's mfcc {rec['extract_mfcc_vs_k1']:.3e}, ssc row 0 vs float64 oracle "
+        f"{rec['ssc_oracle_rel']:.3e} (limit {ORACLE_TOL})")
+
+    # 3. the vorbis mel spectrogram: two rows against the stateful oracle
+    rec["mel_oracle_rel"] = [rel(mel[i], dfn_ref.mel_spectrogram1(y_np[i].astype(np.float64),
+                                                                 RATE)) for i in (0, BATCH - 1)]
+    assert max(rec["mel_oracle_rel"]) <= ORACLE_TOL, rec["mel_oracle_rel"]
+    log(f"mel_spectrogram rows 0, {BATCH - 1} vs float64 oracle: {rec['mel_oracle_rel']}")
+
+    # 4. post-processing: one utterance against the speechpy oracle
+    i = BATCH // 2
+    u = mf[i].double().cpu().numpy()
+    rec["post_oracle_rel"] = {
+        "cmvnw": rel(post["cmvnw"][i], speechpy_ref.cmvnw(u, 301, True)),
+        "cmvn": rel(post["cmvn"][i], speechpy_ref.cmvn(u)),
+        "derivative": rel(post["derivative"][i], speechpy_ref.extract_derivative_feature(u)),
+    }
+    assert max(rec["post_oracle_rel"].values()) <= ORACLE_TOL, rec["post_oracle_rel"]
+    log(f"post-processing, utterance {i} vs float64 speechpy oracle: {rec['post_oracle_rel']}")
+
+    # 5. the modules that run the kernels, each with the counts zeroed
+    def counted(fn):
+        k1.mfcc_fused.launches = k2.ct_mel.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (k1.mfcc_fused.launches, k2.ct_mel.launches)
+
+    fe_out, fe_n = counted(lambda: P.FeatureExtractor(device="cuda")(y))
+    assert fe_n == (1, 0), ("FeatureExtractor launches", fe_n)
+    assert rel_err(fe_out, k1_mfcc)[0] <= REL_TOL  # unbucketed: the same frames
+    sp_out, sp_n = counted(lambda: T.SpeechpyMFCC(RATE)(y))
+    assert sp_n == (1, 0) and rel_err(sp_out, k1_mfcc)[0] <= REL_TOL, ("SpeechpyMFCC", sp_n)
+    lib_audio = torch.from_numpy(rng.normal(0.0, 0.1, (L_BATCH, SECONDS * L_RATE))
+                                 .astype(np.float32)).to(dev)
+    ms_out, ms_n = counted(lambda: T.MelSpectrogram()(lib_audio))
+    assert ms_n == (0, 1), ("MelSpectrogram", ms_n)
+    assert tuple(ms_out.shape) == (L_BATCH, 128, 1 + SECONDS * L_RATE // 512)
+    assert bool(torch.isfinite(ms_out).all())
+    rec["module_launches"] = {"FeatureExtractor": fe_n, "SpeechpyMFCC": sp_n,
+                              "MelSpectrogram": ms_n}
+    log(f"launches (K1, K2): FeatureExtractor {fe_n}, transforms.SpeechpyMFCC {sp_n}, "
+        f"transforms.MelSpectrogram on {tuple(lib_audio.shape)} {ms_n}")
+
+    # 6. times, CUDA events after an L2 flush, median of 20
+    vcfg = P.vorbis_config(RATE)
+    runs = {
+        "resample": lambda: P.resample(x44, SUITE_RATE_IN, RATE),
+        "extract": lambda: PF.extract(yb, cfg, SUITE_HEADS),
+        "separate": lambda: (PF.mfcc(yb, off), PF.lmfe(yb, cfg), PF.mfe(yb, cfg),
+                             PF.ssc(yb, cfg)),
+        "separate_k1": lambda: (PF.mfcc(yb, cfg), PF.lmfe(yb, cfg), PF.mfe(yb, cfg),
+                                PF.ssc(yb, cfg)),
+        "mfcc_k1": lambda: PF.mfcc(yb, cfg),
+        "mel_spectrogram": lambda: PF.mel_spectrogram(yb, vcfg),
+        "cmvnw": lambda: P.cmvnw(mf, 301, True),
+        "delta": lambda: P.delta(mf),
+    }
+    times = {name: cuda_ms(torch, fn, 20, flush) for name, fn in runs.items()}
+    med = {name: statistics.median(v) for name, v in times.items()}
+    # host time of one call (no device wait): the post-processing is a few
+    # dozen small PyTorch ops, whose dispatch may outlast their device work
+    rec["host_ms"] = {name: host_us(torch, runs[name], 50) / 1e3
+                      for name in ("cmvnw", "delta", "mel_spectrogram", "extract")}
+    log(f"suite host time of one call, median of 50: {rec['host_ms']}")
+    audio_s = BATCH * SECONDS
+    rec.update({"shape_44k": list(x44.shape), "bucket": list(yb.shape), "first_call_s": first_s,
+                "times_ms": times, "median_ms": med,
+                "audio_s_per_s": {k: audio_s / v * 1e3 for k, v in med.items()},
+                "launches": list(launches)})
+    for name in runs:
+        log(f"suite time, {name}: {med[name]:.4f} ms, "
+            f"{rec['audio_s_per_s'][name]:.1f} audio-s/s")
+    log(f"extract / separate (plain mfcc): {med['extract'] / med['separate']:.3f}; "
+        f"vorbis mel / K1 mfcc: {med['mel_spectrogram'] / med['mfcc_k1']:.3f}")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, help="directory for chip_smoke.json")
@@ -670,6 +863,7 @@ def main() -> int:
     log(f"clocks.sm, power.draw, power.limit, temperature: {clocks}")
 
     k2_entry, record["librosa"] = librosa_phase(np, torch, P, k1, k2, flush)
+    record["suite"] = suite_phase(np, torch, P, k1, k2, flush)
     kernels = [{
         "name": k1.KERNEL, "route": "cuda",
         "source": "mfcc_rust_tpu_torch/ops/cuda/speechpy_mfcc.cu",

@@ -207,6 +207,12 @@ def librosa_config(
     )
 
 
+def vorbis_config(sample_rate: int, **kw) -> FeatureConfig:
+    """The reference's streaming ("DFN") mel-spectrogram preset: vorbis
+    analysis window, hop = frame length, wnorm scaling."""
+    return FeatureConfig(sample_rate=sample_rate, window="vorbis", **kw)
+
+
 class SpeechConfigBuilder:
     """Fluent builder with the reference's surface.
 

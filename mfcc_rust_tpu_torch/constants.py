@@ -204,6 +204,12 @@ def dct_matrix(n: int, n_out: Optional[int] = None, norm: str = "ortho") -> np.n
     return d
 
 
+def idct_matrix(n: int, n_in: Optional[int] = None) -> np.ndarray:
+    """Orthonormal DCT-III, the inverse of :func:`dct_matrix` with the ortho
+    norm, shape ``(n_in, n)``."""
+    return dct_matrix(n, n_in).T
+
+
 def rdft_matrices(
     n_fft: int,
     frame_len: Optional[int] = None,

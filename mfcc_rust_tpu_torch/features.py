@@ -1,6 +1,7 @@
-"""Feature pipelines on tensors (port of ``mfcc_rust_tpu.features``: the
-speechpy MFE / log-MFE / MFCC part and the librosa mel / log-mel / MFCC
-part).
+"""Feature pipelines on tensors (port of ``mfcc_rust_tpu.features``): the
+speechpy MFE / log-MFE / MFCC / SSC part with the single-pass ``extract``,
+the reference's vorbis mel spectrogram, and the librosa mel / log-mel / MFCC
+part.
 
 Every function is a plain function of ``(signal, cfg)`` over arbitrary
 leading batch dims, computing in the signal's dtype on the signal's device.
@@ -10,7 +11,8 @@ filterbank's support, and frame energies come from Parseval columns of the
 same product.  On a CUDA float32 tensor ``mfcc`` runs the fused kernel
 (``ops/cuda/speechpy_mfcc``) and ``mel_spectrogram_librosa`` the CT mel
 kernel (``ops/cuda/ct_mel``); everywhere else they run the plain paths,
-which the kernels are held against.
+which the kernels are held against.  ``ssc``, ``extract`` and
+``mel_spectrogram`` have no kernel: their products run on cuBLAS.
 
 ``consts`` (optional) is a dict of the chunk-GEMM constant tensors
 (:func:`_speechpy_tensors`); the pipelines pass their buffers through it.
@@ -26,13 +28,14 @@ import torch
 import torch.nn.functional as tF
 
 from .config import FeatureConfig, fp32_matmul
-from .constants import chunk_gemm_wall, constant_bundle
+from .constants import bundle_tensor, chunk_gemm_wall, constant_bundle, vorbis_chunk_wall
 from .ops import framing as _framing
 from .ops import stft as _stft
 from .ops.dct import dct2_ortho
 from .ops.fft import ct_power_project, good_factorization, permute_weights_for_ct
 from .ops.mel import apply_filterbank, mel_project_time_major
 from .ops.spectrum import power_spectrum, power_to_db, resolve_fft_impl, zero_handling
+from .ops.ssc import SSC_EPS, ssc_from_power, ssc_ramp
 
 
 def _speechpy_frames(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
@@ -101,16 +104,28 @@ def _projection(cfg: FeatureConfig) -> np.ndarray:
     return proj
 
 
+def _ssc_projection(cfg: FeatureConfig) -> np.ndarray:
+    """(kmax, 2M) float64 ``[ramp·fbᵀ | fbᵀ]``: one product of the power
+    spectrum gives the SSC numerator (``(p·ramp) @ fbᵀ == p @ (ramp·fbᵀ)``)
+    and its denominator."""
+    bundle = constant_bundle(cfg)
+    kmax = bundle["fbank_kmax"]
+    fbt = bundle["fbank"][:, :kmax].T
+    return np.concatenate([ssc_ramp(cfg)[:kmax, None] * fbt, fbt], axis=1)
+
+
 @functools.lru_cache(maxsize=64)
 def _speechpy_tensors(cfg: FeatureConfig, device: torch.device, dtype: torch.dtype) -> dict:
     """The chunk-GEMM constants as tensors on one device and dtype:
     ``wall`` (r*hop, W) ``[C_trim | S_trim | w | ±w]``, ``proj`` (W, M+1)
-    (:func:`_projection`), ``dct`` (M, C) and ``w2`` (r, hop), the squared
-    window of the Parseval term."""
+    (:func:`_projection`), ``dct`` (M, C), ``w2`` (r, hop), the squared
+    window of the Parseval term, and ``ssc`` (kmax, 2M)
+    (:func:`_ssc_projection`)."""
     wd = chunk_gemm_wall(cfg, True)
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
     return {"wall": t(wd["wall"]), "proj": t(_projection(cfg)),
-            "dct": t(constant_bundle(cfg)["dct"]), "w2": t(wd["w2"])}
+            "dct": t(constant_bundle(cfg)["dct"]), "w2": t(wd["w2"]),
+            "ssc": t(_ssc_projection(cfg))}
 
 
 def _consts(cfg: FeatureConfig, signal: torch.Tensor, consts: Optional[dict]) -> dict:
@@ -143,9 +158,8 @@ def _fast_path_ok(cfg: FeatureConfig) -> bool:
 
 @fp32_matmul()
 def _chunked_mel_energy(
-    signal: torch.Tensor, cfg: FeatureConfig, want_energy: bool,
-    spectral_weight: Optional[np.ndarray] = None, n_frames: Optional[int] = None,
-    consts: Optional[dict] = None,
+    signal: torch.Tensor, cfg: FeatureConfig, want_energy: bool, ssc: bool = False,
+    n_frames: Optional[int] = None, consts: Optional[dict] = None,
 ):
     """speechpy-nopad framed power spectrum -> mel projection without
     building the (F, frame_len) matrix, the DFT trimmed to the filterbank's
@@ -153,16 +167,12 @@ def _chunked_mel_energy(
     from Parseval: ``sum_{k<=N/2} |X_k|^2 = (N * sum(x^2) + X_0^2 +
     X_{N/2}^2) / 2`` with ``X_0``, ``X_{N/2}`` the wall's w/±w columns.
 
-    Returns (mel_feats, energies_or_None[, ssc_numerator]) where
-    ``spectral_weight`` (a per-bin weight vector, SSC's frequency ramp) adds
-    a second weighted mel projection."""
+    Returns (mel_feats, energies_or_None), or with ``ssc`` the SSC
+    numerator, energies and denominator (:func:`_ssc_head`)."""
     if cfg.preemphasis_cof:
         signal = _framing.preemphasis(signal, 1, cfg.preemphasis_cof)
-    bundle = constant_bundle(cfg)
-    kmax = bundle["fbank_kmax"]
     hop = cfg.frame_step
     fl = min(cfg.frame_size, cfg.fft_points)
-    n = cfg.fft_points
     m = cfg.num_filters
     if n_frames is None:
         n_frames, _ = _framing.speechpy_frame_counts(signal.shape[-1], fl, hop,
@@ -170,36 +180,47 @@ def _chunked_mel_energy(
     if n_frames <= 0:
         empty = signal.new_zeros(signal.shape[:-1] + (0, m))
         e = signal.new_zeros(signal.shape[:-1] + (0,)) if want_energy else None
-        if spectral_weight is not None:
-            return empty, e, empty
-        return empty, e
+        return (empty, e, empty) if ssc else (empty, e)
 
     c = _consts(cfg, signal, consts)
     ch, y = _chunk_gemm(signal, c["wall"], n_frames, hop)
-    energies = None
-    if want_energy:
-        energies = _parseval_energies(ch, y[..., 2 * kmax], y[..., 2 * kmax + 1],
-                                      c["w2"], n, n_frames, fl % hop == 0 and cfg.window == "rect")
-    if spectral_weight is None:
-        # project the squared product straight to mel (see _stacked_fb)
-        feats = zero_handling(torch.matmul(y * y, c["proj"][:, :m]))
-        return feats, energies
+    energies = _frame_energies(ch, y, c, cfg, n_frames) if want_energy else None
+    if ssc:
+        num, den = _ssc_head(y, c, cfg)
+        return num, energies, den
+    # project the squared product straight to mel (see _stacked_fb)
+    return _mel_head(y, c, cfg), energies
 
-    # SSC: the zero replacement is per bin, so the power spectrum is built,
-    # and it takes the float64 epsilon (the SSC spec), not the f32 one
+
+def _frame_energies(ch, y, c: dict, cfg: FeatureConfig, n_frames: int) -> torch.Tensor:
+    """Parseval frame energies of one chunk-GEMM product (the wall's w/±w
+    columns sit at 2*kmax and 2*kmax + 1)."""
+    kmax = constant_bundle(cfg)["fbank_kmax"]
+    fl = min(cfg.frame_size, cfg.fft_points)
+    return _parseval_energies(ch, y[..., 2 * kmax], y[..., 2 * kmax + 1], c["w2"],
+                              cfg.fft_points, n_frames,
+                              fl % cfg.frame_step == 0 and cfg.window == "rect")
+
+
+@fp32_matmul()
+def _mel_head(y: torch.Tensor, c: dict, cfg: FeatureConfig) -> torch.Tensor:
+    """Mel energies, zeros replaced: ``(y·y) @ proj[:, :M]``."""
+    return zero_handling(torch.matmul(y * y, c["proj"][:, : cfg.num_filters]))
+
+
+@fp32_matmul()
+def _ssc_head(y: torch.Tensor, c: dict, cfg: FeatureConfig):
+    """SSC (numerator, denominator) of one chunk-GEMM product.  The zero
+    replacement is per bin, so the power spectrum is built, and it takes the
+    float64 epsilon (the SSC spec), not the float32 one."""
+    kmax = constant_bundle(cfg)["fbank_kmax"]
     xr = y[..., :kmax]
     xi = y[..., kmax : 2 * kmax]
-    power = (xr * xr + xi * xi) * (1.0 / n)
-    eps = float(np.finfo(np.float64).eps)
-    pz = torch.where(power == 0.0, torch.full_like(power, eps), power)
-    # num = (pz*rw)@fbt == pz@(rw·fbt): numerator and denominator in one product
-    fbt64 = bundle["fbank"][:, :kmax].T
-    both = torch.as_tensor(
-        np.concatenate([spectral_weight[:kmax, None] * fbt64, fbt64], axis=1),
-        dtype=signal.dtype, device=signal.device,
-    )
-    nd = torch.matmul(pz, both)
-    return nd[..., :m], energies, nd[..., m:]
+    power = (xr * xr + xi * xi) * (1.0 / cfg.fft_points)
+    pz = torch.where(power == 0.0, torch.full_like(power, SSC_EPS), power)
+    nd = torch.matmul(pz, c["ssc"])
+    m = cfg.num_filters
+    return nd[..., :m], nd[..., m:]
 
 
 @fp32_matmul()
@@ -254,15 +275,10 @@ def mfcc(signal: torch.Tensor, cfg: FeatureConfig,
         if mfcc_kernel_supported(cfg):
             return _MFCCKernel.apply(signal, cfg, consts)
     feats, energy = mfe(signal, cfg, consts)
-    feats = torch.log(feats)
-    if consts is None:
-        out = dct2_ortho(feats, cfg)
-    else:
-        with fp32_matmul():
-            out = torch.matmul(feats, consts["dct"])
-    if cfg.dc_elimination:
-        out = torch.cat([torch.log(energy)[..., None], out[..., 1:]], dim=-1)
-    return out
+    logm = torch.log(feats)
+    dct = consts["dct"] if consts is not None else bundle_tensor(cfg, "dct", logm.device,
+                                                                 logm.dtype)
+    return _cepstra(logm, energy, dct, cfg)
 
 
 class _MFCCKernel(torch.autograd.Function):
@@ -289,6 +305,54 @@ class _MFCCKernel(torch.autograd.Function):
             out = mfcc(s, ctx.cfg.replace(pallas="off"), ctx.consts)
             (gs,) = torch.autograd.grad(out, s, g)
         return gs, None, None
+
+
+def ssc(signal: torch.Tensor, cfg: FeatureConfig,
+        consts: Optional[dict] = None) -> torch.Tensor:
+    """Spectral subband centroids in Hz: (..., T) -> (..., F, num_filters)."""
+    if _fast_path_ok(cfg):
+        num, _, den = _chunked_mel_energy(signal, cfg, want_energy=False, ssc=True,
+                                          consts=consts)
+        return num / den
+    frames = _speechpy_frames(signal, cfg)
+    return ssc_from_power(power_spectrum(frames, cfg, windowed=cfg.window != "rect"), cfg)
+
+
+# --------------------------------------------------- reference mel spectrum --
+@functools.lru_cache(maxsize=64)
+def _vorbis_tensors(cfg: FeatureConfig, device: torch.device, dtype: torch.dtype) -> dict:
+    """:func:`..constants.vorbis_chunk_wall`'s ``wall`` and ``fb2`` as
+    tensors on one device and dtype."""
+    vw = vorbis_chunk_wall(cfg)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+    return {"wall": t(vw["wall"]), "fb2": t(vw["fb2"])}
+
+
+def mel_spectrogram(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """The reference's mel spectrogram: the vorbis-window streaming STFT's
+    power on the speechpy filterbank, mel-major (..., num_filters, T'),
+    T' = ceil(T / stream_hop), in the reference's n_pad layout.
+
+    With the matmul DFT the stream's frames are hop-strided windows of the
+    signal left-padded with fft_points - hop zeros (the analysis memory), so
+    the STFT is one chunk-GEMM against the vorbis wall (its rows zero-padded
+    to whole hops) and the squared product projects through the stacked
+    filterbank with wnorm² folded in.  Otherwise the framed STFT."""
+    if cfg.window != "vorbis":
+        cfg = cfg.replace(window="vorbis")
+    if resolve_fft_impl(cfg) != "matmul":
+        return mel_project_time_major(_stft.stft_vorbis_power(signal, cfg), cfg)
+    hop = cfg.stream_hop
+    n_frames = -(-signal.shape[-1] // hop)
+    if n_frames > 0:
+        c = _vorbis_tensors(cfg, signal.device, signal.dtype)
+        x = tF.pad(signal, (cfg.fft_points - hop, 0))
+        _, y = _chunk_gemm(x, c["wall"], n_frames, hop)
+        with fp32_matmul():
+            mel = torch.matmul(y * y, c["fb2"])
+    else:  # an empty clip: only the n_pad zero rows of the layout
+        mel = signal.new_zeros(signal.shape[:-1] + (0, cfg.num_filters))
+    return _stft._apply_npad_layout(mel, cfg).transpose(-1, -2)
 
 
 # --------------------------------------------------------- librosa pipeline --
@@ -469,3 +533,98 @@ def mfcc_librosa(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
     the DCT product without a copy."""
     s = mel_spectrogram_librosa(signal, cfg).transpose(-1, -2)  # (..., T, M)
     return dct2_ortho(power_to_db(s), cfg).transpose(-1, -2)
+
+
+# ------------------------------------------------------- multi-feature pass --
+EXTRACT_HEADS = ("mfcc", "lmfe", "mfe", "ssc", "energy")
+
+
+def extract(signal: torch.Tensor, cfg: FeatureConfig, which: Tuple[str, ...] = ("mfcc",),
+            consts: Optional[dict] = None) -> dict:
+    """Several speechpy-family features from ONE frontend pass.
+
+    ``which`` ⊆ {"mfcc", "lmfe", "mfe", "ssc", "energy"}; returns a dict
+    (``"mfe"`` maps to the (features, energies) pair of :func:`mfe`).  The
+    chunk-GEMM, the Parseval energies and the log-mel run once and every
+    requested head reads them.  The ``mfcc`` head is the plain chunk-GEMM
+    path on every device: it never launches the fused kernel."""
+    unknown = set(which) - set(EXTRACT_HEADS)
+    if unknown:
+        raise ValueError(f"unknown features {sorted(unknown)}; valid: {sorted(EXTRACT_HEADS)}")
+    want = set(which)
+    if not _fast_path_ok(cfg):
+        return _extract_unfused(signal, cfg, want)
+
+    x = signal
+    if cfg.preemphasis_cof:
+        x = _framing.preemphasis(x, 1, cfg.preemphasis_cof)
+    need_energy = bool(want & {"mfe", "energy"}) or ("mfcc" in want and cfg.dc_elimination)
+    n_frames, _ = _framing.speechpy_frame_counts(
+        x.shape[-1], min(cfg.frame_size, cfg.fft_points), cfg.frame_step, zero_padding=False)
+    if n_frames <= 0:
+        lead = x.shape[:-1]
+        empty2 = x.new_zeros(lead + (0, cfg.num_filters))
+        empty1 = x.new_zeros(lead + (0,))
+        out = {"mfcc": x.new_zeros(lead + (0, cfg.num_cepstral)), "lmfe": empty2,
+               "ssc": empty2, "mfe": (empty2, empty1), "energy": empty1}
+        return {k: v for k, v in out.items() if k in want}
+    c = _consts(cfg, x, consts)
+    ch, y = _chunk_gemm(x, c["wall"], n_frames, cfg.frame_step)
+    return _extract_heads(ch, y, c, cfg, want, n_frames, need_energy)
+
+
+def _extract_heads(ch, y, c: dict, cfg: FeatureConfig, want, n_frames: int,
+                   need_energy: bool) -> dict:
+    """Every requested head of one chunk-GEMM product ``y`` of the chunks
+    ``ch`` against ``c["wall"]`` (:func:`_speechpy_tensors`, whose wall
+    always holds the Parseval columns): the body of :func:`extract`, and the
+    shard-local step of a data-parallel extraction."""
+    energies = _frame_energies(ch, y, c, cfg, n_frames) if need_energy else None
+    mel = _mel_head(y, c, cfg) if want & {"mfcc", "lmfe", "mfe"} else None
+    out = _mel_heads(mel, energies, c["dct"], cfg, want)
+    if "ssc" in want:
+        num, den = _ssc_head(y, c, cfg)
+        out["ssc"] = num / den
+    return out
+
+
+def _mel_heads(mel: Optional[torch.Tensor], energies: Optional[torch.Tensor],
+               dct: torch.Tensor, cfg: FeatureConfig, want) -> dict:
+    """The ``mfe``, ``energy``, ``lmfe`` and ``mfcc`` heads of one pair of
+    mel and frame energies."""
+    out = {}
+    if "mfe" in want:
+        out["mfe"] = (mel, energies)
+    if "energy" in want:
+        out["energy"] = energies
+    if want & {"mfcc", "lmfe"}:
+        logm = torch.log(mel)
+        if "lmfe" in want:
+            out["lmfe"] = logm
+        if "mfcc" in want:
+            out["mfcc"] = _cepstra(logm, energies, dct, cfg)
+    return out
+
+
+def _cepstra(logm: torch.Tensor, energies: Optional[torch.Tensor], dct: torch.Tensor,
+             cfg: FeatureConfig) -> torch.Tensor:
+    """DCT of the log-mel; with dc_elimination column 0 is the log frame
+    energy."""
+    with fp32_matmul():
+        out = torch.matmul(logm, dct)
+    if cfg.dc_elimination:
+        out = torch.cat([torch.log(energies)[..., None], out[..., 1:]], dim=-1)
+    return out
+
+
+def _extract_unfused(signal: torch.Tensor, cfg: FeatureConfig, want) -> dict:
+    """:func:`extract` off the chunk-GEMM path: the gather fallback of
+    :func:`mfe` feeds the mel heads, :func:`ssc` its own."""
+    out = {}
+    if want & {"mfcc", "lmfe", "mfe", "energy"}:
+        feats, energies = mfe(signal, cfg)
+        dct = bundle_tensor(cfg, "dct", feats.device, feats.dtype)
+        out = _mel_heads(feats, energies, dct, cfg, want)
+    if "ssc" in want:
+        out["ssc"] = ssc(signal, cfg)
+    return out

@@ -21,14 +21,17 @@ def preemphasis(signal: torch.Tensor, shift: int = 1, cof: float = 0.98) -> torc
 
 
 def pad_signal(signal: torch.Tensor, left: int, right: int,
-               mode: str = "reflect") -> torch.Tensor:
-    """``np.pad`` of the last axis by (left, right) in ``mode`` ("constant",
-    "reflect", "symmetric", "edge" or "wrap"), at any length.  A pad as long
-    as the signal or longer reflects again and again, as numpy does
-    (``torch.nn.functional.pad`` raises there), so each output sample is
-    read through a folded index; a 1-sample signal reflects to itself."""
+               mode: str = "reflect", dim: int = -1) -> torch.Tensor:
+    """``np.pad`` of axis ``dim`` (the last by default) by (left, right) in
+    ``mode`` ("constant", "reflect", "symmetric", "edge" or "wrap"), at any
+    length.  A pad as long as the axis or longer reflects again and again,
+    as numpy does (``torch.nn.functional.pad`` raises there), so each output
+    sample is read through a folded index; a 1-sample axis reflects to
+    itself."""
     if left == 0 and right == 0:
         return signal
+    if dim not in (-1, signal.ndim - 1):
+        return pad_signal(signal.movedim(dim, -1), left, right, mode).movedim(-1, dim)
     if mode == "constant":
         return tF.pad(signal, (left, right))
     t = signal.shape[-1]

@@ -62,8 +62,19 @@ def rdft(
         from .fft import rfft_ct
 
         return rfft_ct(frames, n)
+    if frames.numel() == 0:  # no frames: the CPU FFT raises on an empty batch
+        z = frames.new_zeros(frames.shape[:-1] + (n // 2 + 1,))
+        return z, z
     spec = torch.fft.rfft(frames, n=n, dim=-1)
     return spec.real.to(frames.dtype), spec.imag.to(frames.dtype)
+
+
+def fft_spectrum(
+    frames: torch.Tensor, cfg: FeatureConfig, windowed: bool = False
+) -> torch.Tensor:
+    """rFFT magnitude per frame."""
+    xr, xi = rdft(frames, cfg, windowed)
+    return torch.sqrt(xr * xr + xi * xi)
 
 
 def power_spectrum(
@@ -72,6 +83,19 @@ def power_spectrum(
     """speechpy power spectrum ``|X|^2 / fft_points``."""
     xr, xi = rdft(frames, cfg, windowed)
     return (xr * xr + xi * xi) * (1.0 / cfg.fft_points)
+
+
+def log_power_spectrum(
+    frames: torch.Tensor, cfg: FeatureConfig, normalize: bool = True
+) -> torch.Tensor:
+    """10*log10 power with a -200 dB floor; with ``normalize`` the maximum of
+    the whole array (not of each row) is subtracted."""
+    ps = power_spectrum(frames, cfg)
+    lps = torch.where(ps > 1e-20, 10.0 * torch.log10(torch.clamp_min(ps, 1e-30)),
+                      torch.full_like(ps, -200.0))
+    if normalize:
+        lps = lps - torch.amax(lps)
+    return lps
 
 
 def power_to_db(s: torch.Tensor, ref: float = 1.0, amin: float = 1e-10,

@@ -1,16 +1,63 @@
-"""Framed short-time Fourier transforms (port of the framed part of
-``mfcc_rust_tpu.ops.stft``): centred librosa framing or speechpy framing,
-any window, any hop."""
+"""Short-time Fourier transforms (port of the batch part of
+``mfcc_rust_tpu.ops.stft``).
+
+* :func:`stft_vorbis_power` / :func:`stft_vorbis` — the reference's
+  streaming ("DFN") STFT computed in one batch: the same output as a freshly
+  reset frame-by-frame stream, the ``n_pad`` warm-up frames dropped and
+  ``n_pad`` never-written zero rows at the tail.
+* :func:`stft_framed` — the framed family (speechpy and librosa presets:
+  optional centring, any window, any hop).
+"""
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as tF
 
 from ..config import FeatureConfig
 from . import framing
 from .spectrum import rdft
 
 
+# ------------------------------------------------------------- vorbis batch --
+def _vorbis_frames(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """(..., T) -> (..., ceil(T/hop), fft_points): the stream's frames, the
+    zero analysis memory (fft_points - hop zeros) prepended and the last
+    partial chunk zero-padded."""
+    hop = cfg.stream_hop
+    n = cfg.fft_points
+    t = signal.shape[-1]
+    n_chunks = int(math.ceil(t / hop))
+    x = tF.pad(signal, (n - hop, n_chunks * hop - t))
+    return framing.frame_signal(x, n, hop, n_chunks)
+
+
+def stft_vorbis_power(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """(..., T) -> (..., T', K) power, T' = ceil(T/hop): ``|stft1|^2`` of a
+    fresh reference stream."""
+    xr, xi = rdft(_vorbis_frames(signal, cfg), cfg, windowed=True)
+    return _apply_npad_layout((xr * xr + xi * xi) * (cfg.wnorm * cfg.wnorm), cfg)
+
+
+def stft_vorbis(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """Complex form of :func:`stft_vorbis_power`, scaled by wnorm."""
+    xr, xi = rdft(_vorbis_frames(signal, cfg), cfg, windowed=True)
+    return _apply_npad_layout(torch.complex(xr, xi) * cfg.wnorm, cfg)
+
+
+def _apply_npad_layout(frames_out: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """(..., T', D): drop the first ``n_pad`` rows and append ``n_pad`` zero
+    rows, the reference's output layout."""
+    n_pad = cfg.stream_n_pad
+    if n_pad == 0:
+        return frames_out
+    zeros = frames_out.new_zeros(frames_out.shape[:-2] + (n_pad, frames_out.shape[-1]))
+    return torch.cat([frames_out[..., n_pad:, :], zeros], dim=-2)
+
+
+# ------------------------------------------------------------------- framed --
 def librosa_frame_count(length: int, n_fft: int, hop: int, center: bool) -> int:
     """Frames of a librosa STFT of ``length`` samples, 0 when the (padded)
     signal is shorter than one frame: the entry points slice the bucketed

@@ -221,3 +221,88 @@ def test_ct_mel_grad_through_path1_at_2048_on_card(cuda_device):
     b = x.to(cuda_device).requires_grad_(True)
     PF.mel_spectrogram_librosa(b, cfg.replace(pallas="off")).sqrt().sum().backward()
     assert rel(a.grad, b.grad) <= 1e-4
+
+
+# The entry points without a kernel of their own (their products run on
+# cuBLAS): each on the card against the same call on the CPU, float32, at
+# max|Δ|/max|ref| <= 1e-5 (3e-5 for the log heads, as the CPU tests hold
+# them against JAX).
+HEADS = ("mfcc", "lmfe", "mfe", "ssc", "energy")
+NEW_CALLS = [
+    ("ssc", "signal", (16000,), {}),
+    ("extract", "signal", (16000,), {"which": HEADS}),
+    ("mel_spectrogram", "signal", (16000,), {}),
+    ("mel_spectrogram", "signal", (16000,), {"frame_length": 0.008}),
+    ("preemphasis", "signal", (), {}),
+    ("stack_frames", "signal", (16000,), {}),
+    ("resample", "signal", (16000, 44100), {}),
+    ("resample_poly", "signal", (160, 441), {}),
+    ("derivative_extraction", "feats", (), {}),
+    ("extract_derivative_feature", "feats", (), {}),
+    ("delta", "feats", (), {}),
+    ("delta_librosa", "feats", (), {"axis": -2}),
+    ("cmvn", "feats", (True,), {}),
+    ("cmvnw", "feats", (301, True), {}),
+    ("log_power_spectrum", "frames", (), {}),
+]
+
+
+def _flat(out):
+    """A result as a flat dict of tensors: a dict's heads, a pair's halves."""
+    if not isinstance(out, dict):
+        out = {"": out}
+    return {f"{k}{i}": t for k, v in out.items()
+            for i, t in enumerate(v if isinstance(v, tuple) else (v,))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kind,args,kw", NEW_CALLS,
+                         ids=[f"{c[0]} {c[3]}" for c in NEW_CALLS])
+def test_new_entry_points_on_card_match_cpu(cuda_device, name, kind, args, kw):
+    rng = np.random.default_rng(21)
+    x = {"signal": rng.normal(0, 0.1, (2, 8000)),
+         "feats": rng.normal(1.0, 2.0, (2, 60, 13)),
+         "frames": rng.normal(0, 0.1, (40, 400))}[kind].astype(np.float32)
+    fn = getattr(P, name)
+    before = pk.mfcc_fused.launches, ck.ct_mel.launches
+    got = _flat(fn(x, *args, **kw))
+    ref = _flat(fn(x, *args, **kw, device="cpu"))
+    torch.cuda.synchronize()
+    assert (pk.mfcc_fused.launches, ck.ct_mel.launches) == before, "no kernel on this path"
+    assert got.keys() == ref.keys()
+    for k in got:
+        assert got[k].is_cuda and got[k].dtype == torch.float32, (name, k)
+        tol = 3e-5 if k.startswith(("lmfe", "mfcc")) else 1e-5
+        assert rel(got[k], ref[k]) <= tol, (name, k)
+
+
+@pytest.mark.cuda
+def test_feature_extractor_and_transforms_launch_the_kernels_on_card(cuda_device):
+    from mfcc_rust_tpu_torch import transforms as T
+
+    x = torch.from_numpy(np.random.default_rng(22).normal(0, 0.1, (2, 16000))
+                         .astype(np.float32)).to(cuda_device)
+    fe = P.FeatureExtractor(device="cuda")
+    assert all(b.is_cuda for b in fe.buffers())
+    k1, k2 = pk.mfcc_fused.launches, ck.ct_mel.launches
+    out = fe(x)
+    torch.cuda.synchronize()
+    assert (pk.mfcc_fused.launches - k1, ck.ct_mel.launches - k2) == (1, 0)
+    assert rel(out, PF.mfcc(x.cpu(), fe.cfg)) <= 1e-4  # the kernel against the plain path
+    k1 = pk.mfcc_fused.launches
+    sp_out = T.SpeechpyMFCC(16000)(x)
+    assert pk.mfcc_fused.launches == k1 + 1 and sp_out.is_cuda
+    assert rel(sp_out, P.mfcc(x.cpu(), 16000, device="cpu")) <= 1e-4
+    k2 = ck.ct_mel.launches
+    mel = T.MelSpectrogram(sr=16000, n_fft=512, hop_length=160, n_mels=80)(x)
+    mf = T.MFCC(sr=16000)(x)
+    torch.cuda.synchronize()
+    assert ck.ct_mel.launches == k2 + 2 and mel.is_cuda and mf.is_cuda
+    assert rel(mel, P.mel_spectrogram_librosa(x.cpu(), 16000, n_fft=512, hop_length=160,
+                                              n_mels=80, device="cpu")) <= 1e-4
+    # gradients flow through the kernels' backward passes
+    xg = x.clone().requires_grad_(True)
+    k1, k2 = pk.mfcc_fused.launches, ck.ct_mel.launches
+    (T.SpeechpyMFCC(16000)(xg).sum() + T.MelSpectrogram(sr=16000)(xg).sqrt().sum()).backward()
+    assert (pk.mfcc_fused.launches - k1, ck.ct_mel.launches - k2) == (1, 1)
+    assert bool(torch.isfinite(xg.grad).all())

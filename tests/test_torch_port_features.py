@@ -100,12 +100,12 @@ def test_chunk_gemm_forms_agree(frame_length):
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_ssc_branch_matches_jax(dtype):
-    """_chunked_mel_energy's spectral-weight (SSC) branch, float64 eps
-    substitution included."""
+    """_chunked_mel_energy's SSC branch (the frequency ramp as spectral
+    weight), float64 eps substitution included."""
     jcfg, pcfg, jx, px = _pair({}, 12000, dtype, seed=3)
     ramp = np.linspace(1.0, 8000.0, jcfg.freq_size)
     jn, _, jd = JF._chunked_mel_energy(jx, jcfg, want_energy=False, spectral_weight=ramp)
-    pn, _, pd = PF._chunked_mel_energy(px, pcfg, want_energy=False, spectral_weight=ramp)
+    pn, _, pd = PF._chunked_mel_energy(px, pcfg, want_energy=False, ssc=True)
     assert rel(pn, jn) <= TOL[dtype] and rel(pd, jd) <= TOL[dtype]
     assert rel(pn / pd, sp.ssc(np.asarray(jx, np.float64), 16000)) <= (
         5e-3 if dtype == "float32" else 1e-9)

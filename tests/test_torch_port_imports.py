@@ -31,6 +31,7 @@ def test_import_pulls_in_no_jax_and_needs_cuda_by_default():
         import torch
         import mfcc_rust_tpu_torch as P
         import mfcc_rust_tpu_torch.models, mfcc_rust_tpu_torch.ops.cuda.build
+        import mfcc_rust_tpu_torch.compat.speechpy, mfcc_rust_tpu_torch.transforms
         bad = [k for k in sys.modules
                if k.split('.')[0] in ('jax', 'jaxlib', 'mfcc_rust_tpu')]
         assert not bad, bad
