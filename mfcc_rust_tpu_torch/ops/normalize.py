@@ -14,6 +14,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as tF
 
 from .framing import pad_signal
 
@@ -37,15 +38,17 @@ def cmvn(vec: torch.Tensor, variance_normalization: bool = False) -> torch.Tenso
 def _windowed_moments(x: torch.Tensor, win_size: int, want_sq: bool = True
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Sliding (mean, E[x^2]) of each row over its symmetric-padded window,
-    by cumulative sums: (..., T, D) -> two (..., T, D)."""
+    by cumulative sums: (..., T, D) -> two (..., T, D).  The sums run along
+    the last, contiguous axis of the (..., D, T) transpose: a scan along
+    an outer axis gives the card one thread a column (B·D of them) walking
+    T rows."""
     pad_size = (win_size - 1) // 2
-    xp = pad_signal(x, pad_size, pad_size, "symmetric", dim=-2)
-    zero = x.new_zeros(x.shape[:-2] + (1, x.shape[-1]))
+    xp = pad_signal(x.transpose(-1, -2), pad_size, pad_size, "symmetric")
     t = x.shape[-2]
 
     def window_mean(v):
-        cs = torch.cat([zero, torch.cumsum(v, dim=-2)], dim=-2)
-        return (cs[..., win_size : win_size + t, :] - cs[..., :t, :]) / win_size
+        cs = tF.pad(torch.cumsum(v, dim=-1), (1, 0))
+        return ((cs[..., win_size : win_size + t] - cs[..., :t]) / win_size).transpose(-1, -2)
 
     mean = window_mean(xp)
     return mean, (window_mean(xp * xp) if want_sq else None)
