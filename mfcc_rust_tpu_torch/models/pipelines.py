@@ -16,10 +16,10 @@ the vorbis mel spectrogram.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
-
-from typing import Optional
 
 from .. import features as F
 from ..config import FeatureConfig
