@@ -17,7 +17,14 @@ launch count set to 0, failing unless the path's kernel launched:
   then ``cmvnw``, ``cmvn``, ``delta``, ``delta_librosa`` and the derivative
   cube.  These paths have no kernel (their products run on cuBLAS) and must
   launch none; ``FeatureExtractor`` and the ``transforms`` modules then
-  must launch K1 or K2, each with the counts zeroed just before.
+  must launch K1 or K2, each with the counts zeroed just before;
+* streaming: six 60 s sessions of ``models.StreamingFeatures`` and
+  ``models.StreamingExtractor`` (``streaming_phase``), each with the counts
+  zeroed just before: the carried chunk-GEMM sessions and the streaming
+  STFT must launch no kernel, the recompute sessions K1 or K2 once per
+  call that emits frames.  Each session is held to its batch function and
+  its float64 oracle, ``reset()`` must reproduce it, and each call is timed
+  (``"streaming"`` in the record; not in the kernels line).
 
 Then it holds each kernel to its plain PyTorch version on the card
 (max|Δ|/max|ref| <= 1e-4: K1 runs an FFT where its plain version multiplies
@@ -60,6 +67,7 @@ PEAK_BYTES_PER_S = 3.35e12
 BATCH, SECONDS, RATE = 48, 10, 16000
 REL_TOL = 1e-4
 ORACLE_TOL = 5e-3
+STREAM_TOL = 1e-5
 
 
 def log(*a):
@@ -640,6 +648,236 @@ def suite_phase(np, torch, P, k1, k2, flush) -> dict:
     return rec
 
 
+STREAM_SECONDS = 60
+
+
+def feed_session(torch, sess, chunks, finalize: bool = False):
+    """Feed the host chunks to a streaming session, one ``process()`` call
+    at a time, each followed by a device sync so the frames are in hand.
+    Returns (rows, or the (mel, energy) pair of ``mfe``; host ms of each
+    call; calls that emitted frames)."""
+    outs, times, emitting = [], [], 0
+    for c in chunks:
+        t0 = time.perf_counter()
+        o = sess.process(c)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        emitting += (o[0] if isinstance(o, tuple) else o).shape[0] > 0
+        outs.append(o)
+    if finalize:
+        outs.append(sess.finalize())
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*outs)), times, emitting
+    return torch.cat(outs), times, emitting
+
+
+def call_device_ms(torch, sess, chunks, spin: int = 5_000_000) -> tuple:
+    """Device time in ms of one ``process()`` call's work on device-resident
+    chunks (CUDA events), each call after a ~2.5 ms device spin so the
+    host's enqueue of the call's ops does not count as device time.
+    Returns (device ms of each call, host ms of each enqueue): an enqueue
+    longer than the spin would leave idle device time in the span."""
+    for c in chunks[:20]:
+        sess.process(c)
+    torch.cuda.synchronize()
+    dev, host = [], []
+    for c in chunks[20:]:
+        torch.cuda._sleep(spin)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        s.record()
+        sess.process(c)
+        e.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        e.synchronize()
+        dev.append(s.elapsed_time(e))
+    return dev, host
+
+
+def streaming_phase(np, torch, P, k1, k2) -> dict:
+    """Streaming sessions at full width, one 60 s stream each (random normal
+    audio, sigma 0.1, seed 0), the configs users run:
+
+    S1 speechpy MFCC-13, 20/10 ms, 160-sample (one hop) chunks: carried
+       chunk-GEMM, must launch no kernel;
+    S2 the same config, ``mfe``, a seeded ragged schedule of 1-4,000
+       samples: carried, no kernel;
+    S3 MFCC at 25/10 ms (400/160, hop-misaligned), 1,600-sample chunks:
+       the recompute path, K1 once per call that emits frames;
+    S4 librosa mel at 22,050 Hz (2048/512, 128 mels, uncentred),
+       2,048-sample blocks: carried, no kernel;
+    S5 librosa mel at 16 kHz (512/160, 80 mels), 1,600-sample chunks:
+       recompute, K2 once per emitting call;
+    S6 ``StreamingExtractor`` on the vorbis preset, chunks of 10 hops, then
+       ``finalize()``: the streaming STFT and the mel product, no kernel.
+
+    Each session's launch counts are zeroed just before it.  Each is held to
+    its batch function on the whole stream on the card (max|d|/max|ref|):
+    the carried sessions to the plain batch path (``pallas="off"``), the
+    recompute sessions to the batch through the same kernel, within
+    STREAM_TOL; and to its float64 oracle at the reference's float32 gate.
+    S1 is held to its batch within REL_TOL, the gate of two float32 forms
+    of one product: its one-row products round X_0 = sum(x) otherwise than
+    the batch's, a few of its 6,000 frames nearly cancel X_0, and the
+    first speechpy filter weighs that bin alone, so the log of band 0 makes
+    the rounding a relative error of ~4e-5.  The same session in float64
+    (its first 10 s) is then held to the float64 batch within 1e-10.
+    After ``reset()`` the first 10 s again must give the first frames to
+    1e-6.  Times: the host clock around each call and its sync (median,
+    p99, the median's share of the chunk's duration, audio-s/s), and for
+    S1 and S3 the device time of one call (CUDA events).  Any failed check
+    raises after the phase has printed every number."""
+    from mfcc_rust_tpu_torch import features as PF
+    from mfcc_rust_tpu_torch.models import StreamingExtractor, StreamingFeatures
+    from tests.golden import dfn_ref, librosa_ref, speechpy_ref
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    x16 = rng.normal(0.0, 0.1, STREAM_SECONDS * RATE).astype(np.float32)
+    x22 = rng.normal(0.0, 0.1, STREAM_SECONDS * L_RATE).astype(np.float32)
+    ragged, total = [], 0
+    sched = np.random.default_rng(6)
+    while total < x16.size:
+        n = int(min(sched.integers(1, 4001), x16.size - total))
+        ragged.append(n)
+        total += n
+
+    def cut(x, sizes):
+        ends = np.cumsum(sizes)
+        return [x[e - n:e] for n, e in zip(sizes, ends)]
+
+    sp = P.speechpy_config(RATE)
+    sp3 = sp.replace(frame_length=0.025)
+    lc4 = P.librosa_config(L_RATE).replace(center=False)
+    lc5 = P.librosa_config(RATE, n_fft=512, hop_length=160, n_mels=80).replace(center=False)
+    vc = P.vorbis_config(RATE)
+    x64, x22_64 = x16.astype(np.float64), x22.astype(np.float64)
+    d16 = torch.from_numpy(x16).to(dev)
+    d22 = torch.from_numpy(x22).to(dev)
+    sessions = [
+        # name, session, host stream, chunk sizes, path, (K1, K2) per emitting call
+        ("S1", lambda: StreamingFeatures(sp, feature="mfcc"), x16, [160] * 6000,
+         "incremental", (0, 0)),
+        ("S2", lambda: StreamingFeatures(sp, feature="mfe"), x16, ragged, "incremental", (0, 0)),
+        ("S3", lambda: StreamingFeatures(sp3, feature="mfcc"), x16, [1600] * 600,
+         "recompute", (1, 0)),
+        ("S4", lambda: StreamingFeatures(lc4, feature="mel_librosa"), x22,
+         [2048] * (x22.size // 2048) + [x22.size % 2048], "incremental", (0, 0)),
+        ("S5", lambda: StreamingFeatures(lc5, feature="mel_librosa"), x16, [1600] * 600,
+         "recompute", (0, 1)),
+        ("S6", lambda: StreamingExtractor(vc), x16, [10 * vc.stream_hop] * 300, "stft", (0, 0)),
+    ]
+    batch = {
+        "S1": lambda: PF.mfcc(d16, sp.replace(pallas="off")),
+        "S2": lambda: PF.mfe(d16, sp),
+        "S3": lambda: PF.mfcc(d16, sp3),
+        "S4": lambda: PF.mel_spectrogram_librosa(d22, lc4.replace(pallas="off")).T,
+        "S5": lambda: PF.mel_spectrogram_librosa(d16, lc5).T,
+        "S6": lambda: PF.mel_spectrogram(d16, vc).T,
+    }
+    oracle = {
+        "S1": lambda: speechpy_ref.mfcc(x64, RATE),
+        "S2": lambda: speechpy_ref.mfe(x64, RATE),
+        "S3": lambda: speechpy_ref.mfcc(x64, RATE, frame_length=0.025),
+        "S4": lambda: librosa_ref.melspectrogram(x22_64, L_RATE, 2048, 512,
+                                                 center=False).T,
+        "S5": lambda: librosa_ref.melspectrogram(x64, RATE, 512, 160, n_mels=80,
+                                                 center=False).T,
+        "S6": lambda: dfn_ref.mel_spectrogram1(x64, RATE).T,
+    }
+    fails, rec = [], {}
+
+    def check(ok: bool, what: str):
+        if not ok:
+            fails.append(what)
+
+    def rel_pair(a, ref) -> float:
+        if isinstance(a, tuple):
+            return max(rel_err(u, v if isinstance(v, torch.Tensor) else torch.from_numpy(v))[0]
+                       for u, v in zip(a, ref))
+        return rel_err(a, ref if isinstance(ref, torch.Tensor) else torch.from_numpy(ref))[0]
+
+    for name, make, x, sizes, path, per_call in sessions:
+        rate = L_RATE if x is x22 else RATE
+        sess = make()
+        chunks = cut(x, sizes)
+        if path != "stft":
+            check((sess._inc is not None) == (path == "incremental"), f"{name}: path")
+        k1.mfcc_fused.launches = k2.ct_mel.launches = 0
+        out, times, emitting = feed_session(torch, sess, chunks, finalize=path == "stft")
+        launches = (k1.mfcc_fused.launches, k2.ct_mel.launches)
+        want = tuple(emitting * n for n in per_call)
+        check(launches == want, f"{name}: launches {launches}, want {want}")
+        ref = batch[name]()
+        torch.cuda.synchronize()
+        r_batch = rel_pair(out, ref)
+        r_oracle = rel_pair(out, oracle[name]())
+        tol = REL_TOL if name == "S1" else STREAM_TOL
+        check(r_batch <= tol, f"{name}: vs batch {r_batch:.3e}")
+        check(r_oracle <= ORACLE_TOL, f"{name}: vs oracle {r_oracle:.3e}")
+        # reset: the first 10 s again
+        sess.reset()
+        n10 = int(np.searchsorted(np.cumsum(sizes), 10 * rate, side="right"))
+        again, _, _ = feed_session(torch, sess, chunks[:n10])
+        head = tuple(o[:a.shape[0]] for o, a in zip(out, again)) if isinstance(out, tuple) \
+            else out[:again.shape[0]]
+        r_reset = rel_pair(again, head)
+        check(r_reset <= 1e-6 and (again[0] if isinstance(again, tuple) else again).shape[0] > 0,
+              f"{name}: reset {r_reset:.3e}")
+        rows = (out[0] if isinstance(out, tuple) else out).shape
+        dur = np.asarray(sizes[:len(times)], dtype=np.float64) / rate * 1e3
+        t = np.asarray(times)
+        r = {"path": path, "calls": len(chunks), "rows": list(rows), "emitting_calls": emitting,
+             "launches": list(launches), "rel_batch": r_batch, "rel_oracle": r_oracle,
+             "rel_reset": r_reset, "median_ms": float(np.median(t)),
+             "p99_ms": float(np.percentile(t, 99)), "rt_share": float(np.median(t / dur)),
+             "chunk_ms": float(np.median(dur)),
+             "audio_s_per_s": STREAM_SECONDS / (t.sum() / 1e3),
+             "times_ms": times}
+        rec[name] = r
+        log(f"streaming {name} ({path}): {len(chunks)} calls of median {r['chunk_ms']:.3f} ms "
+            f"audio -> {tuple(rows)}; launches (K1, K2) {launches} over {emitting} emitting "
+            f"calls; vs batch {r_batch:.3e} (limit {tol}), vs float64 oracle "
+            f"{r_oracle:.3e} (limit {ORACLE_TOL}), reset {r_reset:.3e} (limit 1e-6)")
+        log(f"streaming {name} host ms a call: median {r['median_ms']:.4f}, p99 "
+            f"{r['p99_ms']:.4f}; median share of the chunk's duration {r['rt_share']:.4f}; "
+            f"{r['audio_s_per_s']:.1f} audio-s/s")
+
+    # the carried algorithm against the batch in float64 on the card: S1's
+    # first 10 s, where float32 rounding does not reach the comparison
+    sp64 = sp.replace(dtype="float64")
+    out64, _, _ = feed_session(torch, StreamingFeatures(sp64, feature="mfcc"),
+                               cut(x16, [160] * 1000))
+    rec["S1"]["rel_batch_float64"] = rel_err(out64, PF.mfcc(d16[:160000].double(), sp64))[0]
+    check(rec["S1"]["rel_batch_float64"] <= 1e-10,
+          f"S1 float64: vs batch {rec['S1']['rel_batch_float64']:.3e}")
+    log(f"streaming S1 in float64, first 10 s, vs the float64 batch on the card: "
+        f"{rec['S1']['rel_batch_float64']:.3e} (limit 1e-10)")
+
+    # the launch plans the recompute paths give the kernels at B = 1
+    rec["S3"]["plan"] = k1.launch_plan(sp3, 1, 10)
+    rec["S5"]["plan"] = k2.launch_plan(lc5, 1, 10)
+    log(f"S3 K1 launch plan at (1, {10 * 160 + 400}): {rec['S3']['plan']}")
+    log(f"S5 K2 launch plan at (1, {10 * 160 + 352}): {rec['S5']['plan']}")
+
+    # device time of one call's work, device-resident chunks
+    for name, make, size in (("S1", lambda: StreamingFeatures(sp, feature="mfcc"), 160),
+                             ("S3", lambda: StreamingFeatures(sp3, feature="mfcc"), 1600)):
+        chunks = [d16[i:i + size] for i in range(0, 220 * size, size)]
+        devt, host = call_device_ms(torch, make(), chunks)
+        rec[name]["device_ms"] = devt
+        rec[name]["enqueue_ms"] = host
+        log(f"streaming {name} device ms of one call's work (CUDA events, median of "
+            f"{len(devt)}): {statistics.median(devt):.4f}; host enqueue median "
+            f"{statistics.median(host):.4f} ms, max {max(host):.4f} ms (spin ~2.5 ms)")
+    rec["clocks"] = smi("clocks.sm,power.draw,power.limit,temperature.gpu")
+    log(f"clocks.sm, power.draw, power.limit, temperature: {rec['clocks']}")
+    if fails:
+        raise AssertionError("streaming phase: " + "; ".join(fails))
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, help="directory for chip_smoke.json")
@@ -864,6 +1102,7 @@ def main() -> int:
 
     k2_entry, record["librosa"] = librosa_phase(np, torch, P, k1, k2, flush)
     record["suite"] = suite_phase(np, torch, P, k1, k2, flush)
+    record["streaming"] = streaming_phase(np, torch, P, k1, k2)
     kernels = [{
         "name": k1.KERNEL, "route": "cuda",
         "source": "mfcc_rust_tpu_torch/ops/cuda/speechpy_mfcc.cu",

@@ -233,15 +233,18 @@ def cmvnw(vec, win_size=301, variance_normalization=False, device=None):
     return _normalize.cmvnw(_tensor(vec, device), win_size, variance_normalization)
 
 
-def resample_poly(signal, up, down, beta=5.0, half_factor=10, device=None):
+def resample_poly(signal, up, down, precision="highest", beta=5.0, half_factor=10, *,
+                  device=None):
     """Resample (..., T) by up/down (scipy ``resample_poly``, Kaiser
-    ``beta``): ceil(T*up/down) samples, in the input's dtype."""
-    return _resample.resample_poly(_tensor(signal, device), up, down, beta, half_factor)
+    ``beta``): ceil(T*up/down) samples, in the input's dtype.  The
+    reference's signature; ``precision`` is ignored (IEEE FP32 always)."""
+    return _resample.resample_poly(_tensor(signal, device), up, down, precision, beta,
+                                   half_factor)
 
 
-def resample(signal, orig_sr, target_sr, device=None):
+def resample(signal, orig_sr, target_sr, precision="highest", *, device=None):
     """Resample (..., T) audio from orig_sr to target_sr (both in Hz)."""
-    return _resample.resample(_tensor(signal, device), orig_sr, target_sr)
+    return _resample.resample(_tensor(signal, device), orig_sr, target_sr, precision)
 
 
 # -------------------------------------------------------- librosa-style API --

@@ -8,4 +8,6 @@ from .pipelines import (  # noqa: F401
     MFEPipeline,
     Pipeline,
     SSCPipeline,
+    StreamingExtractor,
+    StreamingFeatures,
 )

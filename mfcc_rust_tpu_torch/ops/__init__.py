@@ -21,4 +21,12 @@ from .spectrum import (  # noqa: F401
     zero_handling,
 )
 from .ssc import ssc_from_power  # noqa: F401
-from .stft import librosa_frame_count, stft_framed, stft_vorbis, stft_vorbis_power  # noqa: F401
+from .stft import (  # noqa: F401
+    librosa_frame_count,
+    stft_framed,
+    stft_streaming,
+    stft_vorbis,
+    stft_vorbis_power,
+    streaming_init,
+    streaming_step,
+)

@@ -62,9 +62,16 @@ def cmvnw(vec: torch.Tensor, win_size: int = 301,
 
     The cumulative sums run on data shifted by the global per-feature mean:
     a float32 running sum of raw large-mean features grows until rounding
-    swamps the window means.  The shift cancels in the output."""
+    swamps the window means.  The shift cancels in the output.
+
+    A window of one row is its own mean, so the result is exact zeros, as
+    the float64 speechpy oracle gives.  The cumulative-sum difference would
+    leave a float32 residue there, which variance normalization divides by
+    a std near ``EPS`` (the reference returns values up to ~1e3)."""
     if win_size % 2 != 1:
         raise ValueError("Windows size must be odd!")
+    if win_size == 1:
+        return torch.zeros_like(vec)
     v0 = vec - torch.mean(vec, dim=-2, keepdim=True)
     mean0, _ = _windowed_moments(v0, win_size, want_sq=False)
     centered = v0 - mean0

@@ -68,10 +68,13 @@ def _wall_tensor(up: int, down: int, beta: float, half_factor: int,
     return torch.as_tensor(wall, dtype=dtype, device=device)
 
 
-def resample_poly(signal: torch.Tensor, up: int, down: int, beta: float = 5.0,
-                  half_factor: int = 10) -> torch.Tensor:
+def resample_poly(signal: torch.Tensor, up: int, down: int, precision: str = "highest",
+                  beta: float = 5.0, half_factor: int = 10) -> torch.Tensor:
     """Resample (..., T) along the last axis by up/down: output length
-    ceil(T*up/down).  ``up == down`` after gcd reduction returns the input."""
+    ceil(T*up/down).  ``up == down`` after gcd reduction returns the input;
+    an empty signal gives an empty result.  ``precision`` is the reference's
+    argument, kept so its calls carry over: the product is IEEE FP32
+    (:func:`..config.fp32_matmul`) whatever it says."""
     if up <= 0 or down <= 0:
         raise ValueError(f"up/down must be positive, got {up}/{down}")
     g = math.gcd(up, down)
@@ -79,6 +82,8 @@ def resample_poly(signal: torch.Tensor, up: int, down: int, beta: float = 5.0,
     if up == down:
         return signal
     t = signal.shape[-1]
+    if t == 0:  # no output rows: the windows below need r*down samples
+        return signal.new_zeros(signal.shape)
     n_out = -(-t * up // down)
     q = -(-n_out // up)  # output rows of `up` samples
     _, imin, r = _polyphase_wall(up, down, beta, half_factor)
@@ -93,8 +98,9 @@ def resample_poly(signal: torch.Tensor, up: int, down: int, beta: float = 5.0,
     return y.reshape(y.shape[:-2] + (q * up,))[..., :n_out]
 
 
-def resample(signal: torch.Tensor, orig_sr: int, target_sr: int) -> torch.Tensor:
+def resample(signal: torch.Tensor, orig_sr: int, target_sr: int,
+             precision: str = "highest") -> torch.Tensor:
     """Resample (..., T) audio from orig_sr to target_sr (both in Hz)."""
     if orig_sr <= 0 or target_sr <= 0:
         raise ValueError(f"sample rates must be positive, got {orig_sr} -> {target_sr}")
-    return resample_poly(signal, target_sr, orig_sr)
+    return resample_poly(signal, target_sr, orig_sr, precision)

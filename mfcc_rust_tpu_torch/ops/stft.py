@@ -1,10 +1,12 @@
-"""Short-time Fourier transforms (port of the batch part of
-``mfcc_rust_tpu.ops.stft``).
+"""Short-time Fourier transforms (port of ``mfcc_rust_tpu.ops.stft``).
 
 * :func:`stft_vorbis_power` / :func:`stft_vorbis` — the reference's
   streaming ("DFN") STFT computed in one batch: the same output as a freshly
   reset frame-by-frame stream, the ``n_pad`` warm-up frames dropped and
   ``n_pad`` never-written zero rows at the tail.
+* :func:`streaming_init` / :func:`streaming_step` / :func:`stft_streaming`
+  — the same STFT with an explicit carry (the last ``fft_points - hop``
+  samples): one frame out per hop, resettable, no state across sessions.
 * :func:`stft_framed` — the framed family (speechpy and librosa presets:
   optional centring, any window, any hop).
 """
@@ -12,11 +14,13 @@
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as tF
 
 from ..config import FeatureConfig
+from ..utils.device import resolve_device
 from . import framing
 from .spectrum import rdft
 
@@ -55,6 +59,50 @@ def _apply_npad_layout(frames_out: torch.Tensor, cfg: FeatureConfig) -> torch.Te
         return frames_out
     zeros = frames_out.new_zeros(frames_out.shape[:-2] + (n_pad, frames_out.shape[-1]))
     return torch.cat([frames_out[..., n_pad:, :], zeros], dim=-2)
+
+
+# ---------------------------------------------------------------- streaming --
+def streaming_init(cfg: FeatureConfig, batch_shape: Tuple[int, ...] = (),
+                   dtype: Optional[torch.dtype] = None, device=None) -> torch.Tensor:
+    """A fresh carry: ``fft_points - hop`` zeros (the reference's analysis
+    memory, made explicit), on ``device`` (``None`` means CUDA)."""
+    dtype = getattr(torch, cfg.dtype) if dtype is None else dtype
+    return torch.zeros(tuple(batch_shape) + (cfg.stream_mem,), dtype=dtype,
+                       device=resolve_device(device))
+
+
+def streaming_step(carry: torch.Tensor, chunk: torch.Tensor,
+                   cfg: FeatureConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One hop of the analysis recurrence: ``buf = concat(carry, chunk)``,
+    its windowed real DFT's power times wnorm², and the carry ``buf[hop:]``.
+    Returns (carry', power (..., K))."""
+    full = torch.cat([carry, chunk], dim=-1)
+    xr, xi = rdft(full[..., None, :], cfg, windowed=True)
+    power = (xr * xr + xi * xi)[..., 0, :] * (cfg.wnorm * cfg.wnorm)
+    return full[..., cfg.stream_hop:], power
+
+
+def stft_streaming(signal: torch.Tensor, cfg: FeatureConfig,
+                   carry: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`streaming_step` over a (..., T) signal, T a multiple of the
+    hop: returns (carry', power (..., T/hop, K)), every frame computed (the
+    session drops the warm-up, see ``models.StreamingExtractor``).
+
+    The reference scans one hop at a time.  Here the carry and the signal
+    are joined once, framed into T/hop windows of fft_points at every hop,
+    and transformed by one windowed DFT: the same frames, and the new carry
+    is the last ``fft_points - hop`` samples."""
+    hop = cfg.stream_hop
+    t = signal.shape[-1]
+    if t % hop != 0:
+        raise ValueError(f"streaming signal length {t} must be a multiple of hop {hop}")
+    if carry is None:
+        carry = streaming_init(cfg, signal.shape[:-1], signal.dtype, signal.device)
+    full = torch.cat([carry, signal], dim=-1)
+    frames = framing.frame_signal(full, cfg.fft_points, hop, t // hop)
+    xr, xi = rdft(frames, cfg, windowed=True)
+    power = (xr * xr + xi * xi) * (cfg.wnorm * cfg.wnorm)
+    return full[..., full.shape[-1] - cfg.stream_mem:], power
 
 
 # ------------------------------------------------------------------- framed --

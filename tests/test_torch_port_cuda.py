@@ -306,3 +306,92 @@ def test_feature_extractor_and_transforms_launch_the_kernels_on_card(cuda_device
     (T.SpeechpyMFCC(16000)(xg).sum() + T.MelSpectrogram(sr=16000)(xg).sqrt().sum()).backward()
     assert (pk.mfcc_fused.launches - k1, ck.ct_mel.launches - k2) == (1, 1)
     assert bool(torch.isfinite(xg.grad).all())
+
+
+# Streaming sessions: (name, config, feature, chunk samples, path).  On the
+# card each against the same session on the CPU, float32, within 1e-4: the
+# recompute sessions run K1 or K2 where the CPU runs the plain path, and the
+# carried ones round their one-row products on cuBLAS otherwise than the
+# CPU (the log of the DC-only first band turns that into its relative error).
+STREAMING = [
+    ("mfcc carried", P.speechpy_config(16000), "mfcc", 160, "incremental"),
+    ("mfe carried, ragged", P.speechpy_config(16000), "mfe", 0, "incremental"),
+    ("mfcc 25/10 recompute", P.speechpy_config(16000, frame_length=0.025), "mfcc", 1600,
+     "recompute"),
+    ("mel 2048/512 carried", P.librosa_config(22050), "mel_librosa", 2048, "incremental"),
+    ("mel 512/160 recompute", P.librosa_config(16000, n_fft=512, hop_length=160, n_mels=80),
+     "mel_librosa", 1600, "recompute"),
+    ("extractor", P.vorbis_config(16000), "stft", 3200, "stft"),
+]
+
+
+def _session(cfg, feature, device):
+    from mfcc_rust_tpu_torch.models import StreamingExtractor, StreamingFeatures
+
+    if feature == "stft":
+        return StreamingExtractor(cfg, device=device)
+    return StreamingFeatures(cfg, feature=feature, device=device)
+
+
+def _feed(sess, chunks):
+    """(the outputs concatenated, as a list of tensors; calls that emitted)."""
+    outs = [sess.process(c) for c in chunks]
+    rows = [(o[0] if isinstance(o, tuple) else o).shape[0] for o in outs]
+    parts = zip(*outs) if isinstance(outs[0], tuple) else [outs]
+    return [torch.cat(p) for p in parts], sum(r > 0 for r in rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cfg,feature,size,path", STREAMING, ids=[c[0] for c in STREAMING])
+def test_streaming_session_on_card_matches_cpu(cuda_device, name, cfg, feature, size, path):
+    rng = np.random.default_rng(23)
+    x = rng.normal(0, 0.1, 32000).astype(np.float32)
+    sizes = rng.integers(1, 4001, 40) if size == 0 else [size] * (x.size // size)
+    ends = np.cumsum(sizes)
+    chunks = [x[e - n:e] for n, e in zip(sizes, ends) if e <= x.size]
+    card, cpu = _session(cfg, feature, cuda_device), _session(cfg, feature, "cpu")
+    if path != "stft":
+        assert (card._inc is None) == (path == "recompute")
+    before = pk.mfcc_fused.launches, ck.ct_mel.launches
+    got, emitting = _feed(card, chunks)
+    torch.cuda.synchronize()
+    launched = (pk.mfcc_fused.launches - before[0], ck.ct_mel.launches - before[1])
+    want = {("recompute", "mfcc"): (emitting, 0), ("recompute", "mel_librosa"): (0, emitting)}
+    assert emitting > 0 and launched == want.get((path, feature), (0, 0)), (name, launched)
+    ref, _ = _feed(cpu, chunks)
+    for g, r in zip(got, ref):
+        assert g.is_cuda and g.dtype == torch.float32
+        assert rel(g, r) <= 1e-4, name
+
+
+@pytest.mark.cuda
+def test_streaming_launch_counts_on_card(cuda_device):
+    """A recompute call launches its kernel only when it emits frames; the
+    carried sessions and the streaming STFT never launch one."""
+    from mfcc_rust_tpu_torch.models import StreamingExtractor, StreamingFeatures
+
+    x = np.random.default_rng(24).normal(0, 0.1, 8000).astype(np.float32)
+    k1 = StreamingFeatures(P.speechpy_config(16000, frame_length=0.025), device=cuda_device)
+    k2 = StreamingFeatures(P.librosa_config(16000, n_fft=512, hop_length=160, n_mels=80),
+                           feature="mel_librosa", device=cuda_device)
+    # (samples fed, frames emitted): speechpy counts floor((L - 400)/160),
+    # librosa 1 + (L - 512)//160
+    for sess, counter, feeds in (
+            (k1, pk.mfcc_fused, ((100, 0), (300, 0), (160, 1), (159, 0), (1, 1), (4000, 25))),
+            (k2, ck.ct_mel, ((100, 0), (300, 0), (112, 1), (159, 0), (1, 1), (4000, 25)))):
+        for n, frames in feeds:
+            before = counter.launches
+            out = sess.process(x[:n])
+            assert out.shape[0] == frames and counter.launches == before + (frames > 0)
+    before = pk.mfcc_fused.launches, ck.ct_mel.launches
+    for sess in (StreamingFeatures(device=cuda_device),
+                 StreamingFeatures(P.librosa_config(22050), feature="mel_librosa",
+                                   device=cuda_device)):
+        assert sess._inc is not None
+        for n in (100, 2048, 4000):
+            sess.process(x[:n])
+    ex = StreamingExtractor(device=cuda_device)
+    ex.process(x[:6400])
+    ex.finalize()
+    torch.cuda.synchronize()
+    assert (pk.mfcc_fused.launches, ck.ct_mel.launches) == before

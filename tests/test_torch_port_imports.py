@@ -31,6 +31,7 @@ def test_import_pulls_in_no_jax_and_needs_cuda_by_default():
         import torch
         import mfcc_rust_tpu_torch as P
         import mfcc_rust_tpu_torch.models, mfcc_rust_tpu_torch.ops.cuda.build
+        import mfcc_rust_tpu_torch.models.incremental
         import mfcc_rust_tpu_torch.compat.speechpy, mfcc_rust_tpu_torch.transforms
         bad = [k for k in sys.modules
                if k.split('.')[0] in ('jax', 'jaxlib', 'mfcc_rust_tpu')]
@@ -60,6 +61,43 @@ def test_import_pulls_in_no_jax_and_needs_cuda_by_default():
         assert P.mfcc_librosa(x, 16000, device="cpu").shape == (20, 32)
         assert P.LibrosaMelPipeline(P.librosa_config(), device="cpu")(
             torch.from_numpy(x)).shape == (128, 32)
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120,
+                         env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_streaming_sessions_need_cuda_and_pull_in_no_jax():
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import torch
+        from mfcc_rust_tpu_torch.models import StreamingExtractor, StreamingFeatures
+        from mfcc_rust_tpu_torch.models.incremental import IncrementalFrontend
+        from mfcc_rust_tpu_torch.ops import stft
+        assert not torch.cuda.is_available()
+        import mfcc_rust_tpu_torch as P
+        for make in (StreamingFeatures, StreamingExtractor,
+                     lambda: StreamingFeatures(feature="mel_librosa"),
+                     lambda: IncrementalFrontend(P.speechpy_config(16000), "mfcc"),
+                     lambda: stft.streaming_init(P.vorbis_config(16000))):
+            try:
+                make()
+            except RuntimeError as e:
+                assert "CUDA" in str(e)
+            else:
+                raise AssertionError("a streaming session was built without CUDA")
+        x = np.zeros(16000, np.float32)
+        out = StreamingFeatures(device="cpu").process(x)
+        assert out.device.type == "cpu" and tuple(out.shape) == (98, 13)
+        sx = StreamingExtractor(device="cpu")
+        assert tuple(sx.process(x).shape) == (50, 40)
+        assert tuple(sx.finalize().shape) == (0, 40)
+        bad = [k for k in sys.modules
+               if k.split('.')[0] in ('jax', 'jaxlib', 'mfcc_rust_tpu')]
+        assert not bad, bad
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

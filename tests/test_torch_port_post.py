@@ -17,6 +17,7 @@ from mfcc_rust_tpu.ops import normalize as jnorm
 from tests.golden import speechpy_ref as sp
 from tests.golden.gen_fixtures import FIXTURE_DIR, fixture_inputs
 
+import mfcc_rust_tpu_torch as P
 from mfcc_rust_tpu_torch.ops import delta as pdelta
 from mfcc_rust_tpu_torch.ops import framing as pframing
 from mfcc_rust_tpu_torch.ops import normalize as pnorm
@@ -157,6 +158,39 @@ def test_cmvnw_fixture_and_large_mean():
     assert rel(pnorm.cmvnw(torch.from_numpy(feat.astype(np.float32)), 31, True), frozen) <= 5e-3
     jx, px = _feats((300, 13), "float32", 7, loc=1e4, scale=1.0)
     assert rel(pnorm.cmvnw(px, 101, True), jnorm.cmvnw(jx, 101, True)) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("variance", [False, True])
+@pytest.mark.parametrize("shape", [(98, 13), (2, 30, 13), (1, 13)], ids=["2-D", "3-D", "T=1"])
+def test_cmvnw_win1_is_exact_zeros_like_the_oracle(shape, variance, dtype):
+    """A one-row window is its own mean: exact zeros, as the float64 oracle
+    gives (JAX's float32 cumulative-sum residue over a std near EPS reaches
+    ~1e3 here; the port does not copy it)."""
+    _, px = _feats(shape, dtype, 10)
+    got = pnorm.cmvnw(px, 1, variance)
+    assert got.dtype == px.dtype and got.shape == px.shape
+    assert not got.any()
+    one = px.double().numpy().reshape((-1,) + shape[-2:])[0]
+    np.testing.assert_array_equal(got.numpy().reshape((-1,) + shape[-2:])[0],
+                                  sp.cmvnw(one, 1, variance))
+    assert not P.cmvnw(px.numpy(), 1, variance, device="cpu").any()
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_cmvnw_win3_float32_error(seed):
+    """The float32 error of the smallest computed window, on the MFCCs of a
+    1 s random clip (seed 0: max|Δ| 0.0269 for the port and for JAX, on
+    outputs up to 15.58; ROADMAP "Settled"): inside the 5e-3 gate."""
+    x = np.random.default_rng(seed).normal(0, 0.1, 16000).astype(np.float32)
+    f = P.mfcc(x, 16000, device="cpu")
+    ref = sp.cmvnw(f.double().numpy(), 3, True)
+    assert rel(pnorm.cmvnw(f, 3, True), ref) <= 5e-3
+    assert rel(jnorm.cmvnw(jnp.asarray(f.numpy()), 3, True), ref) <= 5e-3
+    # at win_size 1 the port gives the oracle's zeros where the reference
+    # leaves its float32 residue over a std near EPS (1,056-1,376 on seeds 0-3)
+    assert not pnorm.cmvnw(f, 1, True).any() and not sp.cmvnw(f.double().numpy(), 1, True).any()
+    assert float(np.abs(jnorm.cmvnw(jnp.asarray(f.numpy()), 1, True)).max()) > 100.0
 
 
 def test_cmvnw_even_window_raises():

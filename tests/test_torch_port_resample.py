@@ -6,6 +6,7 @@ Tolerances: float64 at rtol 1e-9, atol 1e-12 (the reference's own oracle
 gate); float32 at the reference's rtol 2e-4, atol 2e-5 against the oracle
 (``tests/test_resample.py``) and max|Δ|/max|ref| <= 1e-5 against JAX."""
 
+import inspect
 import math
 
 import jax.numpy as jnp
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import mfcc_rust_tpu as m
 from mfcc_rust_tpu.ops import resample as jres
 from tests.golden.resample_ref import resample_poly_ref
 
@@ -94,3 +96,46 @@ def test_errors():
         pres.resample_poly(torch.zeros(10), 0, 2)
     with pytest.raises(ValueError):
         pres.resample(torch.zeros(10), 16000, -1)
+
+
+EMPTY = [("44100 -> 16000", "resample", (44100, 16000)),
+         ("16000 -> 22050", "resample", (16000, 22050)),
+         ("3/2", "resample_poly", (3, 2))]
+
+
+@pytest.mark.parametrize("shape", [(0,), (2, 0)], ids=["(0,)", "(2, 0)"])
+@pytest.mark.parametrize("name,fn,args", EMPTY, ids=[e[0] for e in EMPTY])
+def test_empty_signal_gives_empty_result_like_jax(name, fn, args, shape):
+    for dtype in (np.float32, np.float64):
+        x = np.zeros(shape, dtype)
+        ref = np.asarray(getattr(m, fn)(jnp.asarray(x), *args))
+        for got in (getattr(P, fn)(x, *args, device="cpu"),
+                    getattr(pres, fn)(torch.from_numpy(x), *args)):
+            assert tuple(got.shape) == ref.shape == shape, name
+            assert got.dtype == torch.from_numpy(x).dtype
+
+
+def test_reference_call_with_precision_fourth():
+    """The reference's own calls: ``precision`` in fourth place, ``beta``
+    by keyword; the port ignores the precision (IEEE FP32 always)."""
+    x = np.random.default_rng(6).normal(0, 0.1, (2, 3000)).astype(np.float32)
+    jx = jnp.asarray(x)
+    got = P.resample_poly(x, 160, 441, "highest", beta=6.0, device="cpu")
+    assert rel(got, jres.resample_poly(jx, 160, 441, "highest", beta=6.0)) <= 1e-5
+    assert not torch.equal(got, P.resample_poly(x, 160, 441, device="cpu"))  # beta took
+    assert torch.equal(P.resample_poly(x, 160, 441, "high", 6.0, 10, device="cpu"), got)
+    got = P.resample(x, 44100, 16000, "highest", device="cpu")
+    assert rel(got, m.resample(jx, 44100, 16000, "highest")) <= 1e-5
+    assert torch.equal(pres.resample(torch.from_numpy(x), 44100, 16000, "default"), got)
+
+
+def test_signatures_are_the_reference_plus_keyword_only_device():
+    for name in ("resample", "resample_poly"):
+        ours = inspect.signature(getattr(P, name)).parameters
+        ref = inspect.signature(getattr(m, name)).parameters
+        assert list(ours)[:-1] == list(ref), name
+        assert all(ours[k].default == ref[k].default for k in ref), name
+        assert ours["device"].kind is inspect.Parameter.KEYWORD_ONLY, name
+        assert list(inspect.signature(getattr(pres, name)).parameters) == list(ref), name
+    with pytest.raises(TypeError):
+        P.resample(np.zeros(10), 16000, 8000, "highest", "cpu")
