@@ -24,7 +24,16 @@ launch count set to 0, failing unless the path's kernel launched:
   STFT must launch no kernel, the recompute sessions K1 or K2 once per
   call that emits frames.  Each session is held to its batch function and
   its float64 oracle, ``reset()`` must reproduce it, and each call is timed
-  (``"streaming"`` in the record; not in the kernels line).
+  (``"streaming"`` in the record; not in the kernels line);
+* corpus: 2,703 WAV files written from seed 0 (LibriSpeech dev-clean's
+  count, ``bench.py``'s length profile), then ``parallel.CorpusRunner`` on
+  a one-rank CUDA mesh (``corpus_phase``) with the counts zeroed just
+  before: K1 must launch once a batch and K2 never; the outputs are held
+  to the float64 oracle and the moments to float64 moments over every
+  file; then five heads on a float16 wire (no launch), a mixed-rate corpus
+  with ``resample=True``, and one step on an NCCL group of world size 1
+  (bitwise equal to no group).  Its K1 and K2 counts go to the kernels
+  line as ``launches_corpus``.
 
 Then it holds each kernel to its plain PyTorch version on the card
 (max|Δ|/max|ref| <= 1e-4: K1 runs an FFT where its plain version multiplies
@@ -878,6 +887,328 @@ def streaming_phase(np, torch, P, k1, k2) -> dict:
     return rec
 
 
+CORPUS_CLIPS = 2703  # LibriSpeech dev-clean's utterance count
+CORPUS_ORACLE_UTTS = 64
+CORPUS_B_CLIPS = 512
+CORPUS_C_CLIPS = 256
+CORPUS_C_RATES = (16000, 22050, 44100)
+STEP_SPIN = 30_000_000  # ~15 ms of device spin: longer than a step's enqueue
+
+
+def corpus_lengths(np, rng, n: int, rate: int) -> list:
+    """``bench.py``'s corpus length profile: durations
+    clip(lognormal(ln 6 s, 0.6), 1, 35) at ``rate``."""
+    secs = np.clip(rng.lognormal(np.log(6.0), 0.6, n), 1.0, 35.0)
+    return [int(s * rate) for s in secs]
+
+
+def write_corpus(np, write_wav, rng, lengths, rates, folder: Path) -> list:
+    """One WAV a clip, samples N(0, 0.1) clipped to ±1; returns the paths."""
+    folder.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for i, (n, sr) in enumerate(zip(lengths, rates)):
+        clip = rng.normal(0.0, 0.1, n).astype(np.float32)
+        np.clip(clip, -1.0, 1.0, out=clip)
+        p = folder / f"utt{i:05d}.wav"
+        write_wav(str(p), clip, sr)
+        paths.append(str(p))
+    return paths
+
+
+def dc_term(np, x, fl: int, hop: int, frames: int):
+    """Per-frame bound on how far two float32 products of the chunk-GEMM can
+    move the log of the first mel band, which weighs the DC bin X_0 alone:
+    each computes X_0 = sum of the frame's fl samples within gamma * sum|x|
+    (gamma = fl * 2^-24, the bound of a float32 dot product), and
+    log(X_0^2) moves by 2 dX_0 / |X_0|; so 4 gamma sum|x| / |X_0|."""
+    x = x.astype(np.float64)
+    c = np.concatenate([[0.0], np.cumsum(x)])
+    a = np.concatenate([[0.0], np.cumsum(np.abs(x))])
+    s = np.arange(frames) * hop
+    x0 = np.abs(c[s + fl] - c[s])
+    ab = a[s + fl] - a[s]
+    gamma = fl * 2.0 ** -24
+    return 4.0 * gamma * ab / np.maximum(x0, 1e-300)
+
+
+def corpus_phase(np, torch, P, k1, k2) -> dict:
+    """The corpus path at LibriSpeech dev-clean's size, on one card.
+
+    A corpus of 2,703 WAV files (``bench.py``'s length profile, seed 0:
+    durations clip(lognormal(ln 6 s, 0.6), 1, 35) at 16 kHz, samples
+    N(0, 0.1)) is written with the port's native ``write_wav`` into a
+    temporary directory, then:
+
+    (a) ``CorpusRunner`` (batch 32, packed f32 outputs, the runner's
+        defaults) on a one-rank CUDA mesh, ``"mfcc"``: K1 once a batch,
+        with the launch counts zeroed just before.  Gates: every output
+        has ``frame_counts_host`` rows x 13; 64 seeded utterances within
+        ORACLE_TOL of the float64 speechpy oracle; the returned moments
+        equal float64 two-pass moments over every written file (count
+        exact, mean and std at rtol 1e-5, atol 1e-6).  The device time of
+        one step at B = 32 x the most frequent bucket (CUDA events after a
+        spin, median of 20), with its upload and on a device-resident
+        buffer, and K1's own time at that shape.
+    (b) the five speechpy heads of the first 512 clips, float16 wire: no
+        kernel launches; each head within 2^-11 |x| (the wire) + 2^-24 + 1e-5
+        of the head's max (two float32 product shapes) of ``api.extract``
+        of the clip on the card, plus, for the log heads, the DC-bin term
+        of :func:`dc_term`.
+    (c) 256 clips, a third each at 16,000, 22,050 and 44,100 Hz,
+        ``resample=True``: each output within ORACLE_TOL of
+        ``api.resample`` then ``api.mfcc`` of the clip on the card.
+    (d) one step over a mesh on an NCCL group of world size 1 equals the
+        no-group mesh's bitwise.
+
+    One H100 cannot hold two NCCL ranks: multi-rank meshes are proven on
+    the CPU under gloo (tests/test_torch_port_parallel.py).  Any failed gate
+    raises after the phase has printed its numbers."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from mfcc_rust_tpu_torch import runtime
+    from mfcc_rust_tpu_torch.parallel import (extraction_step_packed, frame_counts_host,
+                                              make_mesh, pack_signals)
+    from mfcc_rust_tpu_torch.parallel.mesh import init_process_group
+    from mfcc_rust_tpu_torch.parallel.runner import CorpusRunner
+    from mfcc_rust_tpu_torch.runtime import read_wav, write_wav
+    from mfcc_rust_tpu_torch.utils.bucketing import bucket_length
+    from tests.golden import speechpy_ref
+
+    fails, rec = [], {}
+
+    def check(ok: bool, what: str):
+        if not ok:
+            fails.append(what)
+
+    if not runtime.native_available():
+        raise AssertionError("corpus phase: the native WAV runtime did not build")
+    cfg = P.FeatureConfig(sample_rate=RATE)
+    hop, fl = cfg.frame_step, cfg.frame_size
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_corpus_")
+    tmp = Path(tmp_dir.name)
+    try:
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(0)
+        lengths = corpus_lengths(np, rng, CORPUS_CLIPS, RATE)
+        paths = write_corpus(np, write_wav, rng, lengths, [RATE] * CORPUS_CLIPS, tmp / "wav")
+        disk = sum(Path(p).stat().st_size for p in paths)
+        audio_s = sum(lengths) / RATE
+        rec["corpus"] = {"clips": CORPUS_CLIPS, "audio_s": audio_s, "wav_bytes": disk,
+                         "build_s": time.perf_counter() - t0}
+        log(f"corpus: {CORPUS_CLIPS} clips, {audio_s:.1f} audio-s ({audio_s / 3600:.3f} h), "
+            f"{disk / 1e6:.1f} MB of PCM16 WAV, written in {rec['corpus']['build_s']:.2f} s")
+
+        # ----------------------------------------------------------- (a) --
+        mesh = make_mesh()
+        k1.mfcc_fused.launches = k2.ct_mel.launches = 0
+        runner = CorpusRunner(paths, cfg, mesh, batch_size=32, out_dir=str(tmp / "a"),
+                              checkpoint_path=str(tmp / "a.npz"))
+        t0 = time.perf_counter()
+        moments = runner.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = (k1.mfcc_fused.launches, k2.ct_mel.launches)
+        meter = runner.meter
+        batches = int(meter.counters["dispatches"])
+        a = {"wall_s": wall, "audio_s_per_s": audio_s / wall, "batches": batches,
+             "launches": list(launches), "scopes": dict(meter.scopes),
+             "counters": dict(meter.counters),
+             "fetch_busy_s": meter.span_union("fetch"),
+             "dispatch_busy_s": meter.span_union("dispatch")}
+        check(launches == (batches, 0), f"(a): launches {launches}, want ({batches}, 0)")
+        counts = frame_counts_host(lengths, cfg, "mfcc")
+        outs, bad = [], 0
+        for i in range(CORPUS_CLIPS):
+            f = np.load(tmp / "a" / f"utt{i:05d}.npy")
+            bad += f.shape != (counts[i], cfg.num_cepstral) or not np.isfinite(f).all()
+            outs.append(f)
+        check(bad == 0, f"(a): {bad} outputs of the wrong shape or not finite")
+        allv = np.concatenate(outs).astype(np.float64)
+        mean64 = allv.mean(0)
+        std64 = np.sqrt(((allv - mean64) ** 2).mean(0))
+        m_std = np.sqrt(np.maximum(np.asarray(moments.m2, np.float64)
+                                   / max(float(moments.count), 1.0), 0.0))
+        a["frames"] = int(allv.shape[0])
+        a["mean_err"] = float(np.abs(np.asarray(moments.mean) - mean64).max())
+        a["std_err"] = float(np.abs(m_std - std64).max())
+        check(int(moments.count) == allv.shape[0],
+              f"(a): moments count {float(moments.count)} != {allv.shape[0]}")
+        check(np.allclose(moments.mean, mean64, rtol=1e-5, atol=1e-6), "(a): moments mean")
+        check(np.allclose(m_std, std64, rtol=1e-5, atol=1e-6), "(a): moments std")
+        pick = np.random.default_rng(1).choice(CORPUS_CLIPS, CORPUS_ORACLE_UTTS, replace=False)
+        worst = 0.0
+        for i in pick:
+            dec, _ = read_wav(paths[i])
+            gold = speechpy_ref.mfcc(dec.astype(np.float64), RATE)
+            worst = max(worst, rel_err(torch.from_numpy(outs[i]), torch.from_numpy(gold))[0])
+        a["oracle_rel"] = worst
+        check(worst <= ORACLE_TOL, f"(a): vs oracle {worst:.3e}")
+        del allv, outs
+        sc = ", ".join(f"{k} {v:.4f}" for k, v in sorted(meter.scopes.items()))
+        log(f"corpus (a) mfcc: {CORPUS_CLIPS} files in {wall:.3f} s = {a['audio_s_per_s']:.1f} "
+            f"audio-s/s end to end; {batches} batches, K1 launches {launches[0]}, K2 "
+            f"{launches[1]}; {a['frames']} frames")
+        log(f"corpus (a) scopes (host s): {sc}; fetch-span union {a['fetch_busy_s']:.4f} s, "
+            f"dispatch-span union {a['dispatch_busy_s']:.4f} s")
+        log(f"corpus (a) bytes: H2D {meter.counters.get('h2d_bytes', 0) / 1e6:.3f} MB, D2H "
+            f"{meter.counters.get('d2h_bytes', 0) / 1e6:.3f} MB; fetch groups "
+            f"{int(meter.counters.get('fetch_groups', 0))}")
+        log(f"corpus (a) gates: moments vs float64 over every file: count "
+            f"{int(moments.count)}, max|d mean| {a['mean_err']:.3e}, max|d std| "
+            f"{a['std_err']:.3e} (rtol 1e-5, atol 1e-6); {CORPUS_ORACLE_UTTS} utterances vs "
+            f"float64 oracle {worst:.3e} (limit {ORACLE_TOL})")
+
+        # one step at B = 32 x the most frequent bucket
+        keys = [bucket_length(n) for n in lengths]
+        key = max(set(keys), key=keys.count)
+        idx = [i for i, k in enumerate(keys) if k == key][:32]
+        # the runner's step length: the bucket of the batch's longest clip,
+        # rounded up to whole hops
+        bucket = -(-bucket_length(max(lengths[i] for i in idx)) // hop) * hop
+        clips = [read_wav(paths[i])[0] for i in idx]
+        flat, offs, lens = pack_signals(clips, 32, pcm16_exact=True)
+        fc = frame_counts_host(lens, cfg, "mfcc")
+        flat_d = torch.from_numpy(flat).to(mesh.device)
+        x_ext = torch.from_numpy(np.random.default_rng(3).normal(
+            0.0, 0.1, (32, bucket + fl)).astype(np.float32)).to(mesh.device)
+        step_audio = float(lens.sum()) / RATE
+        runs = {"step": lambda: extraction_step_packed(flat, offs, lens, bucket, cfg, mesh,
+                                                       "mfcc", frame_counts=fc),
+                "step_resident": lambda: extraction_step_packed(flat_d, offs, lens, bucket, cfg,
+                                                                mesh, "mfcc", frame_counts=fc),
+                "k1": lambda: k1.mfcc_fused(x_ext, cfg)}
+        times = {k: [] for k in runs}
+        enqueue = {k: [] for k in runs}
+        for _ in range(2):
+            for k, fn in runs.items():
+                fn()
+            torch.cuda.synchronize()
+        for _ in range(20):
+            for k, fn in runs.items():
+                torch.cuda._sleep(STEP_SPIN)
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                h0 = time.perf_counter()
+                s.record()
+                fn()
+                e.record()
+                enqueue[k].append((time.perf_counter() - h0) * 1e3)
+                e.synchronize()
+                times[k].append(s.elapsed_time(e))
+        med = {k: statistics.median(v) for k, v in times.items()}
+        a["step"] = {"bucket": bucket, "clips_in_bucket": keys.count(key),
+                     "audio_s": step_audio, "median_ms": med, "times_ms": times,
+                     "enqueue_ms": enqueue}
+        log(f"corpus (a) one step at (32, {bucket}) (the most frequent bucket, "
+            f"{keys.count(key)} clips; {step_audio:.1f} audio-s), CUDA events after a "
+            f"~15 ms spin, median of 20: {med['step']:.4f} ms with its upload, "
+            f"{med['step_resident']:.4f} ms on a device-resident buffer, K1 alone "
+            f"{med['k1']:.4f} ms; {step_audio / med['step'] * 1e3:.1f} audio-s/s on the device; "
+            "host enqueue median / max: " + ", ".join(
+                f"{k} {statistics.median(v):.4f} / {max(v):.4f} ms" for k, v in enqueue.items()))
+        rec["a"] = a
+
+        # ----------------------------------------------------------- (b) --
+        k1.mfcc_fused.launches = k2.ct_mel.launches = 0
+        sub = paths[:CORPUS_B_CLIPS]
+        t0 = time.perf_counter()
+        CorpusRunner(sub, cfg, mesh, feature=SUITE_HEADS, batch_size=32,
+                     out_dir=str(tmp / "b"), wire_dtype="float16").run()
+        torch.cuda.synchronize()
+        b = {"wall_s": time.perf_counter() - t0,
+             "launches": [k1.mfcc_fused.launches, k2.ct_mel.launches]}
+        check(b["launches"] == [0, 0], f"(b): launches {b['launches']}, want none")
+        ratio = {h: 0.0 for h in SUITE_HEADS}
+        dc_rows = 0
+        for i, p in enumerate(sub):
+            z = np.load(tmp / "b" / f"utt{i:05d}.npz")
+            dec, _ = read_wav(p)
+            ex = P.extract(dec, RATE, which=SUITE_HEADS)
+            k = int(counts[i])
+            dterm = dc_term(np, dec, fl, hop, k)
+            for h in SUITE_HEADS:
+                ref = (ex[h][0] if h == "mfe" else ex[h]).double().cpu().numpy()
+                got = z[h].astype(np.float64)
+                if got.shape != ref.shape or z[h].dtype != np.float16:
+                    ratio[h] = float("inf")
+                    continue
+                bound = 2.0 ** -11 * np.abs(ref) + 2.0 ** -24 + 1e-5 * np.abs(ref).max()
+                if h in ("mfcc", "lmfe"):
+                    base = bound
+                    bound = bound + dterm.reshape((-1,) + (1,) * (ref.ndim - 1))
+                    dc_rows += int((np.abs(got - ref) > base).any(axis=-1).sum())
+                ratio[h] = max(ratio[h], float((np.abs(got - ref) / bound).max()))
+        b["worst_ratio"] = ratio
+        b["rows_needing_dc_term"] = dc_rows
+        check(max(ratio.values()) <= 1.0, f"(b): heads vs api.extract {ratio}")
+        log(f"corpus (b) five heads, float16 wire, {CORPUS_B_CLIPS} clips in {b['wall_s']:.3f} s; "
+            f"launches (K1, K2) {tuple(b['launches'])}; max |d| / bound vs api.extract: "
+            + ", ".join(f"{h} {r:.3f}" for h, r in ratio.items())
+            + f" (limit 1); rows of mfcc/lmfe past the bound without the DC term: {dc_rows}")
+        rec["b"] = b
+
+        # ----------------------------------------------------------- (c) --
+        rng_c = np.random.default_rng(2)
+        rates = [CORPUS_C_RATES[i % 3] for i in range(CORPUS_C_CLIPS)]
+        lc = [int(n * r / RATE) for n, r in
+              zip(corpus_lengths(np, rng_c, CORPUS_C_CLIPS, RATE), rates)]
+        cpaths = write_corpus(np, write_wav, rng_c, lc, rates, tmp / "wav_c")
+        k1.mfcc_fused.launches = k2.ct_mel.launches = 0
+        t0 = time.perf_counter()
+        rc = CorpusRunner(cpaths, cfg, mesh, batch_size=32, out_dir=str(tmp / "c"),
+                          resample=True)
+        rc.run()
+        torch.cuda.synchronize()
+        c = {"wall_s": time.perf_counter() - t0,
+             "launches": [k1.mfcc_fused.launches, k2.ct_mel.launches],
+             "dispatches": int(rc.meter.counters["dispatches"])}
+        worst = 0.0
+        for i, (p, sr) in enumerate(zip(cpaths, rates)):
+            dec, _ = read_wav(p)
+            ref = P.mfcc(P.resample(dec, sr, RATE), RATE)
+            got = torch.from_numpy(np.load(tmp / "c" / f"utt{i:05d}.npy"))
+            if tuple(got.shape) != tuple(ref.shape):
+                worst = float("inf")
+                break
+            worst = max(worst, rel_err(got, ref)[0])
+        c["rel"] = worst
+        check(worst <= ORACLE_TOL, f"(c): vs api.resample + api.mfcc {worst:.3e}")
+        log(f"corpus (c) resample=True, {CORPUS_C_CLIPS} clips at {CORPUS_C_RATES} Hz in "
+            f"{c['wall_s']:.3f} s; {c['dispatches']} dispatches, launches (K1, K2) "
+            f"{tuple(c['launches'])}; vs api.resample + api.mfcc {worst:.3e} "
+            f"(limit {ORACLE_TOL})")
+        rec["c"] = c
+
+        # ----------------------------------------------------------- (d) --
+        ref = extraction_step_packed(flat, offs, lens, bucket, cfg, make_mesh(), "mfcc",
+                                     frame_counts=fc)
+        rank_world = init_process_group(f"file://{tmp / 'pg'}", world_size=1, rank=0,
+                                        backend="nccl", timeout=60.0)
+        try:
+            gmesh = make_mesh()
+            got = extraction_step_packed(flat, offs, lens, bucket, cfg, gmesh, "mfcc",
+                                         frame_counts=fc)
+            same = all(torch.equal(u, v) for u, v in
+                       zip(torch.utils._pytree.tree_leaves(got),
+                           torch.utils._pytree.tree_leaves(ref)))
+            grouped = gmesh.group is not None
+        finally:
+            dist.destroy_process_group()
+        rec["d"] = {"rank_world": list(rank_world), "bitwise": same}
+        check(same and grouped and rank_world == (0, 1), "(d): NCCL world 1 != no-group mesh")
+        log(f"corpus (d) NCCL group of world 1 (rank, world) {rank_world}: one step at "
+            f"(32, {bucket}) bitwise equal to the no-group mesh: {same}")
+    finally:
+        tmp_dir.cleanup()
+    rec["clocks"] = smi("clocks.sm,power.draw,power.limit,temperature.gpu")
+    log(f"clocks.sm, power.draw, power.limit, temperature: {rec['clocks']}")
+    if fails:
+        raise AssertionError("corpus phase: " + "; ".join(fails))
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, help="directory for chip_smoke.json")
@@ -1103,6 +1434,7 @@ def main() -> int:
     k2_entry, record["librosa"] = librosa_phase(np, torch, P, k1, k2, flush)
     record["suite"] = suite_phase(np, torch, P, k1, k2, flush)
     record["streaming"] = streaming_phase(np, torch, P, k1, k2)
+    record["corpus"] = corpus_phase(np, torch, P, k1, k2)
     kernels = [{
         "name": k1.KERNEL, "route": "cuda",
         "source": "mfcc_rust_tpu_torch/ops/cuda/speechpy_mfcc.cu",
@@ -1111,7 +1443,8 @@ def main() -> int:
         "ms": med["kernel"], "plain_ms": med["plain"], "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": med["library"], "path": plan["path"],
-    }, k2_entry]
+        "launches_corpus": record["corpus"]["a"]["launches"][0],
+    }, dict(k2_entry, launches_corpus=record["corpus"]["a"]["launches"][1])]
     record.update({
         "main_path": {"shape": [BATCH, t_true], "bucket": t_main, "launches": launches,
                       "first_call_s": first_s, "api_ms": api_s * 1e3, "api_ms_all": [h * 1e3 for h in host]},

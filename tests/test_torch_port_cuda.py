@@ -395,3 +395,100 @@ def test_streaming_launch_counts_on_card(cuda_device):
     ex.finalize()
     torch.cuda.synchronize()
     assert (pk.mfcc_fused.launches, ck.ct_mel.launches) == before
+
+
+# ------------------------------------------------------------ corpus path --
+def _corpus_batch(seed: int = 30, b: int = 4, t: int = 160 * 200):
+    rng = np.random.default_rng(seed)
+    lengths = np.array([t, t - 777, t - 3200, 160 * 90][:b], dtype=np.int64)
+    clips = [(np.rint(rng.normal(0, 0.1, n) * 32768).clip(-32768, 32767) / 32768).astype(
+        np.float32) for n in lengths]
+    return clips, lengths, t
+
+
+@pytest.mark.cuda
+def test_extraction_step_on_card_matches_cpu(cuda_device):
+    """The one-rank step on the card against the same step on the CPU:
+    mfcc (K1, one launch a batch, against the CPU's chunk-GEMM: the float32
+    DC bin, PERF.md §7) within 5e-3; the plain heads within 1e-5, the log
+    ones (lmfe, the multi-feature mfcc) within 1e-4, the gate of two
+    float32 forms of one product, whose first log band moves where the DC
+    bin nearly cancels; the multi-feature batch launches no kernel."""
+    from mfcc_rust_tpu_torch.parallel import (extraction_step_packed, frame_counts_host,
+                                              make_mesh, pack_signals)
+
+    clips, lengths, t = _corpus_batch()
+    cfg = P.speechpy_config(16000)
+    vcfg = P.vorbis_config(16000, frame_length=0.01)
+    gpu, cpu = make_mesh(device=cuda_device), make_mesh(device="cpu")
+    flat, offs, lens = pack_signals(clips, 4, pcm16_exact=True)
+    for feature, c, k1 in (("mfcc", cfg, 1), ("lmfe", cfg, 0), ("mfe", cfg, 0),
+                           ("melspec", vcfg, 0), (("mfcc", "lmfe", "mfe", "ssc", "energy"), cfg, 0)):
+        counts = frame_counts_host(lens, c, feature if isinstance(feature, str) else "mfcc")
+        before = pk.mfcc_fused.launches
+        got, gm = extraction_step_packed(flat, offs, lens, t, c, gpu, feature,
+                                         frame_counts=counts)
+        torch.cuda.synchronize()
+        assert pk.mfcc_fused.launches - before == k1, feature
+        ref, rm = extraction_step_packed(flat, offs, lens, t, c, cpu, feature,
+                                         frame_counts=counts)
+        if isinstance(feature, str):
+            got, ref, gm, rm = {feature: got}, {feature: ref}, {feature: gm}, {feature: rm}
+        for h in got:
+            g = got[h][0] if h == "mfe" else got[h]
+            r = ref[h][0] if h == "mfe" else ref[h]
+            tol = 5e-3 if k1 else 1e-4 if h in ("mfcc", "lmfe") else 1e-5
+            assert g.is_cuda and rel(g, r) <= tol, (feature, h)
+            assert float(gm[h].count) == float(rm[h].count)
+
+
+@pytest.mark.cuda
+def test_runner_on_card_matches_cpu(cuda_device, tmp_path):
+    """The corpus runner on the card writes the files the CPU runner writes,
+    within 5e-3 (K1 against the chunk-GEMM), one K1 launch per batch."""
+    from mfcc_rust_tpu_torch.parallel import make_mesh
+    from mfcc_rust_tpu_torch.parallel.runner import CorpusRunner
+    from mfcc_rust_tpu_torch.runtime import write_wav
+
+    rng = np.random.default_rng(31)
+    paths = []
+    for i in range(9):
+        p = tmp_path / f"u{i}.wav"
+        write_wav(str(p), rng.normal(0, 0.1, 8000 + 1500 * i).astype(np.float32), 16000)
+        paths.append(str(p))
+    before = pk.mfcc_fused.launches
+    runner = CorpusRunner(paths, P.speechpy_config(16000), make_mesh(device=cuda_device),
+                          batch_size=4, out_dir=str(tmp_path / "gpu"))
+    mg = runner.run()
+    assert pk.mfcc_fused.launches - before == runner.meter.counters["dispatches"]
+    mc = CorpusRunner(paths, P.speechpy_config(16000), make_mesh(device="cpu"), batch_size=4,
+                      out_dir=str(tmp_path / "cpu")).run()
+    for i in range(9):
+        a, b = np.load(tmp_path / "gpu" / f"u{i}.npy"), np.load(tmp_path / "cpu" / f"u{i}.npy")
+        assert rel(torch.from_numpy(a), torch.from_numpy(b)) <= 5e-3, i
+    assert int(mg.count) == int(mc.count)
+
+
+@pytest.mark.cuda
+def test_nccl_world_one_equals_no_group_on_card(cuda_device, tmp_path):
+    """A mesh on an NCCL group of one rank gives the no-group mesh's step
+    bitwise (the collectives are copies, the arithmetic the same)."""
+    import torch.distributed as dist
+
+    from mfcc_rust_tpu_torch.parallel import extraction_step_packed, make_mesh, pack_signals
+    from mfcc_rust_tpu_torch.parallel.mesh import init_process_group
+
+    clips, lengths, t = _corpus_batch(32)
+    cfg = P.speechpy_config(16000)
+    flat, offs, lens = pack_signals(clips, 4, pcm16_exact=True)
+    ref = extraction_step_packed(flat, offs, lens, t, cfg, make_mesh(device=cuda_device))
+    assert init_process_group(f"file://{tmp_path / 'pg'}", 1, 0, device=cuda_device) == (0, 1)
+    try:
+        mesh = make_mesh(device=cuda_device)
+        assert mesh.group is not None
+        got = extraction_step_packed(flat, offs, lens, t, cfg, mesh)
+        for a, b in zip(torch.utils._pytree.tree_leaves(got),
+                        torch.utils._pytree.tree_leaves(ref)):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()

@@ -106,6 +106,36 @@ def test_streaming_sessions_need_cuda_and_pull_in_no_jax():
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
+def test_corpus_path_pulls_in_no_jax_and_needs_cuda_by_default():
+    code = textwrap.dedent("""
+        import sys
+        import torch
+        import mfcc_rust_tpu_torch.parallel, mfcc_rust_tpu_torch.runtime
+        import mfcc_rust_tpu_torch.parallel.runner, mfcc_rust_tpu_torch.utils.profiling
+        from mfcc_rust_tpu_torch.parallel import make_mesh
+        from mfcc_rust_tpu_torch.parallel.runner import CorpusRunner
+        bad = [k for k in sys.modules
+               if k.split('.')[0] in ('jax', 'jaxlib', 'mfcc_rust_tpu')]
+        assert not bad, bad
+        assert not torch.cuda.is_available()
+        for make in (make_mesh, lambda: CorpusRunner([])):
+            try:
+                make()
+            except RuntimeError as e:
+                assert "CUDA" in str(e)
+            else:
+                raise AssertionError("the corpus path ran without CUDA")
+        mesh = make_mesh(device="cpu")
+        assert mesh.size == 1 and mesh.group is None and mesh.device.type == "cpu"
+        assert CorpusRunner([], device="cpu").mesh.device.type == "cpu"
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120,
+                         env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
 def test_port_sources_name_no_jax():
     files = list((ROOT / "mfcc_rust_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for f in files:
