@@ -33,7 +33,19 @@ launch count set to 0, failing unless the path's kernel launched:
   file; then five heads on a float16 wire (no launch), a mixed-rate corpus
   with ``resample=True``, and one step on an NCCL group of world size 1
   (bitwise equal to no group).  Its K1 and K2 counts go to the kernels
-  line as ``launches_corpus``.
+  line as ``launches_corpus``;
+* cli: ``cli.main`` in this process on the first 512 of those files
+  (``cli_phase``): K1 once a batch, K2 never, every output equal to the
+  corpus run's; then ``python -m mfcc_rust_tpu_torch`` on 64 files;
+* export: ``mfcc``, ``mfe``, the vorbis mel and the librosa mel exported
+  at the headline shapes on the card, saved, loaded and held to the eager
+  plain path and their float64 oracles, with no kernel launch
+  (``export_phase``), and an export made on the CPU loaded onto the card;
+* profiling: one ``api.mfcc`` inside ``utils.profiling.trace`` and
+  ``annotate`` (``profiling_phase``), whose trace must name the annotation
+  and K1's kernel, and the card's ``chip_spec`` and ``speed_of_light``.
+  K1's and K2's ``bound_ms`` in the kernels line come from the work model
+  of ``utils.profiling`` (``work``, ``bound_seconds``).
 
 Then it holds each kernel to its plain PyTorch version on the card
 (max|Δ|/max|ref| <= 1e-4: K1 runs an FFT where its plain version multiplies
@@ -64,14 +76,11 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-# NVIDIA H100 SXM data sheet: FP32 outside the tensor cores, HBM3 rate
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
 
 BATCH, SECONDS, RATE = 48, 10, 16000
 REL_TOL = 1e-4
@@ -142,94 +151,6 @@ def host_us(torch, fn, reps: int = 500) -> float:
 L_BATCH, L_RATE = 32, 22050
 
 
-def k2_work_stockham(k2, cfg, batch: int, t: int) -> tuple:
-    """(operations, bytes) of one ct_mel call on (batch, t) uncentred
-    samples, counted from the design of K2's path 2 (v4, ct_mel.cu's
-    ct_mel_kernel), a multiply-add as two: the window, the Stockham stages
-    (a twiddle only where k != 0), the real split and power of the kmax bins
-    the filterbank needs, and the projection over each filter's nonzero
-    bins; every input read once, the output written once."""
-    n, hop, m = cfg.fft_points, cfg.frame_step, cfg.num_filters
-    nc = n // 2
-    m_odd, n4, has2 = k2.fft_plan(n)
-    _, _, wpack, _, kmax = k2._kernel_constants(cfg)
-    frames = batch * (1 + (t - n) // hop)
-    per_frame, ns = float(n), 1
-    if m_odd > 1:
-        per_frame += 8.0 * nc * m_odd  # complex multiply-add per term
-        ns *= m_odd
-    for radix in [4] * n4 + [2] * has2:
-        twiddled = (ns - 1) / ns  # butterflies with k = j % ns != 0
-        per_frame += nc / radix * (2.0 * radix * (radix // 2) + 6.0 * (radix - 1) * twiddled)
-        ns *= radix
-    per_frame += 19.0 * kmax + 2.0 * wpack.size
-    nbytes = 4.0 * (batch * t + frames * m + 3 * n + wpack.size) + 12.0 * m
-    return frames * per_frame, nbytes
-
-
-# operations of fft_regs.cuh's dft<R>: the halves, the W_R^k products that
-# are not 1 or -i (6 each), the butterflies (4 each)
-DFT_OPS = {2: 4.0, 4: 16.0, 8: 56.0, 16: 180.0, 32: 508.0}
-
-
-def k2_work(k2, cfg, batch: int, t: int) -> tuple:
-    """(operations, bytes) of one ct_mel call on (batch, t) uncentred
-    samples, counted from the design of the path K2 takes: path 2 as
-    k2_work_stockham counts; path 1 the window, the register passes (every
-    input after the first pass times its twiddle; at nc = 1024 the 31
-    products a lane that make the last pass's twiddles, and W_n^k of the
-    split as a product of two), the real split and power of the kmax bins,
-    and the projection over each filter's nonzero bins.  Bytes as path 2's.
-    A design's count is not the least the function needs: the bound takes
-    the least of this and k2_work_stockham."""
-    if k2.path_for(cfg) == 2:
-        return k2_work_stockham(k2, cfg, batch, t)
-    n, hop = cfg.fft_points, cfg.frame_step
-    nc = n // 2
-    _, _, wpack, _, kmax = k2._kernel_constants(cfg)
-    frames = batch * (1 + (t - n) // hop)
-    radices = (32, 32) if nc == 1024 else (8, 8) + ((nc // 64,) if nc > 64 else ())
-    per_frame, ns = float(n), 1
-    for radix in radices:
-        per_frame += nc / radix * (DFT_OPS[radix] + (6.0 * (radix - 1) if ns > 1 else 0.0))
-        ns *= radix
-    per_frame += 19.0 * kmax + 2.0 * wpack.size
-    if nc == 1024:
-        per_frame += 32 * 31 * 6.0 + 6.0 * kmax
-    return frames * per_frame, k2_work_stockham(k2, cfg, batch, t)[1]
-
-
-def k1_work(k1, cfg, batch: int, t: int) -> tuple:
-    """(operations, bytes) of one speechpy_mfcc call on (batch, t) samples,
-    counted from K1's own design (speechpy_mfcc.cu), a multiply-add as two:
-    the sum of squares, the FFT passes (path 1 multiplies every input after
-    the first pass by its twiddle, path 2 only where k != 0, as k2_work
-    counts), the real split and power of the kmax bins, the projection over
-    each filter's nonzero bins and the DCT; every input read once, the output
-    written once."""
-    n, hop, fl = cfg.fft_points, cfg.frame_step, cfg.frame_size
-    m, c = cfg.num_filters, cfg.num_cepstral
-    nc = n // 2
-    _, wpack, _, _, kmax = k1._kernel_constants(cfg)
-    frames = batch * max((t - fl) // hop, 0)
-    butterfly = {2: 4.0, 4: 16.0, 8: 56.0}
-    per_frame, ns = 2.0 * fl, 1
-    for radix in k1.stage_plan(n):
-        if radix in butterfly:
-            if k1.fft_path(n) == 1:
-                twiddled = 1.0 if ns > 1 else 0.0
-            else:
-                twiddled = (ns - 1) / ns
-            per_frame += nc / radix * (butterfly[radix] + 6.0 * (radix - 1) * twiddled)
-        else:
-            per_frame += 8.0 * nc * radix  # the odd part's direct DFT
-        ns *= radix
-    per_frame += 19.0 * kmax + 2.0 * wpack.size
-    per_frame += 2.0 * m * (c - 1 if cfg.dc_elimination else c) + 8.0
-    nbytes = 4.0 * (batch * t + frames * c + 2 * n + wpack.size + 3 * m + m * c)
-    return frames * per_frame, nbytes
-
-
 def mfcc_float64(np, torch, x, cfg):
     """The speechpy MFCC of x (B, T) in float64 on x's device, by rfft:
     frames of fl samples every hop (F = (T - fl) // hop), |X|^2 / n, the
@@ -252,13 +173,14 @@ def mfcc_float64(np, torch, x, cfg):
     return out
 
 
-def librosa_phase(np, torch, P, k1, k2, flush) -> tuple:
+def librosa_phase(np, torch, P, k1, k2, flush, chip) -> tuple:
     """The librosa path and kernel K2: main path, checks, times.  Returns
     (K2's entry of the kernels line, the record)."""
     from mfcc_rust_tpu_torch import api as PA
     from mfcc_rust_tpu_torch import features as PF
     from mfcc_rust_tpu_torch.config import fp32_matmul
     from mfcc_rust_tpu_torch.constants import constant_bundle
+    from mfcc_rust_tpu_torch.utils import profiling as prof
     from tests.golden import librosa_ref
 
     dev = torch.device("cuda")
@@ -422,16 +344,17 @@ def librosa_phase(np, torch, P, k1, k2, flush) -> tuple:
                                       n_mels=c.num_filters)
             torch.cuda.synchronize()
             host.append(time.perf_counter() - t0)
-        flops, nbytes = k2_work(k2, cb, xb.shape[0], xb.shape[1])
-        v4_flops, _ = k2_work_stockham(k2, cb, xb.shape[0], xb.shape[1])
-        least = min(flops, v4_flops)  # the least operation count known
-        t_ops, t_bytes = least / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+        w = prof.work(cb, "mel_spectrogram_librosa", xb.shape[0], xb.shape[1])
+        assert w["lowering"] == "k2", w["lowering"]
+        flops, nbytes, least = w["flops"], w["bytes"], w["least_flops"]
+        v4_flops, _ = prof.k2_work_stockham(cb, xb.shape[0], xb.shape[1])
+        bound_s, bound_by = prof.bound_seconds(least, nbytes, chip)
+        t_bytes = nbytes / (chip["hbm_gbs"] * 1e9)
         timing[label] = {
             "shape": list(xb.shape), "times_ms": times, "median_ms": med,
             "api_ms": statistics.median(host) * 1e3, "api_ms_all": [h * 1e3 for h in host],
             "flops": flops, "bound_flops": least, "bytes": nbytes,
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "yardstick_rel": y_rel,
+            "bound_ms": 1e3 * bound_s, "bound_by": bound_by, "yardstick_rel": y_rel,
             "plan": plan_t, "v4_flops": v4_flops,
         }
         log(f"K2 times, {label} at {tuple(xb.shape)}, median of {len(times['kernel'])}: "
@@ -441,9 +364,10 @@ def librosa_phase(np, torch, P, k1, k2, flush) -> tuple:
             f"{nbytes / 1e6:.3f} MB; bound {timing[label]['bound_ms']:.4f} ms "
             f"({timing[label]['bound_by']}), {least / med['kernel'] / 1e9:.3f} TFLOP/s of it "
             f"achieved; audio-s/s kernel {batch * SECONDS / med['kernel'] * 1e3:.1f}")
+        peak = chip["fp32_tflops"] * 1e12
         log(f"K2 design counts, {label}: path {plan_t['path']}'s {flops / 1e9:.3f} GFLOP "
-            f"({1e3 * max(flops / PEAK_FP32_FLOPS, t_bytes):.4f} ms), v4's (path 2's) "
-            f"{v4_flops / 1e9:.3f} GFLOP ({1e3 * max(v4_flops / PEAK_FP32_FLOPS, t_bytes):.4f} ms)")
+            f"({1e3 * max(flops / peak, t_bytes):.4f} ms), v4's (path 2's) "
+            f"{v4_flops / 1e9:.3f} GFLOP ({1e3 * max(v4_flops / peak, t_bytes):.4f} ms)")
     rec["timing"] = timing
     # host cost of a launch through the binding, path 1 and path 2
     rec["host_launch_us"] = {}
@@ -931,13 +855,14 @@ def dc_term(np, x, fl: int, hop: int, frames: int):
     return 4.0 * gamma * ab / np.maximum(x0, 1e-300)
 
 
-def corpus_phase(np, torch, P, k1, k2) -> dict:
+def corpus_phase(np, torch, P, k1, k2, tmp: Path) -> dict:
     """The corpus path at LibriSpeech dev-clean's size, on one card.
 
     A corpus of 2,703 WAV files (``bench.py``'s length profile, seed 0:
     durations clip(lognormal(ln 6 s, 0.6), 1, 35) at 16 kHz, samples
-    N(0, 0.1)) is written with the port's native ``write_wav`` into a
-    temporary directory, then:
+    N(0, 0.1)) is written with the port's native ``write_wav`` into
+    ``tmp/wav`` (run (a) writes its outputs to ``tmp/a``: the "cli" phase
+    reads both), then:
 
     (a) ``CorpusRunner`` (batch 32, packed f32 outputs, the runner's
         defaults) on a one-rank CUDA mesh, ``"mfcc"``: K1 once a batch,
@@ -963,8 +888,6 @@ def corpus_phase(np, torch, P, k1, k2) -> dict:
     One H100 cannot hold two NCCL ranks: multi-rank meshes are proven on
     the CPU under gloo (tests/test_torch_port_parallel.py).  Any failed gate
     raises after the phase has printed its numbers."""
-    import tempfile
-
     import torch.distributed as dist
 
     from mfcc_rust_tpu_torch import runtime
@@ -986,226 +909,455 @@ def corpus_phase(np, torch, P, k1, k2) -> dict:
         raise AssertionError("corpus phase: the native WAV runtime did not build")
     cfg = P.FeatureConfig(sample_rate=RATE)
     hop, fl = cfg.frame_step, cfg.frame_size
-    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_corpus_")
-    tmp = Path(tmp_dir.name)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    lengths = corpus_lengths(np, rng, CORPUS_CLIPS, RATE)
+    paths = write_corpus(np, write_wav, rng, lengths, [RATE] * CORPUS_CLIPS, tmp / "wav")
+    disk = sum(Path(p).stat().st_size for p in paths)
+    audio_s = sum(lengths) / RATE
+    rec["corpus"] = {"clips": CORPUS_CLIPS, "audio_s": audio_s, "wav_bytes": disk,
+                     "build_s": time.perf_counter() - t0}
+    log(f"corpus: {CORPUS_CLIPS} clips, {audio_s:.1f} audio-s ({audio_s / 3600:.3f} h), "
+        f"{disk / 1e6:.1f} MB of PCM16 WAV, written in {rec['corpus']['build_s']:.2f} s")
+
+    # ----------------------------------------------------------- (a) --
+    mesh = make_mesh()
+    k1.mfcc_fused.launches = k2.ct_mel.launches = 0
+    runner = CorpusRunner(paths, cfg, mesh, batch_size=32, out_dir=str(tmp / "a"),
+                          checkpoint_path=str(tmp / "a.npz"))
+    t0 = time.perf_counter()
+    moments = runner.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (k1.mfcc_fused.launches, k2.ct_mel.launches)
+    meter = runner.meter
+    batches = int(meter.counters["dispatches"])
+    a = {"wall_s": wall, "audio_s_per_s": audio_s / wall, "batches": batches,
+         "launches": list(launches), "scopes": dict(meter.scopes),
+         "counters": dict(meter.counters),
+         "fetch_busy_s": meter.span_union("fetch"),
+         "dispatch_busy_s": meter.span_union("dispatch")}
+    check(launches == (batches, 0), f"(a): launches {launches}, want ({batches}, 0)")
+    counts = frame_counts_host(lengths, cfg, "mfcc")
+    outs, bad = [], 0
+    for i in range(CORPUS_CLIPS):
+        f = np.load(tmp / "a" / f"utt{i:05d}.npy")
+        bad += f.shape != (counts[i], cfg.num_cepstral) or not np.isfinite(f).all()
+        outs.append(f)
+    check(bad == 0, f"(a): {bad} outputs of the wrong shape or not finite")
+    allv = np.concatenate(outs).astype(np.float64)
+    mean64 = allv.mean(0)
+    std64 = np.sqrt(((allv - mean64) ** 2).mean(0))
+    m_std = np.sqrt(np.maximum(np.asarray(moments.m2, np.float64)
+                               / max(float(moments.count), 1.0), 0.0))
+    a["frames"] = int(allv.shape[0])
+    a["mean_err"] = float(np.abs(np.asarray(moments.mean) - mean64).max())
+    a["std_err"] = float(np.abs(m_std - std64).max())
+    check(int(moments.count) == allv.shape[0],
+          f"(a): moments count {float(moments.count)} != {allv.shape[0]}")
+    check(np.allclose(moments.mean, mean64, rtol=1e-5, atol=1e-6), "(a): moments mean")
+    check(np.allclose(m_std, std64, rtol=1e-5, atol=1e-6), "(a): moments std")
+    pick = np.random.default_rng(1).choice(CORPUS_CLIPS, CORPUS_ORACLE_UTTS, replace=False)
+    worst = 0.0
+    for i in pick:
+        dec, _ = read_wav(paths[i])
+        gold = speechpy_ref.mfcc(dec.astype(np.float64), RATE)
+        worst = max(worst, rel_err(torch.from_numpy(outs[i]), torch.from_numpy(gold))[0])
+    a["oracle_rel"] = worst
+    check(worst <= ORACLE_TOL, f"(a): vs oracle {worst:.3e}")
+    del allv, outs
+    sc = ", ".join(f"{k} {v:.4f}" for k, v in sorted(meter.scopes.items()))
+    log(f"corpus (a) mfcc: {CORPUS_CLIPS} files in {wall:.3f} s = {a['audio_s_per_s']:.1f} "
+        f"audio-s/s end to end; {batches} batches, K1 launches {launches[0]}, K2 "
+        f"{launches[1]}; {a['frames']} frames")
+    log(f"corpus (a) scopes (host s): {sc}; fetch-span union {a['fetch_busy_s']:.4f} s, "
+        f"dispatch-span union {a['dispatch_busy_s']:.4f} s")
+    log(f"corpus (a) bytes: H2D {meter.counters.get('h2d_bytes', 0) / 1e6:.3f} MB, D2H "
+        f"{meter.counters.get('d2h_bytes', 0) / 1e6:.3f} MB; fetch groups "
+        f"{int(meter.counters.get('fetch_groups', 0))}")
+    log(f"corpus (a) gates: moments vs float64 over every file: count "
+        f"{int(moments.count)}, max|d mean| {a['mean_err']:.3e}, max|d std| "
+        f"{a['std_err']:.3e} (rtol 1e-5, atol 1e-6); {CORPUS_ORACLE_UTTS} utterances vs "
+        f"float64 oracle {worst:.3e} (limit {ORACLE_TOL})")
+
+    # one step at B = 32 x the most frequent bucket
+    keys = [bucket_length(n) for n in lengths]
+    key = max(set(keys), key=keys.count)
+    idx = [i for i, k in enumerate(keys) if k == key][:32]
+    # the runner's step length: the bucket of the batch's longest clip,
+    # rounded up to whole hops
+    bucket = -(-bucket_length(max(lengths[i] for i in idx)) // hop) * hop
+    clips = [read_wav(paths[i])[0] for i in idx]
+    flat, offs, lens = pack_signals(clips, 32, pcm16_exact=True)
+    fc = frame_counts_host(lens, cfg, "mfcc")
+    flat_d = torch.from_numpy(flat).to(mesh.device)
+    x_ext = torch.from_numpy(np.random.default_rng(3).normal(
+        0.0, 0.1, (32, bucket + fl)).astype(np.float32)).to(mesh.device)
+    step_audio = float(lens.sum()) / RATE
+    runs = {"step": lambda: extraction_step_packed(flat, offs, lens, bucket, cfg, mesh,
+                                                   "mfcc", frame_counts=fc),
+            "step_resident": lambda: extraction_step_packed(flat_d, offs, lens, bucket, cfg,
+                                                            mesh, "mfcc", frame_counts=fc),
+            "k1": lambda: k1.mfcc_fused(x_ext, cfg)}
+    times = {k: [] for k in runs}
+    enqueue = {k: [] for k in runs}
+    for _ in range(2):
+        for k, fn in runs.items():
+            fn()
+        torch.cuda.synchronize()
+    for _ in range(20):
+        for k, fn in runs.items():
+            torch.cuda._sleep(STEP_SPIN)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            h0 = time.perf_counter()
+            s.record()
+            fn()
+            e.record()
+            enqueue[k].append((time.perf_counter() - h0) * 1e3)
+            e.synchronize()
+            times[k].append(s.elapsed_time(e))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    a["step"] = {"bucket": bucket, "clips_in_bucket": keys.count(key),
+                 "audio_s": step_audio, "median_ms": med, "times_ms": times,
+                 "enqueue_ms": enqueue}
+    log(f"corpus (a) one step at (32, {bucket}) (the most frequent bucket, "
+        f"{keys.count(key)} clips; {step_audio:.1f} audio-s), CUDA events after a "
+        f"~15 ms spin, median of 20: {med['step']:.4f} ms with its upload, "
+        f"{med['step_resident']:.4f} ms on a device-resident buffer, K1 alone "
+        f"{med['k1']:.4f} ms; {step_audio / med['step'] * 1e3:.1f} audio-s/s on the device; "
+        "host enqueue median / max: " + ", ".join(
+            f"{k} {statistics.median(v):.4f} / {max(v):.4f} ms" for k, v in enqueue.items()))
+    rec["a"] = a
+
+    # ----------------------------------------------------------- (b) --
+    k1.mfcc_fused.launches = k2.ct_mel.launches = 0
+    sub = paths[:CORPUS_B_CLIPS]
+    t0 = time.perf_counter()
+    CorpusRunner(sub, cfg, mesh, feature=SUITE_HEADS, batch_size=32,
+                 out_dir=str(tmp / "b"), wire_dtype="float16").run()
+    torch.cuda.synchronize()
+    b = {"wall_s": time.perf_counter() - t0,
+         "launches": [k1.mfcc_fused.launches, k2.ct_mel.launches]}
+    check(b["launches"] == [0, 0], f"(b): launches {b['launches']}, want none")
+    ratio = {h: 0.0 for h in SUITE_HEADS}
+    dc_rows = 0
+    for i, p in enumerate(sub):
+        z = np.load(tmp / "b" / f"utt{i:05d}.npz")
+        dec, _ = read_wav(p)
+        ex = P.extract(dec, RATE, which=SUITE_HEADS)
+        k = int(counts[i])
+        dterm = dc_term(np, dec, fl, hop, k)
+        for h in SUITE_HEADS:
+            ref = (ex[h][0] if h == "mfe" else ex[h]).double().cpu().numpy()
+            got = z[h].astype(np.float64)
+            if got.shape != ref.shape or z[h].dtype != np.float16:
+                ratio[h] = float("inf")
+                continue
+            bound = 2.0 ** -11 * np.abs(ref) + 2.0 ** -24 + 1e-5 * np.abs(ref).max()
+            if h in ("mfcc", "lmfe"):
+                base = bound
+                bound = bound + dterm.reshape((-1,) + (1,) * (ref.ndim - 1))
+                dc_rows += int((np.abs(got - ref) > base).any(axis=-1).sum())
+            ratio[h] = max(ratio[h], float((np.abs(got - ref) / bound).max()))
+    b["worst_ratio"] = ratio
+    b["rows_needing_dc_term"] = dc_rows
+    check(max(ratio.values()) <= 1.0, f"(b): heads vs api.extract {ratio}")
+    log(f"corpus (b) five heads, float16 wire, {CORPUS_B_CLIPS} clips in {b['wall_s']:.3f} s; "
+        f"launches (K1, K2) {tuple(b['launches'])}; max |d| / bound vs api.extract: "
+        + ", ".join(f"{h} {r:.3f}" for h, r in ratio.items())
+        + f" (limit 1); rows of mfcc/lmfe past the bound without the DC term: {dc_rows}")
+    rec["b"] = b
+
+    # ----------------------------------------------------------- (c) --
+    rng_c = np.random.default_rng(2)
+    rates = [CORPUS_C_RATES[i % 3] for i in range(CORPUS_C_CLIPS)]
+    lc = [int(n * r / RATE) for n, r in
+          zip(corpus_lengths(np, rng_c, CORPUS_C_CLIPS, RATE), rates)]
+    cpaths = write_corpus(np, write_wav, rng_c, lc, rates, tmp / "wav_c")
+    k1.mfcc_fused.launches = k2.ct_mel.launches = 0
+    t0 = time.perf_counter()
+    rc = CorpusRunner(cpaths, cfg, mesh, batch_size=32, out_dir=str(tmp / "c"),
+                      resample=True)
+    rc.run()
+    torch.cuda.synchronize()
+    c = {"wall_s": time.perf_counter() - t0,
+         "launches": [k1.mfcc_fused.launches, k2.ct_mel.launches],
+         "dispatches": int(rc.meter.counters["dispatches"])}
+    worst = 0.0
+    for i, (p, sr) in enumerate(zip(cpaths, rates)):
+        dec, _ = read_wav(p)
+        ref = P.mfcc(P.resample(dec, sr, RATE), RATE)
+        got = torch.from_numpy(np.load(tmp / "c" / f"utt{i:05d}.npy"))
+        if tuple(got.shape) != tuple(ref.shape):
+            worst = float("inf")
+            break
+        worst = max(worst, rel_err(got, ref)[0])
+    c["rel"] = worst
+    check(worst <= ORACLE_TOL, f"(c): vs api.resample + api.mfcc {worst:.3e}")
+    log(f"corpus (c) resample=True, {CORPUS_C_CLIPS} clips at {CORPUS_C_RATES} Hz in "
+        f"{c['wall_s']:.3f} s; {c['dispatches']} dispatches, launches (K1, K2) "
+        f"{tuple(c['launches'])}; vs api.resample + api.mfcc {worst:.3e} "
+        f"(limit {ORACLE_TOL})")
+    rec["c"] = c
+
+    # ----------------------------------------------------------- (d) --
+    ref = extraction_step_packed(flat, offs, lens, bucket, cfg, make_mesh(), "mfcc",
+                                 frame_counts=fc)
+    rank_world = init_process_group(f"file://{tmp / 'pg'}", world_size=1, rank=0,
+                                    backend="nccl", timeout=60.0)
     try:
-        t0 = time.perf_counter()
-        rng = np.random.default_rng(0)
-        lengths = corpus_lengths(np, rng, CORPUS_CLIPS, RATE)
-        paths = write_corpus(np, write_wav, rng, lengths, [RATE] * CORPUS_CLIPS, tmp / "wav")
-        disk = sum(Path(p).stat().st_size for p in paths)
-        audio_s = sum(lengths) / RATE
-        rec["corpus"] = {"clips": CORPUS_CLIPS, "audio_s": audio_s, "wav_bytes": disk,
-                         "build_s": time.perf_counter() - t0}
-        log(f"corpus: {CORPUS_CLIPS} clips, {audio_s:.1f} audio-s ({audio_s / 3600:.3f} h), "
-            f"{disk / 1e6:.1f} MB of PCM16 WAV, written in {rec['corpus']['build_s']:.2f} s")
-
-        # ----------------------------------------------------------- (a) --
-        mesh = make_mesh()
-        k1.mfcc_fused.launches = k2.ct_mel.launches = 0
-        runner = CorpusRunner(paths, cfg, mesh, batch_size=32, out_dir=str(tmp / "a"),
-                              checkpoint_path=str(tmp / "a.npz"))
-        t0 = time.perf_counter()
-        moments = runner.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = (k1.mfcc_fused.launches, k2.ct_mel.launches)
-        meter = runner.meter
-        batches = int(meter.counters["dispatches"])
-        a = {"wall_s": wall, "audio_s_per_s": audio_s / wall, "batches": batches,
-             "launches": list(launches), "scopes": dict(meter.scopes),
-             "counters": dict(meter.counters),
-             "fetch_busy_s": meter.span_union("fetch"),
-             "dispatch_busy_s": meter.span_union("dispatch")}
-        check(launches == (batches, 0), f"(a): launches {launches}, want ({batches}, 0)")
-        counts = frame_counts_host(lengths, cfg, "mfcc")
-        outs, bad = [], 0
-        for i in range(CORPUS_CLIPS):
-            f = np.load(tmp / "a" / f"utt{i:05d}.npy")
-            bad += f.shape != (counts[i], cfg.num_cepstral) or not np.isfinite(f).all()
-            outs.append(f)
-        check(bad == 0, f"(a): {bad} outputs of the wrong shape or not finite")
-        allv = np.concatenate(outs).astype(np.float64)
-        mean64 = allv.mean(0)
-        std64 = np.sqrt(((allv - mean64) ** 2).mean(0))
-        m_std = np.sqrt(np.maximum(np.asarray(moments.m2, np.float64)
-                                   / max(float(moments.count), 1.0), 0.0))
-        a["frames"] = int(allv.shape[0])
-        a["mean_err"] = float(np.abs(np.asarray(moments.mean) - mean64).max())
-        a["std_err"] = float(np.abs(m_std - std64).max())
-        check(int(moments.count) == allv.shape[0],
-              f"(a): moments count {float(moments.count)} != {allv.shape[0]}")
-        check(np.allclose(moments.mean, mean64, rtol=1e-5, atol=1e-6), "(a): moments mean")
-        check(np.allclose(m_std, std64, rtol=1e-5, atol=1e-6), "(a): moments std")
-        pick = np.random.default_rng(1).choice(CORPUS_CLIPS, CORPUS_ORACLE_UTTS, replace=False)
-        worst = 0.0
-        for i in pick:
-            dec, _ = read_wav(paths[i])
-            gold = speechpy_ref.mfcc(dec.astype(np.float64), RATE)
-            worst = max(worst, rel_err(torch.from_numpy(outs[i]), torch.from_numpy(gold))[0])
-        a["oracle_rel"] = worst
-        check(worst <= ORACLE_TOL, f"(a): vs oracle {worst:.3e}")
-        del allv, outs
-        sc = ", ".join(f"{k} {v:.4f}" for k, v in sorted(meter.scopes.items()))
-        log(f"corpus (a) mfcc: {CORPUS_CLIPS} files in {wall:.3f} s = {a['audio_s_per_s']:.1f} "
-            f"audio-s/s end to end; {batches} batches, K1 launches {launches[0]}, K2 "
-            f"{launches[1]}; {a['frames']} frames")
-        log(f"corpus (a) scopes (host s): {sc}; fetch-span union {a['fetch_busy_s']:.4f} s, "
-            f"dispatch-span union {a['dispatch_busy_s']:.4f} s")
-        log(f"corpus (a) bytes: H2D {meter.counters.get('h2d_bytes', 0) / 1e6:.3f} MB, D2H "
-            f"{meter.counters.get('d2h_bytes', 0) / 1e6:.3f} MB; fetch groups "
-            f"{int(meter.counters.get('fetch_groups', 0))}")
-        log(f"corpus (a) gates: moments vs float64 over every file: count "
-            f"{int(moments.count)}, max|d mean| {a['mean_err']:.3e}, max|d std| "
-            f"{a['std_err']:.3e} (rtol 1e-5, atol 1e-6); {CORPUS_ORACLE_UTTS} utterances vs "
-            f"float64 oracle {worst:.3e} (limit {ORACLE_TOL})")
-
-        # one step at B = 32 x the most frequent bucket
-        keys = [bucket_length(n) for n in lengths]
-        key = max(set(keys), key=keys.count)
-        idx = [i for i, k in enumerate(keys) if k == key][:32]
-        # the runner's step length: the bucket of the batch's longest clip,
-        # rounded up to whole hops
-        bucket = -(-bucket_length(max(lengths[i] for i in idx)) // hop) * hop
-        clips = [read_wav(paths[i])[0] for i in idx]
-        flat, offs, lens = pack_signals(clips, 32, pcm16_exact=True)
-        fc = frame_counts_host(lens, cfg, "mfcc")
-        flat_d = torch.from_numpy(flat).to(mesh.device)
-        x_ext = torch.from_numpy(np.random.default_rng(3).normal(
-            0.0, 0.1, (32, bucket + fl)).astype(np.float32)).to(mesh.device)
-        step_audio = float(lens.sum()) / RATE
-        runs = {"step": lambda: extraction_step_packed(flat, offs, lens, bucket, cfg, mesh,
-                                                       "mfcc", frame_counts=fc),
-                "step_resident": lambda: extraction_step_packed(flat_d, offs, lens, bucket, cfg,
-                                                                mesh, "mfcc", frame_counts=fc),
-                "k1": lambda: k1.mfcc_fused(x_ext, cfg)}
-        times = {k: [] for k in runs}
-        enqueue = {k: [] for k in runs}
-        for _ in range(2):
-            for k, fn in runs.items():
-                fn()
-            torch.cuda.synchronize()
-        for _ in range(20):
-            for k, fn in runs.items():
-                torch.cuda._sleep(STEP_SPIN)
-                s = torch.cuda.Event(enable_timing=True)
-                e = torch.cuda.Event(enable_timing=True)
-                h0 = time.perf_counter()
-                s.record()
-                fn()
-                e.record()
-                enqueue[k].append((time.perf_counter() - h0) * 1e3)
-                e.synchronize()
-                times[k].append(s.elapsed_time(e))
-        med = {k: statistics.median(v) for k, v in times.items()}
-        a["step"] = {"bucket": bucket, "clips_in_bucket": keys.count(key),
-                     "audio_s": step_audio, "median_ms": med, "times_ms": times,
-                     "enqueue_ms": enqueue}
-        log(f"corpus (a) one step at (32, {bucket}) (the most frequent bucket, "
-            f"{keys.count(key)} clips; {step_audio:.1f} audio-s), CUDA events after a "
-            f"~15 ms spin, median of 20: {med['step']:.4f} ms with its upload, "
-            f"{med['step_resident']:.4f} ms on a device-resident buffer, K1 alone "
-            f"{med['k1']:.4f} ms; {step_audio / med['step'] * 1e3:.1f} audio-s/s on the device; "
-            "host enqueue median / max: " + ", ".join(
-                f"{k} {statistics.median(v):.4f} / {max(v):.4f} ms" for k, v in enqueue.items()))
-        rec["a"] = a
-
-        # ----------------------------------------------------------- (b) --
-        k1.mfcc_fused.launches = k2.ct_mel.launches = 0
-        sub = paths[:CORPUS_B_CLIPS]
-        t0 = time.perf_counter()
-        CorpusRunner(sub, cfg, mesh, feature=SUITE_HEADS, batch_size=32,
-                     out_dir=str(tmp / "b"), wire_dtype="float16").run()
-        torch.cuda.synchronize()
-        b = {"wall_s": time.perf_counter() - t0,
-             "launches": [k1.mfcc_fused.launches, k2.ct_mel.launches]}
-        check(b["launches"] == [0, 0], f"(b): launches {b['launches']}, want none")
-        ratio = {h: 0.0 for h in SUITE_HEADS}
-        dc_rows = 0
-        for i, p in enumerate(sub):
-            z = np.load(tmp / "b" / f"utt{i:05d}.npz")
-            dec, _ = read_wav(p)
-            ex = P.extract(dec, RATE, which=SUITE_HEADS)
-            k = int(counts[i])
-            dterm = dc_term(np, dec, fl, hop, k)
-            for h in SUITE_HEADS:
-                ref = (ex[h][0] if h == "mfe" else ex[h]).double().cpu().numpy()
-                got = z[h].astype(np.float64)
-                if got.shape != ref.shape or z[h].dtype != np.float16:
-                    ratio[h] = float("inf")
-                    continue
-                bound = 2.0 ** -11 * np.abs(ref) + 2.0 ** -24 + 1e-5 * np.abs(ref).max()
-                if h in ("mfcc", "lmfe"):
-                    base = bound
-                    bound = bound + dterm.reshape((-1,) + (1,) * (ref.ndim - 1))
-                    dc_rows += int((np.abs(got - ref) > base).any(axis=-1).sum())
-                ratio[h] = max(ratio[h], float((np.abs(got - ref) / bound).max()))
-        b["worst_ratio"] = ratio
-        b["rows_needing_dc_term"] = dc_rows
-        check(max(ratio.values()) <= 1.0, f"(b): heads vs api.extract {ratio}")
-        log(f"corpus (b) five heads, float16 wire, {CORPUS_B_CLIPS} clips in {b['wall_s']:.3f} s; "
-            f"launches (K1, K2) {tuple(b['launches'])}; max |d| / bound vs api.extract: "
-            + ", ".join(f"{h} {r:.3f}" for h, r in ratio.items())
-            + f" (limit 1); rows of mfcc/lmfe past the bound without the DC term: {dc_rows}")
-        rec["b"] = b
-
-        # ----------------------------------------------------------- (c) --
-        rng_c = np.random.default_rng(2)
-        rates = [CORPUS_C_RATES[i % 3] for i in range(CORPUS_C_CLIPS)]
-        lc = [int(n * r / RATE) for n, r in
-              zip(corpus_lengths(np, rng_c, CORPUS_C_CLIPS, RATE), rates)]
-        cpaths = write_corpus(np, write_wav, rng_c, lc, rates, tmp / "wav_c")
-        k1.mfcc_fused.launches = k2.ct_mel.launches = 0
-        t0 = time.perf_counter()
-        rc = CorpusRunner(cpaths, cfg, mesh, batch_size=32, out_dir=str(tmp / "c"),
-                          resample=True)
-        rc.run()
-        torch.cuda.synchronize()
-        c = {"wall_s": time.perf_counter() - t0,
-             "launches": [k1.mfcc_fused.launches, k2.ct_mel.launches],
-             "dispatches": int(rc.meter.counters["dispatches"])}
-        worst = 0.0
-        for i, (p, sr) in enumerate(zip(cpaths, rates)):
-            dec, _ = read_wav(p)
-            ref = P.mfcc(P.resample(dec, sr, RATE), RATE)
-            got = torch.from_numpy(np.load(tmp / "c" / f"utt{i:05d}.npy"))
-            if tuple(got.shape) != tuple(ref.shape):
-                worst = float("inf")
-                break
-            worst = max(worst, rel_err(got, ref)[0])
-        c["rel"] = worst
-        check(worst <= ORACLE_TOL, f"(c): vs api.resample + api.mfcc {worst:.3e}")
-        log(f"corpus (c) resample=True, {CORPUS_C_CLIPS} clips at {CORPUS_C_RATES} Hz in "
-            f"{c['wall_s']:.3f} s; {c['dispatches']} dispatches, launches (K1, K2) "
-            f"{tuple(c['launches'])}; vs api.resample + api.mfcc {worst:.3e} "
-            f"(limit {ORACLE_TOL})")
-        rec["c"] = c
-
-        # ----------------------------------------------------------- (d) --
-        ref = extraction_step_packed(flat, offs, lens, bucket, cfg, make_mesh(), "mfcc",
+        gmesh = make_mesh()
+        got = extraction_step_packed(flat, offs, lens, bucket, cfg, gmesh, "mfcc",
                                      frame_counts=fc)
-        rank_world = init_process_group(f"file://{tmp / 'pg'}", world_size=1, rank=0,
-                                        backend="nccl", timeout=60.0)
-        try:
-            gmesh = make_mesh()
-            got = extraction_step_packed(flat, offs, lens, bucket, cfg, gmesh, "mfcc",
-                                         frame_counts=fc)
-            same = all(torch.equal(u, v) for u, v in
-                       zip(torch.utils._pytree.tree_leaves(got),
-                           torch.utils._pytree.tree_leaves(ref)))
-            grouped = gmesh.group is not None
-        finally:
-            dist.destroy_process_group()
-        rec["d"] = {"rank_world": list(rank_world), "bitwise": same}
-        check(same and grouped and rank_world == (0, 1), "(d): NCCL world 1 != no-group mesh")
-        log(f"corpus (d) NCCL group of world 1 (rank, world) {rank_world}: one step at "
-            f"(32, {bucket}) bitwise equal to the no-group mesh: {same}")
+        same = all(torch.equal(u, v) for u, v in
+                   zip(torch.utils._pytree.tree_leaves(got),
+                       torch.utils._pytree.tree_leaves(ref)))
+        grouped = gmesh.group is not None
     finally:
-        tmp_dir.cleanup()
+        dist.destroy_process_group()
+    rec["d"] = {"rank_world": list(rank_world), "bitwise": same}
+    check(same and grouped and rank_world == (0, 1), "(d): NCCL world 1 != no-group mesh")
+    log(f"corpus (d) NCCL group of world 1 (rank, world) {rank_world}: one step at "
+        f"(32, {bucket}) bitwise equal to the no-group mesh: {same}")
     rec["clocks"] = smi("clocks.sm,power.draw,power.limit,temperature.gpu")
     log(f"clocks.sm, power.draw, power.limit, temperature: {rec['clocks']}")
     if fails:
         raise AssertionError("corpus phase: " + "; ".join(fails))
+    return rec
+
+
+EXPORT_TOL = 1e-6
+CLI_CLIPS = 512
+CLI_SUBPROCESS_CLIPS = 64
+
+
+def export_phase(np, torch, P, k1, k2, flush, tmp: Path) -> dict:
+    """The export path on the card (``mfcc_rust_tpu_torch.export``): ``mfcc``,
+    ``mfe`` and the vorbis ``mel_spectrogram`` at the speechpy headline
+    (48 x 177,664) and ``mel_spectrogram_librosa`` at the librosa one (32 x
+    277,632, uncentred as the entry point hands it on), each exported on
+    ``cuda``, saved to a ``.pt2`` file in ``tmp``, loaded and called, with
+    the launch counts zeroed just before: exports take the plain lowering,
+    so K1 and K2 must launch no time.  Each loaded program is held to the
+    eager plain path on the same input within EXPORT_TOL (max|d|/max|ref|)
+    and to its float64 oracle within ORACLE_TOL (the MFCC by a float64 rfft
+    on every row, the others on rows 0 and B-1).  Then ``mfcc`` exported on
+    the CPU at (2, 16000) and loaded onto ``cuda`` (its graph's constants
+    moved) is held to the eager plain path on the card within 1e-5.  Times:
+    each loaded program, the eager plain path and K1 (the speechpy
+    features) or K2 (the librosa mel) at the same shape, CUDA events after
+    an L2 flush, median of 10."""
+    from mfcc_rust_tpu_torch import export as E
+    from mfcc_rust_tpu_torch import features as PF
+    from mfcc_rust_tpu_torch.utils.bucketing import bucket_length
+    from tests.golden import dfn_ref, librosa_ref, speechpy_ref
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    sp = P.speechpy_config(RATE)
+    lc = P.librosa_config(L_RATE).replace(center=False)
+    t_sp = bucket_length(SECONDS * RATE)
+    t_lib = 277632  # the librosa headline's bucket after its centre pad
+    x_sp = torch.from_numpy(rng.normal(0.0, 0.1, (BATCH, t_sp)).astype(np.float32)).to(dev)
+    x_lib = torch.from_numpy(rng.normal(0.0, 0.1, (L_BATCH, t_lib)).astype(np.float32)).to(dev)
+    rows = (0, BATCH - 1)
+
+    def oracle_rel(feature, out, x):
+        xn = x.double().cpu().numpy()
+        if feature == "mfcc":
+            return rel_err(out, mfcc_float64(np, torch, x, sp))[0]
+        if feature == "mfe":
+            return max(max(rel_err(o[i], torch.from_numpy(g))[0]
+                           for o, g in zip(out, speechpy_ref.mfe(xn[i], RATE))) for i in rows)
+        if feature == "mel_spectrogram":
+            return max(rel_err(out[i], torch.from_numpy(dfn_ref.mel_spectrogram1(xn[i], RATE)))[0]
+                       for i in rows)
+        return max(rel_err(out[i], torch.from_numpy(librosa_ref.melspectrogram(
+            xn[i], L_RATE, 2048, 512, center=False)))[0] for i in (0, L_BATCH - 1))
+
+    cases = [("mfcc", sp, x_sp, k1.mfcc_fused, lambda: k1.mfcc_fused(x_sp, sp)),
+             ("mfe", sp, x_sp, k1.mfcc_fused, lambda: k1.mfcc_fused(x_sp, sp)),
+             ("mel_spectrogram", P.vorbis_config(RATE), x_sp, k1.mfcc_fused,
+              lambda: k1.mfcc_fused(x_sp, sp)),
+             ("mel_spectrogram_librosa", lc, x_lib, k2.ct_mel, lambda: k2.ct_mel(x_lib, lc))]
+    fails, rec = [], {}
+    for feature, cfg, x, kernel, kernel_call in cases:
+        k1.mfcc_fused.launches = k2.ct_mel.launches = 0
+        path = tmp / f"{feature}.pt2"
+        t0 = time.perf_counter()
+        E.export_pipeline(cfg, feature, tuple(x.shape), path=str(path), device="cuda")
+        export_s = time.perf_counter() - t0
+        loaded = E.load_pipeline(str(path), device="cuda")
+        got = loaded(x)
+        eager = getattr(PF, feature)(x, cfg.replace(pallas="off"))
+        torch.cuda.synchronize()
+        launches = (k1.mfcc_fused.launches, k2.ct_mel.launches)
+        pairs = list(zip(got, eager)) if isinstance(got, tuple) else [(got, eager)]
+        r_eager = max(rel_err(a, b)[0] for a, b in pairs)
+        r_oracle = oracle_rel(feature, got, x)
+        times = {"loaded": cuda_ms(torch, lambda: loaded(x), 10, flush),
+                 "eager_plain": cuda_ms(torch, lambda: getattr(PF, feature)(
+                     x, cfg.replace(pallas="off")), 10, flush),
+                 kernel.__name__: cuda_ms(torch, kernel_call, 10, flush)}
+        med = {k: statistics.median(v) for k, v in times.items()}
+        rec[feature] = {"shape": list(x.shape), "export_s": export_s,
+                        "pt2_bytes": path.stat().st_size, "launches": list(launches),
+                        "rel_eager": r_eager, "rel_oracle": r_oracle, "times_ms": times,
+                        "median_ms": med}
+        if launches != (0, 0):
+            fails.append(f"{feature}: launches {launches}")
+        if not (r_eager <= EXPORT_TOL and r_oracle <= ORACLE_TOL):
+            fails.append(f"{feature}: vs eager {r_eager:.3e}, vs oracle {r_oracle:.3e}")
+        log(f"export {feature} at {tuple(x.shape)}: exported in {export_s:.3f} s, "
+            f"{path.stat().st_size / 1e6:.3f} MB .pt2; launches (K1, K2) {launches}; loaded vs "
+            f"eager plain {r_eager:.3e} (limit {EXPORT_TOL}), vs float64 oracle {r_oracle:.3e} "
+            f"(limit {ORACLE_TOL}); median ms: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in med.items()))
+
+    # exported on the CPU, loaded onto the card
+    k1.mfcc_fused.launches = k2.ct_mel.launches = 0
+    x_small = rng.normal(0.0, 0.1, (2, 16000)).astype(np.float32)
+    path = tmp / "mfcc_cpu.pt2"
+    E.export_pipeline(sp, "mfcc", (2, 16000), path=str(path), device="cpu")
+    got = E.load_pipeline(str(path), device="cuda")(x_small)
+    ref = PF.mfcc(torch.from_numpy(x_small).to(dev), sp.replace(pallas="off"))
+    torch.cuda.synchronize()
+    r_moved = rel_err(got, ref)[0]
+    moved_launches = (k1.mfcc_fused.launches, k2.ct_mel.launches)
+    rec["cpu_to_cuda"] = {"device": str(got.device), "rel": r_moved,
+                          "launches": list(moved_launches)}
+    if not (got.is_cuda and r_moved <= 1e-5 and moved_launches == (0, 0)):
+        fails.append(f"cpu export on cuda: {got.device}, {r_moved:.3e}, {moved_launches}")
+    log(f"export mfcc on the CPU at (2, 16000), loaded onto {got.device}: vs the eager plain path "
+        f"on the card {r_moved:.3e} (limit 1e-5); launches (K1, K2) {moved_launches}")
+    if fails:
+        raise AssertionError("export phase: " + "; ".join(fails))
+    return rec
+
+
+def cli_phase(np, torch, P, k1, k2, tmp: Path) -> dict:
+    """The command line on the card (``mfcc_rust_tpu_torch.cli``), on the
+    corpus phase's WAV files (``tmp/wav``): ``cli.main`` in this process on
+    the first 512 with ``--feature mfcc --out-dir --cmvn-out --quiet``, the
+    launch counts zeroed just before.  K1 must launch once a dispatched
+    batch (the report's ``counters.dispatches``; its ``batches`` counts
+    every metered scope, as the JAX package's does) and K2 never; each
+    ``.npy`` must equal run (a)'s output for that file (``tmp/a``) within
+    1e-6 (max|d|/max|ref|), the npz must hold count, mean, m2 and std, and
+    the report must count 512 utterances.  Then ``python -m
+    mfcc_rust_tpu_torch`` in a subprocess on the first 64 files must exit 0
+    with a last line that parses and counts 64 utterances.  Prints the
+    end-to-end audio-s/s (host clock around ``main``) and the host scopes."""
+    import contextlib
+    import io
+
+    from mfcc_rust_tpu_torch import cli
+    from mfcc_rust_tpu_torch.runtime import read_wav
+
+    paths = sorted(str(p) for p in (tmp / "wav").glob("utt*.wav"))
+    sub = paths[:CLI_CLIPS]
+    audio_s = sum(read_wav(p)[0].shape[0] for p in sub) / RATE
+    out_dir, cmvn = tmp / "cli", tmp / "cli_cmvn.npz"
+    fails = []
+    k1.mfcc_fused.launches = k2.ct_mel.launches = 0
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        rc = cli.main([*sub, "--feature", "mfcc", "--out-dir", str(out_dir),
+                       "--cmvn-out", str(cmvn), "--quiet"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (k1.mfcc_fused.launches, k2.ct_mel.launches)
+    report = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    dispatches = int(report["counters"]["dispatches"])
+    if rc != 0 or launches != (dispatches, 0) or report["utterances"] != CLI_CLIPS:
+        fails.append(f"rc {rc}, launches {launches}, dispatches {dispatches}, "
+                     f"utterances {report['utterances']}")
+    worst = 0.0
+    for p in sub:
+        name = Path(p).stem + ".npy"
+        a, b = np.load(out_dir / name), np.load(tmp / "a" / name)
+        worst = max(worst, float("inf") if a.shape != b.shape else
+                    rel_err(torch.from_numpy(a), torch.from_numpy(b))[0])
+    keys = sorted(np.load(cmvn).files)
+    if worst > 1e-6 or keys != ["count", "m2", "mean", "std"]:
+        fails.append(f"outputs vs run (a) {worst:.3e}, npz keys {keys}")
+    log(f"cli main, --feature mfcc on {CLI_CLIPS} files ({audio_s:.1f} audio-s) in {wall:.3f} s "
+        f"= {audio_s / wall:.1f} audio-s/s end to end; rc {rc}; {dispatches} batches, launches "
+        f"(K1, K2) {launches}; outputs vs corpus run (a) {worst:.3e} (limit 1e-6); npz {keys}")
+    log(f"cli host scopes (s): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                             sorted(report["scopes"].items())))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "mfcc_rust_tpu_torch",
+                          *paths[:CLI_SUBPROCESS_CLIPS], "--out-dir", str(tmp / "cli_m"),
+                          "--quiet"], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    sub_s = time.perf_counter() - t0
+    try:
+        sub_report = json.loads(res.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        sub_report = {}
+    if res.returncode != 0 or sub_report.get("utterances") != CLI_SUBPROCESS_CLIPS:
+        fails.append(f"python -m: rc {res.returncode}, {res.stderr[-2000:]}")
+    log(f"python -m mfcc_rust_tpu_torch on {CLI_SUBPROCESS_CLIPS} files: rc {res.returncode} in "
+        f"{sub_s:.3f} s (process included); utterances {sub_report.get('utterances')}, "
+        f"corpus_frames {sub_report.get('corpus_frames')}")
+    if fails:
+        raise AssertionError("cli phase: " + "; ".join(fails))
+    return {"files": CLI_CLIPS, "audio_s": audio_s, "wall_s": wall,
+            "audio_s_per_s": audio_s / wall, "launches": list(launches), "report": report,
+            "rel_vs_run_a": worst, "subprocess": {"rc": res.returncode, "wall_s": sub_s,
+                                                  "report": sub_report}}
+
+
+def profiling_phase(np, torch, P, k1, k2, tmp: Path, measured: dict) -> dict:
+    """``utils.profiling`` on the card: one ``api.mfcc`` at the speechpy
+    headline inside ``trace`` and ``annotate("mfcc")``, the counts zeroed
+    just before (K1 must launch once); the trace written must name the
+    annotation and K1's kernel (``mfcc_fft_kernel``).  Prints
+    ``chip_spec()`` and ``speed_of_light`` of the two headlines, with the
+    kernels' measured audio-s/s (``measured``) as a share of it."""
+    from mfcc_rust_tpu_torch.utils import profiling as prof
+
+    audio = np.random.default_rng(7).normal(0.0, 0.1, (BATCH, SECONDS * RATE)).astype(np.float32)
+    P.mfcc(audio, RATE)
+    torch.cuda.synchronize()
+    k1.mfcc_fused.launches = k2.ct_mel.launches = 0
+    with prof.trace(str(tmp / "trace")) as log_dir:
+        with prof.annotate("mfcc"):
+            P.mfcc(audio, RATE)
+            torch.cuda.synchronize()
+    launches = (k1.mfcc_fused.launches, k2.ct_mel.launches)
+    files = sorted(Path(log_dir).rglob("*.json"))
+    text = "".join(f.read_text() for f in files)
+    events = [e for f in files for e in json.loads(f.read_text()).get("traceEvents", [])]
+    named = [e for e in events if e.get("name") == "mfcc"]
+    kernels = [e for e in events if "mfcc_fft_kernel" in str(e.get("name", ""))]
+    k1_us = sum(float(e.get("dur", 0.0)) for e in kernels)
+    spec = prof.chip_spec()
+    rec = {"launches": list(launches), "trace_files": [f.name for f in files],
+           "trace_bytes": len(text), "annotation_events": len(named),
+           "k1_kernel_events": len(kernels), "k1_kernel_us": k1_us, "chip_spec": spec,
+           "speed_of_light": {}}
+    log(f"profiling: trace of api.mfcc({BATCH} x {SECONDS * RATE}) in {log_dir}: "
+        f"{len(files)} file(s), {len(text) / 1e6:.3f} MB; events named 'mfcc': {len(named)}; "
+        f"mfcc_fft_kernel events: {len(kernels)}, {k1_us:.1f} us on the device; launches "
+        f"(K1, K2) {launches}")
+    log(f"chip_spec(): {spec}")
+    for label, cfg, feature in (("speechpy", P.speechpy_config(RATE), "mfcc"),
+                                ("librosa", P.librosa_config(L_RATE), "mel_spectrogram_librosa")):
+        sol = prof.speed_of_light(cfg, feature)
+        share = measured[label] / sol["speed_of_light_audio_s_per_s"]
+        rec["speed_of_light"][label] = dict(sol, measured_audio_s_per_s=measured[label],
+                                            share=share)
+        log(f"speed_of_light {label} ({sol['lowering']}, {sol['chip']}): compute "
+            f"{sol['compute_bound_audio_s_per_s']:.1f}, bandwidth "
+            f"{sol['bandwidth_bound_audio_s_per_s']:.1f}, bound "
+            f"{sol['speed_of_light_audio_s_per_s']:.1f} audio-s/s; the kernel's measured "
+            f"{measured[label]:.1f} audio-s/s is {share:.4f} of it")
+    if launches != (1, 0) or not named or not kernels:
+        raise AssertionError(f"profiling phase: launches {launches}, 'mfcc' events "
+                             f"{len(named)}, mfcc_fft_kernel events {len(kernels)}")
     return rec
 
 
@@ -1228,13 +1380,15 @@ def main() -> int:
     from mfcc_rust_tpu_torch.ops.cuda import build
     from mfcc_rust_tpu_torch.ops.cuda import ct_mel as k2
     from mfcc_rust_tpu_torch.ops.cuda import speechpy_mfcc as k1
+    from mfcc_rust_tpu_torch.utils import profiling as prof
     from mfcc_rust_tpu_torch.utils.bucketing import bucket_length
     from tests.golden import speechpy_ref
 
     dev = torch.device("cuda")
     card = smi("name,power.limit")
+    chip = prof.chip_spec()
     record = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
-    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; peaks {chip}")
 
     # ---------------------------------------------------------------- build --
     t0 = time.perf_counter()
@@ -1416,14 +1570,16 @@ def main() -> int:
     log(f"K1 host time of a launch through the binding at (2, 16000): median {host_launch:.2f} us")
     clocks = smi("clocks.sm,power.draw,power.limit,temperature.gpu")
 
-    flops, nbytes = k1_work(k1, cfg, BATCH, t_main)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    bound_ms = 1e3 * max(t_ops, t_bytes)
+    work = prof.work(cfg, "mfcc", BATCH, t_main)
+    assert work["lowering"] == "k1", work["lowering"]
+    flops, nbytes = work["flops"], work["bytes"]
+    bound_s, bound_by = prof.bound_seconds(flops, nbytes, chip)
+    bound_ms = 1e3 * bound_s
     audio_s = BATCH * SECONDS
     log(f"times at ({BATCH}, {t_main}), median of {len(times['kernel'])} (rel spread): "
         + ", ".join(f"{k} {med[k]:.4f} ms ({spread[k]:.3f})" for k in runs))
     log(f"K1 work: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB; bound {bound_ms:.4f} ms "
-        f"({'operations' if t_ops >= t_bytes else 'bytes'}), "
+        f"({bound_by}), "
         f"{flops / med['kernel'] / 1e9:.3f} TFLOP/s achieved")
     log(f"audio-s/s: kernel {audio_s / med['kernel'] * 1e3:.1f}, "
         f"chunk-GEMM path {audio_s / med['chunk_gemm'] * 1e3:.1f}, "
@@ -1431,17 +1587,24 @@ def main() -> int:
         f"api.mfcc from host numpy {audio_s / api_s:.1f} ({api_s * 1e3:.3f} ms)")
     log(f"clocks.sm, power.draw, power.limit, temperature: {clocks}")
 
-    k2_entry, record["librosa"] = librosa_phase(np, torch, P, k1, k2, flush)
+    k2_entry, record["librosa"] = librosa_phase(np, torch, P, k1, k2, flush, chip)
     record["suite"] = suite_phase(np, torch, P, k1, k2, flush)
     record["streaming"] = streaming_phase(np, torch, P, k1, k2)
-    record["corpus"] = corpus_phase(np, torch, P, k1, k2)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp_name:
+        tmp = Path(tmp_name)
+        record["corpus"] = corpus_phase(np, torch, P, k1, k2, tmp)
+        record["cli"] = cli_phase(np, torch, P, k1, k2, tmp)
+        record["export"] = export_phase(np, torch, P, k1, k2, flush, tmp)
+        measured = {"speechpy": audio_s / med["kernel"] * 1e3,
+                    "librosa": L_BATCH * SECONDS / k2_entry["ms"] * 1e3}
+        record["profiling"] = profiling_phase(np, torch, P, k1, k2, tmp, measured)
     kernels = [{
         "name": k1.KERNEL, "route": "cuda",
         "source": "mfcc_rust_tpu_torch/ops/cuda/speechpy_mfcc.cu",
         "replaces": "mfcc_rust_tpu/ops/pallas/speechpy_mfcc.py:155",
         "launches": launches, "max_abs_err": headline_abs,
         "ms": med["kernel"], "plain_ms": med["plain"], "bound_ms": bound_ms,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_by": bound_by,
         "library_ms": med["library"], "path": plan["path"],
         "launches_corpus": record["corpus"]["a"]["launches"][0],
     }, dict(k2_entry, launches_corpus=record["corpus"]["a"]["launches"][1])]

@@ -4,7 +4,8 @@ The builders are the JAX package's ``constants.py``, kept here as a copy so
 that the port imports nothing of that package; ``tests/test_torch_port_imports.py``
 pins them array-equal to the originals.  Everything is computed in float64
 and cast once per (config, device, dtype) by :func:`bundle_tensor` or
-``features._speechpy_tensors``.
+``features._speechpy_tensors``; such caches of tensors take
+:func:`tensor_cache`, which stores nothing while a trace runs.
 """
 
 from __future__ import annotations
@@ -15,6 +16,36 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+
+# ------------------------------------------------------------ tensor caches --
+def _tracing() -> bool:
+    """A trace is running (``torch.export``, ``torch.compile``, ``make_fx``):
+    the tensors made now are fake or symbolic, valid only inside it."""
+    return torch.compiler.is_compiling() or torch._guards.detect_fake_mode() is not None
+
+
+def tensor_cache(maxsize: int):
+    """``functools.lru_cache`` for a function that builds tensors, except
+    while a trace runs: then the function builds its tensors afresh and the
+    cache neither stores nor returns them.  A tensor made inside a trace is
+    a fake one, and an eager call that later found it in the cache would
+    compute on it."""
+
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if _tracing():
+                return fn(*args, **kwargs)
+            return cached(*args, **kwargs)
+
+        call.cache_info = cached.cache_info
+        call.cache_clear = cached.cache_clear
+        return call
+
+    return wrap
 
 
 # ------------------------------------------------------------------ windows --
@@ -355,7 +386,7 @@ def vorbis_chunk_wall(cfg) -> dict:
     return {"wall": wall, "fb2": fb2, "r": rows // hop, "hop": hop}
 
 
-@functools.lru_cache(maxsize=64)
+@tensor_cache(maxsize=64)
 def bundle_tensor(cfg, key: str, device: torch.device, dtype: torch.dtype):
     """One entry of :func:`constant_bundle` as a tensor (a pair for the DFT
     entries)."""

@@ -20,7 +20,6 @@ which the kernels are held against.  ``ssc``, ``extract`` and
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -28,11 +27,12 @@ import torch
 import torch.nn.functional as tF
 
 from .config import FeatureConfig, fp32_matmul
-from .constants import bundle_tensor, chunk_gemm_wall, constant_bundle, vorbis_chunk_wall
+from .constants import (bundle_tensor, chunk_gemm_wall, constant_bundle, tensor_cache,
+                        vorbis_chunk_wall)
 from .ops import framing as _framing
 from .ops import stft as _stft
 from .ops.dct import dct2_ortho
-from .ops.fft import ct_power_project, good_factorization, permute_weights_for_ct
+from .ops.fft import _ct_tensors, ct_power_project, good_factorization, permute_weights_for_ct
 from .ops.mel import apply_filterbank, mel_project_time_major
 from .ops.spectrum import power_spectrum, power_to_db, resolve_fft_impl, zero_handling
 from .ops.ssc import SSC_EPS, ssc_from_power, ssc_ramp
@@ -114,7 +114,7 @@ def _ssc_projection(cfg: FeatureConfig) -> np.ndarray:
     return np.concatenate([ssc_ramp(cfg)[:kmax, None] * fbt, fbt], axis=1)
 
 
-@functools.lru_cache(maxsize=64)
+@tensor_cache(maxsize=64)
 def _speechpy_tensors(cfg: FeatureConfig, device: torch.device, dtype: torch.dtype) -> dict:
     """The chunk-GEMM constants as tensors on one device and dtype:
     ``wall`` (r*hop, W) ``[C_trim | S_trim | w | ±w]``, ``proj`` (W, M+1)
@@ -142,6 +142,26 @@ def _chunk_r(cfg: FeatureConfig) -> Optional[int]:
         return None
     r = -(-fl // hop)
     return r if r <= 8 else None
+
+
+def speechpy_lowering(cfg: FeatureConfig, feature="mfcc", device_type: str = "cuda",
+                      dtype: torch.dtype = torch.float32) -> str:
+    """The lowering a speechpy-family feature takes on a tensor of
+    ``device_type`` and ``dtype``: ``"k1"`` (the fused kernel; ``mfcc`` on a
+    CUDA float32 tensor, ``cfg.pallas != "off"``, a config the kernel
+    takes), ``"chunk-gemm"`` (:func:`_fast_path_ok`) or ``"framed"`` (the
+    gather fallback); a tuple of heads (:func:`extract`) takes
+    ``"chunk-gemm-multi"`` or ``"framed-multi"``.  The functions below
+    dispatch on it."""
+    if isinstance(feature, (tuple, list)):
+        return speechpy_lowering(cfg, "ssc", device_type, dtype) + "-multi"
+    if (feature == "mfcc" and device_type == "cuda" and cfg.pallas != "off"
+            and dtype == torch.float32):
+        from .ops.cuda.speechpy_mfcc import mfcc_kernel_supported
+
+        if mfcc_kernel_supported(cfg):
+            return "k1"
+    return "chunk-gemm" if _fast_path_ok(cfg) else "framed"
 
 
 def _fast_path_ok(cfg: FeatureConfig) -> bool:
@@ -269,11 +289,8 @@ def mfcc(signal: torch.Tensor, cfg: FeatureConfig,
     """MFCC with the orthonormal DCT-II: (..., T) -> (..., F, num_cepstral).
     On a CUDA float32 tensor, with ``cfg.pallas != "off"`` and a config the
     kernel takes, this is one launch of the fused kernel."""
-    if signal.is_cuda and cfg.pallas != "off" and signal.dtype == torch.float32:
-        from .ops.cuda.speechpy_mfcc import mfcc_kernel_supported
-
-        if mfcc_kernel_supported(cfg):
-            return _MFCCKernel.apply(signal, cfg, consts)
+    if speechpy_lowering(cfg, "mfcc", signal.device.type, signal.dtype) == "k1":
+        return _MFCCKernel.apply(signal, cfg, consts)
     feats, energy = mfe(signal, cfg, consts)
     logm = torch.log(feats)
     dct = consts["dct"] if consts is not None else bundle_tensor(cfg, "dct", logm.device,
@@ -319,7 +336,7 @@ def ssc(signal: torch.Tensor, cfg: FeatureConfig,
 
 
 # --------------------------------------------------- reference mel spectrum --
-@functools.lru_cache(maxsize=64)
+@tensor_cache(maxsize=64)
 def _vorbis_tensors(cfg: FeatureConfig, device: torch.device, dtype: torch.dtype) -> dict:
     """:func:`..constants.vorbis_chunk_wall`'s ``wall`` and ``fb2`` as
     tensors on one device and dtype."""
@@ -328,7 +345,16 @@ def _vorbis_tensors(cfg: FeatureConfig, device: torch.device, dtype: torch.dtype
     return {"wall": t(vw["wall"]), "fb2": t(vw["fb2"])}
 
 
-def mel_spectrogram(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+def vorbis_lowering(cfg: FeatureConfig) -> str:
+    """The lowering :func:`mel_spectrogram` takes: ``"vorbis-chunk-gemm"``
+    with the matmul DFT, else ``"vorbis-framed"``."""
+    if cfg.window != "vorbis":
+        cfg = cfg.replace(window="vorbis")
+    return "vorbis-chunk-gemm" if resolve_fft_impl(cfg) == "matmul" else "vorbis-framed"
+
+
+def mel_spectrogram(signal: torch.Tensor, cfg: FeatureConfig,
+                    consts: Optional[dict] = None) -> torch.Tensor:
     """The reference's mel spectrogram: the vorbis-window streaming STFT's
     power on the speechpy filterbank, mel-major (..., num_filters, T'),
     T' = ceil(T / stream_hop), in the reference's n_pad layout.
@@ -337,15 +363,16 @@ def mel_spectrogram(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
     signal left-padded with fft_points - hop zeros (the analysis memory), so
     the STFT is one chunk-GEMM against the vorbis wall (its rows zero-padded
     to whole hops) and the squared product projects through the stacked
-    filterbank with wnorm² folded in.  Otherwise the framed STFT."""
+    filterbank with wnorm² folded in (``consts``: :func:`_vorbis_tensors`'s
+    dict).  Otherwise the framed STFT."""
     if cfg.window != "vorbis":
         cfg = cfg.replace(window="vorbis")
-    if resolve_fft_impl(cfg) != "matmul":
+    if vorbis_lowering(cfg) == "vorbis-framed":
         return mel_project_time_major(_stft.stft_vorbis_power(signal, cfg), cfg)
     hop = cfg.stream_hop
     n_frames = -(-signal.shape[-1] // hop)
     if n_frames > 0:
-        c = _vorbis_tensors(cfg, signal.device, signal.dtype)
+        c = consts if consts is not None else _vorbis_tensors(cfg, signal.device, signal.dtype)
         x = tF.pad(signal, (cfg.fft_points - hop, 0))
         _, y = _chunk_gemm(x, c["wall"], n_frames, hop)
         with fp32_matmul():
@@ -356,7 +383,7 @@ def mel_spectrogram(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
 
 
 # --------------------------------------------------------- librosa pipeline --
-@functools.lru_cache(maxsize=64)
+@tensor_cache(maxsize=64)
 def _librosa_tensors(cfg: FeatureConfig, device: torch.device, dtype: torch.dtype) -> dict:
     """The librosa chunk-GEMM constants on one device and dtype: ``wall``
     ``[C_trim | S_trim]`` of the windowed DFT, its rows zero-padded to
@@ -374,16 +401,55 @@ def _librosa_tensors(cfg: FeatureConfig, device: torch.device, dtype: torch.dtyp
             "fbt": t(bundle["fbank"][:, :kmax].T)}
 
 
-def mel_spectrogram_librosa(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+def librosa_lowering(cfg: FeatureConfig, device_type: str = "cuda",
+                     dtype: torch.dtype = torch.float32) -> str:
+    """The lowering :func:`mel_spectrogram_librosa` takes on a tensor of
+    ``device_type`` and ``dtype``: ``"k2"``, the CT mel kernel
+    (:func:`_librosa_kernel_ok`), else one of the plain lowerings, picked by
+    the reference's rules: ``"librosa-ct"``, the Cooley-Tukey products (fft >
+    1024, hop a multiple of N1); ``"librosa-chunk-gemm"`` (hop divides
+    n_fft); ``"librosa-hoppad"``, the hop-padded chunk-GEMM (hop does not
+    divide n_fft); or ``"librosa-framed"``, the framed STFT."""
+    if _kernel_takes_librosa(device_type, dtype, cfg):
+        return "k2"
+    if _librosa_ct_ok(cfg):
+        return "librosa-ct"
+    if _fast_path_ok(cfg) and cfg.fft_points % cfg.frame_step == 0:
+        return "librosa-chunk-gemm"
+    if _librosa_hoppad_ok(cfg):
+        return "librosa-hoppad"
+    return "librosa-framed"
+
+
+def _librosa_plain_tensors(cfg: FeatureConfig, device: torch.device,
+                           dtype: torch.dtype) -> Optional[dict]:
+    """The constants of the plain lowering :func:`mel_spectrogram_librosa`
+    takes for ``cfg`` off the kernel, the ``consts`` it accepts: the CT
+    path's window, permuted projection and stage matrices, the chunk-GEMM
+    paths' :func:`_librosa_tensors`, or None (the framed STFT)."""
+    low = librosa_lowering(cfg, device.type, dtype)
+    if low == "k2":
+        low = librosa_lowering(cfg.replace(pallas="off"), device.type, dtype)
+    if low == "librosa-ct":
+        n1, n2 = good_factorization(cfg.fft_points)
+        c = dict(_ct_mel_tensors(cfg, (n1, n2), device, dtype))
+        st = _ct_tensors(cfg.fft_points, n1, n2, c["proj"].shape[0] // n2, device, dtype)
+        return dict(c, st1=st["st1"], a=st["a"], b=st["b"])
+    if low in ("librosa-chunk-gemm", "librosa-hoppad"):
+        return dict(_librosa_tensors(cfg, device, dtype))
+    return None
+
+
+def mel_spectrogram_librosa(signal: torch.Tensor, cfg: FeatureConfig,
+                            consts: Optional[dict] = None) -> torch.Tensor:
     """librosa-compatible mel spectrogram: (..., T) -> (..., n_mels, frames).
     Build ``cfg`` with :func:`..config.librosa_config`.
 
     On a CUDA float32 tensor, with ``cfg.pallas != "off"``, ``cfg.fft_impl
     != "fft"`` and a config the kernel takes, this is one launch of the CT
-    mel kernel (``ops/cuda/ct_mel``).  Otherwise one of the plain lowerings,
-    picked by the reference's rules: the Cooley-Tukey products (fft > 1024,
-    hop a multiple of N1), the chunk-GEMM (hop divides n_fft), the
-    hop-padded chunk-GEMM (hop does not divide n_fft) or framed STFT."""
+    mel kernel (``ops/cuda/ct_mel``).  Otherwise the plain lowering of
+    :func:`librosa_lowering`, on ``consts`` (:func:`_librosa_plain_tensors`)
+    when given."""
     n = cfg.fft_points
     hop = cfg.frame_step
     if cfg.frame_size != n:
@@ -395,17 +461,18 @@ def mel_spectrogram_librosa(signal: torch.Tensor, cfg: FeatureConfig) -> torch.T
             f"cfg.frame_size={cfg.frame_size}; build the config with "
             "librosa_config() (use win_length for short analysis windows)"
         )
-    if _librosa_kernel_ok(signal, cfg):
+    low = librosa_lowering(cfg, signal.device.type, signal.dtype)
+    if low == "k2":
         return _MelLibrosaKernel.apply(signal, cfg).transpose(-1, -2)
-    if _librosa_ct_ok(cfg):
-        return _librosa_ct_mel(signal, cfg)
-    use_fast = _fast_path_ok(cfg) and n % hop == 0
-    if use_fast or _librosa_hoppad_ok(cfg):
+    if low == "librosa-ct":
+        return _librosa_ct_mel(signal, cfg, consts)
+    if low != "librosa-framed":
         if cfg.center:
             signal = _framing.pad_signal(signal, n // 2, n // 2, cfg.pad_mode)
         count = 1 + (signal.shape[-1] - n) // hop
         if count > 0:
-            c = _librosa_tensors(cfg, signal.device, signal.dtype)
+            c = consts if consts is not None else _librosa_tensors(cfg, signal.device,
+                                                                   signal.dtype)
             _, y = _chunk_gemm(signal, c["wall"], count, hop)
             with fp32_matmul():
                 if cfg.power == 2.0:
@@ -434,12 +501,17 @@ def _librosa_hoppad_ok(cfg: FeatureConfig) -> bool:
 
 
 def _librosa_kernel_ok(signal: torch.Tensor, cfg: FeatureConfig) -> bool:
-    """Dispatch the CT mel kernel: a CUDA float32 tensor, ``cfg.pallas !=
+    """Dispatch the CT mel kernel on ``signal``: see :func:`_kernel_takes_librosa`."""
+    return _kernel_takes_librosa(signal.device.type, signal.dtype, cfg)
+
+
+def _kernel_takes_librosa(device_type: str, dtype: torch.dtype, cfg: FeatureConfig) -> bool:
+    """The CT mel kernel takes a CUDA float32 tensor, ``cfg.pallas !=
     "off"``, no explicit ``fft_impl="fft"`` request (the kernel is an FFT of
     its own, so "auto", "matmul" and "ct" all take it) and a config the
     kernel supports.  Every hop takes it: the kernel reads frame f at
     f*hop of the signal, whatever the hop."""
-    if not signal.is_cuda or signal.dtype != torch.float32:
+    if device_type != "cuda" or dtype != torch.float32:
         return False
     if cfg.pallas == "off" or cfg.fft_impl == "fft":
         return False
@@ -484,7 +556,7 @@ def _librosa_ct_ok(cfg: FeatureConfig) -> bool:
     return cfg.fft_points % hop == 0 and hop % n1 == 0
 
 
-@functools.lru_cache(maxsize=64)
+@tensor_cache(maxsize=64)
 def _ct_mel_tensors(cfg: FeatureConfig, factors: Tuple[int, int], device: torch.device,
                     dtype: torch.dtype) -> dict:
     """``window`` (n_fft,) and ``proj`` (N2*k1max, M), the filterbank
@@ -495,30 +567,33 @@ def _ct_mel_tensors(cfg: FeatureConfig, factors: Tuple[int, int], device: torch.
     return {"window": t(bundle["window"]), "proj": t(proj)}
 
 
-def ct_frames_mel(padded: torch.Tensor, cfg: FeatureConfig,
-                  factors: Tuple[int, int]) -> torch.Tensor:
+def ct_frames_mel(padded: torch.Tensor, cfg: FeatureConfig, factors: Tuple[int, int],
+                  consts: Optional[dict] = None) -> torch.Tensor:
     """(..., T) already centre-padded -> (..., F, M) frame-major: frames of
     n_fft at every hop (a strided view), the window, then the CT products
-    and the projection of :func:`ops.fft.ct_power_project`."""
+    and the projection of :func:`ops.fft.ct_power_project` (``consts``: the
+    CT dict of :func:`_librosa_plain_tensors`)."""
     n, hop = cfg.fft_points, cfg.frame_step
     n1, n2 = factors
     count = 1 + (padded.shape[-1] - n) // hop
     if count <= 0:
         return padded.new_zeros(padded.shape[:-1] + (0, cfg.num_filters))
-    c = _ct_mel_tensors(cfg, factors, padded.device, padded.dtype)
+    c = consts if consts is not None else _ct_mel_tensors(cfg, factors, padded.device,
+                                                          padded.dtype)
     frames = _framing.frame_signal(padded, n, hop, count) * c["window"]
     frames = frames.reshape(frames.shape[:-1] + (n2, n1))  # sample n = n1 + N1*n2
-    return ct_power_project(frames, n, n1, n2, c["proj"])
+    return ct_power_project(frames, n, n1, n2, c["proj"], stages=consts)
 
 
-def _librosa_ct_mel(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+def _librosa_ct_mel(signal: torch.Tensor, cfg: FeatureConfig,
+                    consts: Optional[dict] = None) -> torch.Tensor:
     """librosa mel spectrogram for large transforms through the CT products,
     the filterbank permuted onto the CT output plane (no spectrum
     transpose)."""
     n = cfg.fft_points
     if cfg.center:
         signal = _framing.pad_signal(signal, n // 2, n // 2, cfg.pad_mode)
-    return ct_frames_mel(signal, cfg, good_factorization(n)).transpose(-1, -2)
+    return ct_frames_mel(signal, cfg, good_factorization(n), consts).transpose(-1, -2)
 
 
 def log_mel_spectrogram(signal: torch.Tensor, cfg: FeatureConfig, ref: float = 1.0,
@@ -527,12 +602,17 @@ def log_mel_spectrogram(signal: torch.Tensor, cfg: FeatureConfig, ref: float = 1
     return power_to_db(mel_spectrogram_librosa(signal, cfg), ref=ref, top_db=top_db)
 
 
-def mfcc_librosa(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+def mfcc_librosa(signal: torch.Tensor, cfg: FeatureConfig,
+                 consts: Optional[dict] = None) -> torch.Tensor:
     """librosa-compatible MFCC: DCT-II (ortho) over the log-mel,
     (..., n_mfcc, frames).  Frame-major inside, so the kernel's output feeds
-    the DCT product without a copy."""
-    s = mel_spectrogram_librosa(signal, cfg).transpose(-1, -2)  # (..., T, M)
-    return dct2_ortho(power_to_db(s), cfg).transpose(-1, -2)
+    the DCT product without a copy.  ``consts``: those of
+    :func:`mel_spectrogram_librosa` plus ``dct`` (M, n_mfcc)."""
+    s = mel_spectrogram_librosa(signal, cfg, consts).transpose(-1, -2)  # (..., T, M)
+    if consts is None or "dct" not in consts:
+        return dct2_ortho(power_to_db(s), cfg).transpose(-1, -2)
+    with fp32_matmul():
+        return torch.matmul(power_to_db(s), consts["dct"]).transpose(-1, -2)
 
 
 # ------------------------------------------------------- multi-feature pass --

@@ -1,15 +1,19 @@
 """Pipeline modules and streaming sessions (port of
 ``mfcc_rust_tpu.models.pipelines``).
 
-Each pipeline is an ``nn.Module`` bound to a config.  The speechpy
-pipelines (MFCC, MFE, log-MFE, SSC) register their chunk-GEMM constants
-(``wall``, ``proj``, ``dct``, the Parseval ``w2`` and the SSC projection
-``ssc``) as buffers, so ``.to(device)`` moves them and ``forward`` runs the
-function of :mod:`..features` on them: on a CUDA float32 input the MFCC
-pipeline is one launch of the fused kernel.  The librosa and vorbis
-pipelines hold no buffers (their constants are cached per device by
-:mod:`..features`); on a CUDA float32 input each librosa pipeline is one
-launch of the CT mel kernel and a little plain work after it.
+Each pipeline is an ``nn.Module`` bound to a config.  A pipeline that holds
+the constants of its plain lowering holds them as non-persistent buffers,
+so ``.to(device)`` moves them, a trace reads them as buffers and
+``forward`` runs the function of :mod:`..features` on them.  The speechpy
+pipelines (MFCC, MFE, log-MFE, SSC) hold their chunk-GEMM constants (``wall``,
+``proj``, ``dct``, the Parseval ``w2`` and the SSC projection ``ssc``); on a
+CUDA float32 input the MFCC pipeline is one launch of the fused kernel.
+The vorbis mel pipeline (its chunk-GEMM ``wall`` and ``fb2``) and the
+librosa pipelines (the constants of their plain lowering; on a CUDA
+float32 input they launch the CT mel kernel, whose constants are its own)
+hold theirs only when built with ``hold_constants=True``, as
+:mod:`..export` builds them; otherwise :mod:`..features` caches them per
+device.
 :class:`FeatureExtractor` holds one pipeline of each speechpy family and
 the vorbis mel spectrogram.
 
@@ -37,29 +41,47 @@ from .incremental import IncrementalFrontend, incremental_supported
 
 class Pipeline(nn.Module):
     """Base: a feature function of :mod:`..features` bound to a config.
-    ``device=None`` means CUDA, and raises when CUDA is absent."""
+    ``device=None`` means CUDA, and raises when CUDA is absent.
+    ``hold_constants`` (None: the class's default) registers the constants
+    of the plain lowering as buffers; a config with none to hold (the gather
+    fallback, the framed STFT) takes its constants per call."""
 
     _fn_name: str = ""
-    _speechpy: bool = True  # takes the speechpy chunk-GEMM constants
+    _holds_constants: bool = True
 
-    def __init__(self, cfg: FeatureConfig, device=None):
+    def __init__(self, cfg: FeatureConfig, device=None, hold_constants: Optional[bool] = None):
         super().__init__()
         self.cfg = cfg
-        dev = resolve_device(device)
-        self._has_consts = self._speechpy and F._fast_path_ok(cfg)
-        if self._has_consts:
-            # configs off the chunk-GEMM path use the gather fallback, which
-            # takes its DFT constants per call
-            consts = F._speechpy_tensors(cfg, dev, getattr(torch, cfg.dtype))
-            for name, t in consts.items():
-                self.register_buffer(name, t.clone(), persistent=False)
+        self._device = dev = resolve_device(device)
+        hold = self._holds_constants if hold_constants is None else hold_constants
+        consts = self._constants(cfg, dev, getattr(torch, cfg.dtype)) if hold else None
+        self._has_consts = consts is not None
+        for name, t in (consts or {}).items():
+            self.register_buffer(name, t.clone(), persistent=False)
+
+    @staticmethod
+    def _constants(cfg: FeatureConfig, device: torch.device, dtype: torch.dtype):
+        """The speechpy chunk-GEMM constants, or None off that path."""
+        return F._speechpy_tensors(cfg, device, dtype) if F._fast_path_ok(cfg) else None
 
     def forward(self, signal: torch.Tensor):
-        fn = getattr(F, self._fn_name)
-        if not self._speechpy:
-            return fn(signal, self.cfg)
         consts = dict(self.named_buffers()) if self._has_consts else None
-        return fn(signal, self.cfg, consts)
+        return getattr(F, self._fn_name)(signal, self.cfg, consts)
+
+    def lower(self, signal_shape, dtype: Optional[torch.dtype] = None):
+        """The ``torch.export.ExportedProgram`` of this pipeline for
+        ``signal_shape`` inputs of ``dtype`` (default: the config's), on the
+        device of its buffers, through :func:`..export.export_pipeline`.
+        Unlike the JAX package's ``lower``, which lowers the jitted function
+        as it would run, this one always takes the plain lowering
+        (``pallas="off"``): the kernels are calls through ``ctypes`` that no
+        trace can see."""
+        from ..export import export_pipeline
+
+        buf = next(self.buffers(), None)
+        cfg = self.cfg if dtype is None else self.cfg.replace(dtype=str(dtype).split(".")[-1])
+        return export_pipeline(cfg, self._fn_name, signal_shape,
+                               device=buf.device if buf is not None else self._device)
 
 
 class MFCCPipeline(Pipeline):
@@ -90,24 +112,39 @@ class MelSpectrogramPipeline(Pipeline):
     """The reference's vorbis-STFT mel spectrogram, (..., M, T')."""
 
     _fn_name = "mel_spectrogram"
-    _speechpy = False
+    _holds_constants = False
 
-    def __init__(self, cfg: FeatureConfig, device=None):
-        super().__init__(cfg.replace(window="vorbis"), device)
+    def __init__(self, cfg: FeatureConfig, device=None, hold_constants: Optional[bool] = None):
+        super().__init__(cfg.replace(window="vorbis"), device, hold_constants)
+
+    @staticmethod
+    def _constants(cfg, device, dtype):
+        if F.vorbis_lowering(cfg) != "vorbis-chunk-gemm":
+            return None
+        return F._vorbis_tensors(cfg, device, dtype)
 
 
 class LibrosaMelPipeline(Pipeline):
     """(..., T) -> (..., n_mels, frames)."""
 
     _fn_name = "mel_spectrogram_librosa"
-    _speechpy = False
+    _holds_constants = False
+
+    @staticmethod
+    def _constants(cfg, device, dtype):
+        return F._librosa_plain_tensors(cfg, device, dtype)
 
 
 class LibrosaMFCCPipeline(Pipeline):
     """(..., T) -> (..., n_mfcc, frames)."""
 
     _fn_name = "mfcc_librosa"
-    _speechpy = False
+    _holds_constants = False
+
+    @staticmethod
+    def _constants(cfg, device, dtype):
+        c = F._librosa_plain_tensors(cfg, device, dtype) or {}
+        return dict(c, dct=bundle_tensor(cfg, "dct", device, dtype))
 
 
 class FeatureExtractor(nn.Module):

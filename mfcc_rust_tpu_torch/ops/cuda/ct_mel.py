@@ -27,7 +27,7 @@ import torch
 
 from ... import features as _F
 from ...config import FeatureConfig
-from ...constants import constant_bundle
+from ...constants import constant_bundle, tensor_cache
 from ..fft import good_factorization
 from ..framing import pad_signal
 
@@ -160,7 +160,7 @@ def _kernel_constants(cfg: FeatureConfig):
             wpack, ranges, int(ranges[:, 1].max(initial=0)))
 
 
-@functools.lru_cache(maxsize=16)
+@tensor_cache(maxsize=16)
 def _kernel_tensors(cfg: FeatureConfig, device: torch.device) -> dict:
     win, tw, wpack, ranges, _ = _kernel_constants(cfg)
     t = lambda a: torch.from_numpy(a).to(device)

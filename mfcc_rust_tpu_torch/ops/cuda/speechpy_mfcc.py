@@ -28,7 +28,7 @@ import torch.nn.functional as tF
 
 from ... import features as _F
 from ...config import FeatureConfig, fp32_matmul
-from ...constants import constant_bundle
+from ...constants import constant_bundle, tensor_cache
 from ..spectrum import resolve_fft_impl, zero_handling
 from .ct_mel import fft_plan, pack_filterbank, twiddle_table
 
@@ -111,7 +111,7 @@ def _kernel_constants(cfg: FeatureConfig):
     return twiddle_table(cfg.fft_points), wpack, ranges, dct, kmax
 
 
-@functools.lru_cache(maxsize=16)
+@tensor_cache(maxsize=16)
 def _kernel_tensors(cfg: FeatureConfig, device: torch.device) -> dict:
     """The constants on one device, with the ints a launch passes: kmax and
     the path-2 stage plan (m_odd, n4, has2)."""

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as tF
 
 from ..config import fp32_matmul
+from ..constants import tensor_cache
 
 
 def good_factorization(n: int) -> Optional[Tuple[int, int]]:
@@ -59,7 +60,7 @@ def _ct_constants(n: int, n1: int, n2: int):
     return c2, s2, c1, s1, twr, twi
 
 
-@functools.lru_cache(maxsize=32)
+@tensor_cache(maxsize=32)
 def _ct_tensors(n: int, n1: int, n2: int, k1max: int, device: torch.device,
                 dtype: torch.dtype) -> dict:
     """The stage constants as tensors on one device and dtype: ``st1``
@@ -202,11 +203,14 @@ def ct_power_project(
     n2: int,
     projection_t: torch.Tensor,
     scale: float = 1.0,
+    stages: Optional[dict] = None,
 ) -> torch.Tensor:
     """(..., N2, N1) windowed frames -> (..., M): CT rFFT, |X|^2 * scale,
     then the product with ``projection_t`` ((N2*k1max, M), built with
     :func:`permute_weights_for_ct`; k1max, inferred from its height, is
-    N1//2 when the Nyquist plane was trimmed, N1//2+1 otherwise)."""
+    N1//2 when the Nyquist plane was trimmed, N1//2+1 otherwise).
+    ``stages``: the ``st1``, ``a`` and ``b`` of :func:`_ct_tensors`, else
+    taken from its cache."""
     k1max, rem = divmod(projection_t.shape[0], n2)
     allowed = {n1 // 2 + 1} | ({n1 // 2} if n1 % 2 == 0 else set())
     if rem or k1max not in allowed:
@@ -215,7 +219,7 @@ def ct_power_project(
             f"(N2={n2}, k1max in {sorted(allowed)}) CT plane"
         )
     x = frames_n2n1
-    c = _ct_tensors(n_fft, n1, n2, k1max, x.device, x.dtype)
+    c = stages if stages is not None else _ct_tensors(n_fft, n1, n2, k1max, x.device, x.dtype)
     # stage 1: inner DFT over n2, one left product -> (..., 2*N2, N1)
     y = torch.matmul(c["st1"], x)
     ir, ii = y[..., :n2, :], y[..., n2:, :]

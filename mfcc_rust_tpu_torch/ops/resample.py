@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as tF
 
 from ..config import fp32_matmul
+from ..constants import tensor_cache
 
 
 def kaiser_lowpass(up: int, down: int, beta: float = 5.0,
@@ -61,7 +62,7 @@ def _polyphase_wall(up: int, down: int, beta: float,
     return wall, imin, r
 
 
-@functools.lru_cache(maxsize=64)
+@tensor_cache(maxsize=64)
 def _wall_tensor(up: int, down: int, beta: float, half_factor: int,
                  device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     wall, _, _ = _polyphase_wall(up, down, beta, half_factor)

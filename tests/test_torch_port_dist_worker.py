@@ -16,12 +16,19 @@ Tasks:
 * ``runner <n_data> <n_seq> <paths.json>`` — ``CorpusRunner`` on the mesh,
   rank 0 writing the outputs;
 * ``host <paths.json>`` — one runner per process (``process_count`` =
-  world, a one-rank mesh each), each writing its checkpoint.
+  world, a one-rank mesh each), each writing its checkpoint;
+* ``cli <local_world> <paths.json>`` — the port's ``cli.main`` as one
+  process of a ``torchrun``-style world (``WORLD_SIZE``, ``LOCAL_WORLD_SIZE``
+  and ``LOCAL_RANK`` set): hosts of ``local_world`` ranks, each host's
+  ``--cmvn-out`` its own file; the return code and what the process printed
+  go to ``cli.rank<r>.json``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
+import io
 import json
 import os
 import sys
@@ -259,6 +266,23 @@ def main(argv) -> None:
                      out_dir=os.path.join(work, "out"),
                      checkpoint_path=os.path.join(work, f"host{rank}.npz"),
                      process_index=rank, process_count=world).run()
+        return
+    elif task == "cli":
+        # the CLI joins the group already made here, makes the hosts'
+        # groups and destroys the group when it is done
+        from mfcc_rust_tpu_torch import cli
+
+        local = int(argv[4])
+        paths = json.load(open(argv[5]))
+        os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_WORLD_SIZE=str(local),
+                          LOCAL_RANK=str(rank % local))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([*paths, "--out-dir", os.path.join(work, "out"), "--batch-size", "4",
+                           "--cmvn-out", os.path.join(work, f"cmvn.host{rank // local}.npz"),
+                           "--device", "cpu", "--quiet"])
+        with open(os.path.join(work, f"cli.rank{rank}.json"), "w") as f:
+            json.dump({"rc": rc, "stdout": out.getvalue()}, f)
         return
     else:
         raise KeyError(task)

@@ -136,6 +136,55 @@ def test_corpus_path_pulls_in_no_jax_and_needs_cuda_by_default():
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
+def test_export_cli_and_utils_pull_in_no_jax_and_need_cuda_by_default(tmp_path):
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import torch
+        import mfcc_rust_tpu_torch.export as E
+        import mfcc_rust_tpu_torch.cli
+        import mfcc_rust_tpu_torch.utils.padding, mfcc_rust_tpu_torch.utils.profiling
+        import mfcc_rust_tpu_torch as P
+        bad = [k for k in sys.modules
+               if k.split('.')[0] in ('jax', 'jaxlib', 'mfcc_rust_tpu')]
+        assert not bad, bad
+        assert not torch.cuda.is_available()
+        cfg = P.speechpy_config(16000)
+        for make in (lambda: E.export_pipeline(cfg), lambda: E.load_pipeline("x.pt2"),
+                     lambda: E.graph_text(cfg), lambda: E.flops_estimate(cfg)):
+            try:
+                make()
+            except RuntimeError as e:
+                assert "CUDA" in str(e)
+            else:
+                raise AssertionError("export ran without CUDA")
+        assert E.export_pipeline(cfg, signal_shape=(1, 4000), device="cpu") is not None
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120,
+                         env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+    # python -m with jax, jaxlib and the JAX package shadowed by packages
+    # that refuse to import: --help works, and a run without --device cpu
+    # refuses for want of CUDA
+    for name in ("jax", "jaxlib", "mfcc_rust_tpu"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(f"raise ImportError('{name} is blocked')\n")
+    env = {"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": "",
+           "PYTHONPATH": f"{tmp_path}:{ROOT}"}
+    res = subprocess.run([sys.executable, "-m", "mfcc_rust_tpu_torch", "--help"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120, env=env)
+    assert res.returncode == 0 and "--device" in res.stdout, res.stderr
+    wav = tmp_path / "a.wav"
+    wav.write_bytes(b"")
+    res = subprocess.run([sys.executable, "-m", "mfcc_rust_tpu_torch", str(wav), "--out-dir",
+                          str(tmp_path / "o")], cwd=tmp_path, capture_output=True, text=True,
+                         timeout=120, env=env)
+    assert res.returncode != 0 and "CUDA" in res.stderr, res.stderr
+
+
 def test_port_sources_name_no_jax():
     files = list((ROOT / "mfcc_rust_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for f in files:
