@@ -45,7 +45,14 @@ launch count set to 0, failing unless the path's kernel launched:
   ``annotate`` (``profiling_phase``), whose trace must name the annotation
   and K1's kernel, and the card's ``chip_spec`` and ``speed_of_light``.
   K1's and K2's ``bound_ms`` in the kernels line come from the work model
-  of ``utils.profiling`` (``work``, ``bound_seconds``).
+  of ``utils.profiling`` (``work``, ``bound_seconds``);
+* bench: the port's benchmark, ``bench_torch.py`` (``bench_phase``): its
+  headline, suite, corpus and scaling lines in this process, then the
+  script on its own, whose first line must be the headline.  Every line
+  must pass its gate (``bench_torch`` raises otherwise) and the gates must
+  catch the suite's plain products run in TF32 (``tf32_control``); the
+  kernels' launches over the lines go to the kernels line as
+  ``launches_bench``.
 
 Then it holds each kernel to its plain PyTorch version on the card
 (max|Δ|/max|ref| <= 1e-4: K1 runs an FFT where its plain version multiplies
@@ -73,6 +80,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1361,6 +1369,99 @@ def profiling_phase(np, torch, P, k1, k2, tmp: Path, measured: dict) -> dict:
     return rec
 
 
+# suite lines whose function runs float32 products on cuBLAS, besides a kernel
+TF32_LINES = ("librosa_off", "vorbis", "multi", "librosa_mfcc")
+
+
+def tf32_control(np, torch, bench, seeds: int = 8) -> dict:
+    """What each line of :data:`TF32_LINES` reads against its float64 oracle
+    (``bench_torch.gate_err`` on two rows of the line's length, N(0, 0.1)
+    from each of ``seeds`` seeds) with its products in IEEE FP32, as the
+    port runs them, and with every float32 product on cuBLAS in TF32, also
+    inside ``config.fp32_matmul``, which asks for IEEE.  The line's gate
+    must pass the first on every seed and catch the second on every seed."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def tf32_products():
+        m = torch.backends.cuda.matmul
+        cls, prev = type(m), m.fp32_precision
+        setattr_ = cls.__setattr__
+        cls.__setattr__ = lambda self, k, v: setattr_(
+            self, k, "tf32" if k == "fp32_precision" else v)
+        m.fp32_precision = "tf32"
+        try:
+            yield
+        finally:
+            cls.__setattr__ = setattr_
+            m.fp32_precision = prev
+
+    rec = {}
+    for key in TF32_LINES:
+        cfg, feature, shape, _ = bench.LINES[key]
+        fn = bench._call(feature, cfg)
+        ieee, tf32 = [], []
+        for seed in range(seeds):
+            x = np.random.default_rng(seed).normal(0, 0.1, (2, shape[-1])).astype(np.float32)
+            xt = torch.from_numpy(x).cuda()
+            ieee.append(bench.gate_err(feature, cfg, x, fn(xt)))
+            with tf32_products():
+                tf32.append(bench.gate_err(feature, cfg, x, fn(xt)))
+        limit = bench.LIMIT.get(key, bench.GATE)
+        rec[key] = {"ieee": ieee, "tf32": tf32, "limit": limit}
+        log(f"bench gate control {key} over {seeds} seeds: IEEE {min(ieee):.3e}-"
+            f"{max(ieee):.3e}, TF32 {min(tf32):.3e}-{max(tf32):.3e}, limit {limit:g}")
+        assert max(ieee) <= limit < min(tf32), (key, rec[key])
+    return rec
+
+
+def bench_phase(np, torch, k1, k2) -> dict:
+    """The port's benchmark, ``bench_torch.py``: its ``main``, ``suite``,
+    ``corpus`` and ``scaling`` in this process (timers at a 100 ms
+    differential), then ``python3 bench_torch.py`` as a subprocess, whose
+    first line must be the headline and whose exit code must be 0.
+    ``bench_torch`` raises where a line misses its gate or a kernel did not
+    launch once a call; here every line must be JSON with a finite value
+    (> 0 for a rate, >= 0 for an A/B error; a ratio may take either sign:
+    the host-overhead fraction is negative where the runner's scopes
+    overlap), and every line of ``main``, ``suite``, ``corpus`` and the
+    one-card ``scaling`` must have printed.  Then :func:`tf32_control`."""
+    import bench_torch as bench
+
+    t0 = time.perf_counter()
+    lines = (bench.main(0, target_ms=100.0) + bench.suite(0, target_ms=100.0)
+             + bench.corpus(seed=0) + bench.scaling(0))
+    in_process_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(ROOT / "bench_torch.py")], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    script_s = time.perf_counter() - t0
+    script = [json.loads(s) for s in res.stdout.splitlines() if s.startswith("{")]
+    fails = []
+    if res.returncode != 0 or not script or script[0]["metric"] != bench.M["headline"]:
+        fails.append(f"bench_torch.py: rc {res.returncode}, first line "
+                     f"{script[0]['metric'] if script else None}; {res.stderr[-2000:]}")
+    for rec in lines + script:
+        v = rec["value"]
+        if not (math.isfinite(v) and {"rel": v >= 0, "ratio": True}.get(rec["unit"], v > 0)):
+            fails.append(f"{rec['metric']}: value {v}")
+    names = {**bench.M, **bench.NEW}.values()
+    want = {n for n in names if "{}" not in n and not n.startswith("HARNESS")}
+    want |= {bench.NEW["wire"].format(w) for w in ("f32 wire", "f16 wire")}
+    missing = want - {rec["metric"] for rec in lines}
+    if missing:
+        fails.append(f"lines not printed: {sorted(missing)}")
+    launches = {k: sum(rec.get("launches", {}).get(k, 0) for rec in lines)
+                for k in (k1.KERNEL, k2.KERNEL)}
+    log(f"bench: {len(lines)} lines in process in {in_process_s:.1f} s, launches {launches}; "
+        f"bench_torch.py {len(script)} lines, rc {res.returncode}, in {script_s:.1f} s")
+    if fails:
+        raise AssertionError("bench phase: " + "; ".join(fails))
+    return {"lines": lines, "script": script, "launches": launches,
+            "in_process_s": in_process_s, "script_s": script_s,
+            "tf32_control": tf32_control(np, torch, bench)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, help="directory for chip_smoke.json")
@@ -1598,6 +1699,7 @@ def main() -> int:
         measured = {"speechpy": audio_s / med["kernel"] * 1e3,
                     "librosa": L_BATCH * SECONDS / k2_entry["ms"] * 1e3}
         record["profiling"] = profiling_phase(np, torch, P, k1, k2, tmp, measured)
+    record["bench"] = bench_phase(np, torch, k1, k2)
     kernels = [{
         "name": k1.KERNEL, "route": "cuda",
         "source": "mfcc_rust_tpu_torch/ops/cuda/speechpy_mfcc.cu",
@@ -1607,7 +1709,9 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": med["library"], "path": plan["path"],
         "launches_corpus": record["corpus"]["a"]["launches"][0],
-    }, dict(k2_entry, launches_corpus=record["corpus"]["a"]["launches"][1])]
+        "launches_bench": record["bench"]["launches"][k1.KERNEL],
+    }, dict(k2_entry, launches_corpus=record["corpus"]["a"]["launches"][1],
+            launches_bench=record["bench"]["launches"][k2.KERNEL])]
     record.update({
         "main_path": {"shape": [BATCH, t_true], "bucket": t_main, "launches": launches,
                       "first_call_s": first_s, "api_ms": api_s * 1e3, "api_ms_all": [h * 1e3 for h in host]},

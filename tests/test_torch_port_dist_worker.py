@@ -21,7 +21,9 @@ Tasks:
   process of a ``torchrun``-style world (``WORLD_SIZE``, ``LOCAL_WORLD_SIZE``
   and ``LOCAL_RANK`` set): hosts of ``local_world`` ranks, each host's
   ``--cmvn-out`` its own file; the return code and what the process printed
-  go to ``cli.rank<r>.json``.
+  go to ``cli.rank<r>.json``;
+* ``bench_scaling`` — ``bench_torch.scaling()`` in the world: what each
+  rank printed and the lines it returned go to ``bench.rank<r>.json``.
 """
 
 from __future__ import annotations
@@ -284,6 +286,15 @@ def main(argv) -> None:
         with open(os.path.join(work, f"cli.rank{rank}.json"), "w") as f:
             json.dump({"rc": rc, "stdout": out.getvalue()}, f)
         return
+    elif task == "bench_scaling":
+        # bench_torch.scaling() on this CPU world: harness lines only
+        import bench_torch
+
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            lines = bench_torch.scaling()
+        with open(os.path.join(work, f"bench.rank{rank}.json"), "w") as f:
+            json.dump({"stdout": out.getvalue(), "lines": lines}, f)
     else:
         raise KeyError(task)
     dist.barrier()

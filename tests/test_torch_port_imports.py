@@ -186,13 +186,30 @@ def test_export_cli_and_utils_pull_in_no_jax_and_need_cuda_by_default(tmp_path):
 
 
 def test_port_sources_name_no_jax():
-    files = list((ROOT / "mfcc_rust_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = list((ROOT / "mfcc_rust_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                  ROOT / "bench_torch.py"]
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()
             if s.startswith(("import ", "from ")):
                 mod = s.split()[1].split(".")[0]
                 assert mod not in ("jax", "jaxlib", "mfcc_rust_tpu"), (f, s)
+
+
+def test_bench_torch_imports_no_jax():
+    """The port's benchmark imports neither JAX nor the JAX package, even
+    where both would import."""
+    code = textwrap.dedent("""
+        import sys
+        import bench_torch
+        bad = [k for k in sys.modules
+               if k.split('.')[0] in ('jax', 'jaxlib', 'mfcc_rust_tpu')]
+        assert not bad, bad
+        assert bench_torch.LINES["headline"][1] == "mfcc"
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
 
 
 PRESETS = [
