@@ -46,6 +46,16 @@ launch count set to 0, failing unless the path's kernel launched:
   and K1's kernel, and the card's ``chip_spec`` and ``speed_of_light``.
   K1's and K2's ``bound_ms`` in the kernels line come from the work model
   of ``utils.profiling`` (``work``, ``bound_seconds``);
+* entry: ``entry.entry()``'s forward step on its zero batch and on a seeded
+  (8, 16000) batch, K1 once a call, each held to K1's plain version and
+  the float64 oracle; ``entry.dryrun_multichip(1)`` in this process, K1
+  once a dispatched single-feature ``"mfcc"`` step and runner batch; then
+  each ``examples_torch/*.py`` run in this process with ``--device cuda``
+  and with ``--device cpu``, their lines compared, each with its own K1
+  and K2 launch counts; every launch of the dry run and of the examples
+  on the card is held to its kernel's plain version (``entry_phase``).
+  Its counts go to the kernels line as ``launches_entry`` and
+  ``launches_examples``;
 * bench: the port's benchmark, ``bench_torch.py`` (``bench_phase``): its
   headline, suite, corpus and scaling lines in this process, then the
   script on its own, whose first line must be the headline.  Every line
@@ -79,6 +89,7 @@ record (every timing sample) also goes to ``DIR/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -1415,6 +1426,230 @@ def tf32_control(np, torch, bench, seeds: int = 8) -> dict:
     return rec
 
 
+EXAMPLES = ("basic_features", "corpus_extraction", "export_inference", "streaming",
+            "torch_pipeline")
+# (K1, K2) launches of one run of each example on the card: basic_features'
+# mfcc, its librosa mel and two librosa MFCCs; the corpus example's five
+# "mfcc" batches (its resume and its four-head run launch none); the
+# export example's library call that its artifact is held to (the export,
+# its load and its graph run the plain lowering); no kernel in the
+# streaming session; torch_pipeline's
+# functional mfcc, eight MFCC dataset items and one MelSpectrogram batch
+EXAMPLE_LAUNCHES = {"basic_features": (1, 3), "corpus_extraction": (5, 0),
+                    "export_inference": (1, 0), "streaming": (0, 0), "torch_pipeline": (1, 9)}
+# lines whose numbers differ between devices or packages: held to 1e-4 of
+# max(1, max|ref|); lines that differ from run to run: their label alone
+EXAMPLE_NUMERIC = ("cmvn mean ~0", "max difference", "corpus mean[:4]")
+EXAMPLE_RUN_TO_RUN = ("throughput", "features in", "exported")
+# the dry run's single-feature "mfcc" steps that reach K1 on the card
+# (padded, packed int16, packed outputs at 20/10, 25/10), each one launch
+DRYRUN_K1_STEPS = ("padded", "packed", "packed_outputs", "25/10")
+
+
+def run_example(name: str, device: str) -> tuple:
+    """(seconds, printed lines) of ``examples_torch/<name>.py --device
+    <device>`` run in this process."""
+    import io
+    import runpy
+
+    path = ROOT / "examples_torch" / f"{name}.py"
+    argv, sys.argv = sys.argv, [str(path), "--device", device]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(str(path), run_name="__main__")
+    finally:
+        sys.argv = argv
+    return time.perf_counter() - t0, out.getvalue().splitlines()
+
+
+def example_lines_differ(lines: list, ref_lines: list) -> list:
+    """The (line, reference line) pairs of an example's run that do not
+    match a reference run: the same example on another device, or the JAX
+    package's example.  Lines must be equal text, except numeric lines
+    (:data:`EXAMPLE_NUMERIC`, to 1e-4 of max(1, max|ref|)), run-to-run
+    lines (their label), the corpus runner's batch lines (equal without
+    their throughput) and the export's graph line (a product op and no
+    FFT: the port's names ``matmul`` in its graph, the JAX example
+    ``dot_general`` in its StableHLO)."""
+    import ast
+    import re
+
+    def numbers(text):
+        return [float(v) for v in re.findall(r"-?\d+\.?\d*(?:[eE][-+]?\d+)?", text)]
+
+    bad = [] if len(lines) == len(ref_lines) else [("line count", len(lines), len(ref_lines))]
+    for a, b in zip(lines, ref_lines):
+        label, _, rest = b.partition(": ")
+        alabel, _, arest = a.partition(": ")
+        if label in ("graph ops", "stablehlo ops"):
+            ok = alabel == "graph ops" and \
+                arest.split("|")[1:] == rest.split("|")[1:] == [" fft-free: True"]
+        elif alabel != label:
+            ok = False
+        elif label in EXAMPLE_RUN_TO_RUN:
+            ok = True
+        elif label == "  batch":
+            x, y = ast.literal_eval(arest.strip()), ast.literal_eval(rest.strip())
+            x.pop("throughput", None), y.pop("throughput", None)
+            ok = x == y
+        elif label in EXAMPLE_NUMERIC:
+            x, y = numbers(arest), numbers(rest)
+            ok = len(x) == len(y) > 0 and max(abs(p - q) for p, q in zip(x, y)) \
+                <= 1e-4 * max(1.0, max(abs(q) for q in y))
+        else:
+            ok = a == b
+        if not ok:
+            bad.append((a, b))
+    return bad
+
+
+@contextlib.contextmanager
+def held_to_plain(k1, k2):
+    """Inside, every launch of K1 (``mfcc_fused``) or K2 (``ct_mel``) is
+    followed by the kernel's plain PyTorch version on the same arguments;
+    yields {"k1": [...], "k2": [...]}, max|Δ|/max|ref| of each launch.
+    The wrappers count their launches on their module's name, which is the
+    checker inside, so the counts go on as before and the plain calls add
+    none."""
+    readings = {"k1": [], "k2": []}
+    saved = []
+
+    def checked(mod, name, plain, key):
+        kernel = getattr(mod, name)
+
+        def call(*args, **kw):
+            before = call.launches
+            out = kernel(*args, **kw)
+            if call.launches != before:
+                readings[key].append(rel_err(out, plain(*args, **kw))[0])
+            return out
+
+        call.launches = kernel.launches
+        saved.append((mod, name, kernel, call))
+        setattr(mod, name, call)
+
+    checked(k1, "mfcc_fused", k1.mfcc_fused_plain, "k1")
+    checked(k2, "ct_mel", k2.ct_mel_plain, "k2")
+    try:
+        yield readings
+    finally:
+        for mod, name, kernel, call in saved:
+            kernel.launches = call.launches
+            setattr(mod, name, kernel)
+
+
+def worst_reading(readings: dict) -> dict:
+    """{kernel: [launches checked, worst max|Δ|/max|ref|]} of
+    :func:`held_to_plain`'s readings."""
+    return {k: [len(v), max(v, default=0.0)] for k, v in readings.items()}
+
+
+def entry_phase(np, torch, PF, k1, k2) -> dict:
+    """The port's entry module and examples on the card.
+
+    ``entry.entry()``: its ``fn`` on its own zero batch and on a seeded
+    N(0, 0.1) batch of that shape, the counts zeroed just before each call:
+    K1 must launch exactly once and K2 never, the output must be within
+    1e-4 of K1's plain version and within 5e-3 of the float64 speechpy
+    oracle, row by row.  ``entry.dryrun_multichip(1)`` in this process (the
+    one-rank world): K1 must launch once for each step of
+    :data:`DRYRUN_K1_STEPS` plus once a dispatched runner batch, K2 never.
+    Then each ``examples_torch/*.py`` in this process with ``--device cuda``
+    (the counts zeroed just before) and ``--device cpu``: each must return,
+    print the CPU run's lines (:func:`example_lines_differ`) and launch
+    :data:`EXAMPLE_LAUNCHES`.  The dry run and each card run of an example
+    hold every kernel launch to its plain version (:func:`held_to_plain`,
+    1e-4).  Raises after the phase has printed every number."""
+    from mfcc_rust_tpu_torch import entry as E
+    from mfcc_rust_tpu_torch.config import FeatureConfig
+    from tests.golden import speechpy_ref
+
+    fails = []
+    t_phase = time.perf_counter()
+    fn, (x0,) = E.entry()
+    cfg = FeatureConfig(sample_rate=16000)
+    seeded = np.random.default_rng(10).normal(0.0, 0.1, tuple(x0.shape))
+    calls = {}
+    for name, x in (("zeros", x0), ("seeded", torch.from_numpy(seeded.astype(np.float32))
+                                    .to(x0.device))):
+        k1.mfcc_fused.launches = k2.ct_mel.launches = 0
+        t0 = time.perf_counter()
+        out = fn(x)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        launches = (k1.mfcc_fused.launches, k2.ct_mel.launches)
+        plain_rel, plain_abs = rel_err(out, k1.mfcc_fused_plain(x, cfg))
+        xs = x.double().cpu().numpy()
+        gold = torch.from_numpy(np.stack([speechpy_ref.mfcc(row, 16000) for row in xs]))
+        oracle_rel, _ = rel_err(out, gold)
+        calls[name] = {"launches": list(launches), "rel_plain": plain_rel, "abs_plain": plain_abs,
+                       "rel_oracle": oracle_rel, "host_s": host_s, "shape": list(out.shape)}
+        log(f"entry fn on {name} {tuple(x.shape)} -> {tuple(out.shape)} in {host_s * 1e3:.3f} ms "
+            f"(host clock, synchronised); launches (K1, K2) {launches}; vs K1 plain rel "
+            f"{plain_rel:.3e} (limit {REL_TOL}); vs float64 oracle rel {oracle_rel:.3e} "
+            f"(limit {ORACLE_TOL})")
+        if (launches != (1, 0) or plain_rel > REL_TOL or oracle_rel > ORACLE_TOL
+                or tuple(out.shape) != (8, 98, 13) or not bool(torch.isfinite(out).all())):
+            fails.append(f"entry fn on {name}: {calls[name]}")
+
+    steps = {"padded": cfg, "packed": cfg, "packed_outputs": cfg,
+             "25/10": cfg.replace(frame_length=0.025)}
+    lowering = {k: PF.speechpy_lowering(c, "mfcc", "cuda", torch.float32)
+                for k, c in steps.items()}
+    k1.mfcc_fused.launches = k2.ct_mel.launches = 0
+    t0 = time.perf_counter()
+    with held_to_plain(k1, k2) as readings:
+        report = E.dryrun_multichip(1)
+        torch.cuda.synchronize()
+    dry_s = time.perf_counter() - t0
+    dry = (k1.mfcc_fused.launches, k2.ct_mel.launches)
+    dry_plain = worst_reading(readings)
+    want = len(DRYRUN_K1_STEPS) + report["runner_dispatches"]
+    log(f"dryrun_multichip(1) in {dry_s:.3f} s (each launch held to its plain version): "
+        f"{report}; launches (K1, K2) {dry}; K1 expected {want} = steps {DRYRUN_K1_STEPS} + "
+        f"{report['runner_dispatches']} runner batches; lowering of the steps {lowering}; "
+        f"vs plain [launches checked, worst rel] {dry_plain} (limit {REL_TOL})")
+    if dry != (want, 0) or dry_plain["k1"] != [want, dry_plain["k1"][1]] \
+            or dry_plain["k1"][1] > REL_TOL:
+        fails.append(f"dryrun launches {dry}, expected ({want}, 0); vs plain {dry_plain}")
+
+    examples = {}
+    for name in EXAMPLES:
+        k1.mfcc_fused.launches = k2.ct_mel.launches = 0
+        with held_to_plain(k1, k2) as readings:
+            cuda_s, cuda_lines = run_example(name, "cuda")
+            torch.cuda.synchronize()
+        launches = (k1.mfcc_fused.launches, k2.ct_mel.launches)
+        plain = worst_reading(readings)
+        cpu_s, cpu_lines = run_example(name, "cpu")
+        bad = example_lines_differ(cuda_lines, cpu_lines)
+        examples[name] = {"launches": list(launches), "cuda_s": cuda_s, "cpu_s": cpu_s,
+                          "plain": plain, "lines": cuda_lines, "differ": [list(b) for b in bad]}
+        log(f"example {name}: {len(cuda_lines)} lines in {cuda_s:.3f} s on cuda (each launch "
+            f"held to its plain version), {cpu_s:.3f} s on cpu; launches (K1, K2) {launches}, "
+            f"expected {EXAMPLE_LAUNCHES[name]}; vs plain [launches checked, worst rel] {plain} "
+            f"(limit {REL_TOL}); lines differing from the cpu run: {bad}")
+        if bad or launches != EXAMPLE_LAUNCHES[name] \
+                or (plain["k1"][0], plain["k2"][0]) != launches \
+                or max(plain["k1"][1], plain["k2"][1]) > REL_TOL:
+            fails.append(f"example {name}: launches {launches}, vs plain {plain}, "
+                         f"differing lines {bad}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"entry phase: {phase_s:.3f} s")
+    if fails:
+        raise AssertionError("entry phase: " + "; ".join(fails))
+    return {"calls": calls, "dryrun": {"report": report, "launches": list(dry),
+                                       "lowering": lowering, "plain": dry_plain,
+                                       "seconds": dry_s},
+            "examples": examples, "seconds": phase_s,
+            "launches_entry": [calls["zeros"]["launches"][0] + calls["seeded"]["launches"][0]
+                               + dry[0], dry[1]],
+            "launches_examples": [sum(e["launches"][i] for e in examples.values())
+                                  for i in (0, 1)]}
+
+
 def bench_phase(np, torch, k1, k2) -> dict:
     """The port's benchmark, ``bench_torch.py``: its ``main``, ``suite``,
     ``corpus`` and ``scaling`` in this process (timers at a 100 ms
@@ -1699,6 +1934,7 @@ def main() -> int:
         measured = {"speechpy": audio_s / med["kernel"] * 1e3,
                     "librosa": L_BATCH * SECONDS / k2_entry["ms"] * 1e3}
         record["profiling"] = profiling_phase(np, torch, P, k1, k2, tmp, measured)
+    record["entry"] = entry_phase(np, torch, PF, k1, k2)
     record["bench"] = bench_phase(np, torch, k1, k2)
     kernels = [{
         "name": k1.KERNEL, "route": "cuda",
@@ -1710,8 +1946,12 @@ def main() -> int:
         "library_ms": med["library"], "path": plan["path"],
         "launches_corpus": record["corpus"]["a"]["launches"][0],
         "launches_bench": record["bench"]["launches"][k1.KERNEL],
+        "launches_entry": record["entry"]["launches_entry"][0],
+        "launches_examples": record["entry"]["launches_examples"][0],
     }, dict(k2_entry, launches_corpus=record["corpus"]["a"]["launches"][1],
-            launches_bench=record["bench"]["launches"][k2.KERNEL])]
+            launches_bench=record["bench"]["launches"][k2.KERNEL],
+            launches_entry=record["entry"]["launches_entry"][1],
+            launches_examples=record["entry"]["launches_examples"][1])]
     record.update({
         "main_path": {"shape": [BATCH, t_true], "bucket": t_main, "launches": launches,
                       "first_call_s": first_s, "api_ms": api_s * 1e3, "api_ms_all": [h * 1e3 for h in host]},

@@ -99,13 +99,12 @@ def _join(args, device: str):
     ``new_group`` asks."""
     import torch.distributed as dist
 
-    from .parallel.mesh import init_process_group
+    from .parallel.mesh import init_process_group, initialize_multihost
 
     if "WORLD_SIZE" in os.environ and int(os.environ["WORLD_SIZE"]) > 1:
         init_process_group("env://", device=device)
-    elif args.coordinator or (args.num_hosts or 1) > 1:
-        init_process_group(f"tcp://{args.coordinator}", args.num_hosts, args.host_id,
-                           device=device)
+    else:
+        initialize_multihost(args.coordinator, args.num_hosts, args.host_id, device=device)
     if not dist.is_initialized():
         return 0, 1, None
     rank, world = dist.get_rank(), dist.get_world_size()

@@ -708,3 +708,16 @@ def _extract_unfused(signal: torch.Tensor, cfg: FeatureConfig, want) -> dict:
     if "ssc" in want:
         out["ssc"] = ssc(signal, cfg)
     return out
+
+
+# ----------------------------------------------------------------- batching --
+def vmapped(fn, in_axes: int = 0):
+    """``fn(x, cfg)`` mapped over axis ``in_axes`` of the signal, the result
+    with the mapped axis first (the reference's ``jax.vmap`` with
+    ``out_axes=0``).  Every pipeline takes ``(..., T)``, so this moves the
+    axis to the front and makes one batched call: no loop over the batch."""
+
+    def mapped(x: torch.Tensor, cfg: FeatureConfig):
+        return fn(x.movedim(in_axes, 0), cfg)
+
+    return mapped

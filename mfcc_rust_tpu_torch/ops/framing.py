@@ -10,6 +10,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as tF
 
@@ -73,6 +74,16 @@ def speechpy_frame_counts(
         num = int(math.floor((length - frame_len) / frame_step))
         eff = (num - 1) * frame_step + frame_len
     return num, eff
+
+
+def frame_indices(num_frames: int, frame_len: int, frame_step: int) -> np.ndarray:
+    """Static (num_frames, frame_len) int32 gather index matrix: row f holds
+    the sample indices of frame f (the reference's gather; ``frame_signal``
+    takes the same samples as a strided view)."""
+    return (
+        np.arange(num_frames, dtype=np.int32)[:, None] * frame_step
+        + np.arange(frame_len, dtype=np.int32)[None, :]
+    )
 
 
 def frame_signal(

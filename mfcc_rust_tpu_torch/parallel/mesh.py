@@ -64,6 +64,24 @@ def init_process_group(
     return dist.get_rank(), dist.get_world_size()
 
 
+def initialize_multihost(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    *,
+    device=None,
+) -> Tuple[int, int]:
+    """Join a multi-host world (call once per process, before any mesh) and
+    return (rank, world_size): :func:`init_process_group` at
+    ``tcp://<coordinator_address>`` (``host:port``), or from the environment
+    (``env://``, as ``torchrun`` sets it) when only ``num_processes > 1`` is
+    given.  With neither the process is the one-rank world, (0, 1).  After
+    this, :func:`make_mesh` spans every rank of the world and the corpus
+    moments all-reduce across hosts."""
+    init = f"tcp://{coordinator_address}" if coordinator_address else None
+    return init_process_group(init, num_processes, process_id, device=device)
+
+
 def _default_device(global_rank: int, device) -> torch.device:
     """``cuda:{LOCAL_RANK}`` (else rank modulo the device count) unless
     ``device`` says otherwise; raises without CUDA unless asked for the

@@ -5,7 +5,9 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import os
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 from typing import Optional
@@ -25,19 +27,26 @@ def _source_digest() -> str:
 
 
 def _compile() -> Optional[Path]:
+    """The cached library, compiled first if missing.  g++ writes a file of
+    its own that is renamed onto the cached name when complete, so
+    processes that build at the same time never load a partial library."""
     _BUILD_DIR.mkdir(exist_ok=True)
     out = _BUILD_DIR / f"libmfccrt_{_source_digest()}.so"
     if out.exists():
         return out
     srcs = [str(p) for p in sorted(_SRC_DIR.glob("*.cpp"))]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
     cmd = [
         "g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
-        "-o", str(out), *srcs,
+        "-o", tmp, *srcs,
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
     except (subprocess.SubprocessError, FileNotFoundError):
+        os.unlink(tmp)
         return None
+    os.replace(tmp, out)
     return out
 
 

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import mfcc_rust_tpu_torch as P
 from mfcc_rust_tpu_torch import api as PA
 from mfcc_rust_tpu_torch import features as PF
@@ -492,3 +493,37 @@ def test_nccl_world_one_equals_no_group_on_card(cuda_device, tmp_path):
             assert torch.equal(a, b)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_entry_fn_launches_k1_once_on_card(cuda_device):
+    from mfcc_rust_tpu_torch.entry import entry
+
+    fn, (x0,) = entry()
+    assert x0.is_cuda and x0.dtype == torch.float32 and tuple(x0.shape) == (8, 16000)
+    x = torch.from_numpy(np.random.default_rng(0).normal(0, 0.1, (8, 16000)).astype(np.float32))
+    cfg = P.FeatureConfig(sample_rate=16000)
+    for sig in (x0, x.to(cuda_device)):
+        before = pk.mfcc_fused.launches
+        got = fn(sig)
+        assert pk.mfcc_fused.launches == before + 1
+        assert tuple(got.shape) == (8, 98, 13) and bool(torch.isfinite(got).all())
+        # the zero batch: -log(eps) everywhere, equal up to rounding
+        assert rel(got, pk.mfcc_fused_plain(sig, cfg)) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", chip_smoke.EXAMPLES)
+def test_examples_launch_the_kernels_on_card(cuda_device, name):
+    """Each example on the card launches ``chip_smoke.EXAMPLE_LAUNCHES``,
+    holds every launch to its kernel's plain version at 1e-4 and prints
+    the lines of its CPU run."""
+    with chip_smoke.held_to_plain(pk, ck) as readings:
+        before = (pk.mfcc_fused.launches, ck.ct_mel.launches)
+        _, lines = chip_smoke.run_example(name, "cuda")
+        launches = (pk.mfcc_fused.launches - before[0], ck.ct_mel.launches - before[1])
+    _, cpu_lines = chip_smoke.run_example(name, "cpu")
+    assert launches == chip_smoke.EXAMPLE_LAUNCHES[name], (launches, lines)
+    assert (len(readings["k1"]), len(readings["k2"])) == launches
+    assert max(readings["k1"] + readings["k2"], default=0.0) <= 1e-4, readings
+    assert chip_smoke.example_lines_differ(lines, cpu_lines) == []

@@ -23,7 +23,13 @@ Tasks:
   ``--cmvn-out`` its own file; the return code and what the process printed
   go to ``cli.rank<r>.json``;
 * ``bench_scaling`` — ``bench_torch.scaling()`` in the world: what each
-  rank printed and the lines it returned go to ``bench.rank<r>.json``.
+  rank printed and the lines it returned go to ``bench.rank<r>.json``;
+* ``multihost <address>`` — ``parallel.mesh.initialize_multihost`` with the
+  coordinator ``address`` (``host:port``) in place of the FileStore; the
+  (rank, world) it returns and an all-reduce of the ranks go to
+  ``multihost.rank<r>.json``.
+
+:func:`faulty_rank` is a rank body for ``entry._spawn`` whose rank 1 raises.
 """
 
 from __future__ import annotations
@@ -224,8 +230,37 @@ def _init(rank: int, world: int, work: str):
                             timeout=datetime.timedelta(seconds=60))
 
 
+def faulty_rank(world: int, device) -> None:
+    """A rank body for ``mfcc_rust_tpu_torch.entry._spawn``: rank 1 raises
+    once the group is up, rank 0 waits in a barrier for it."""
+    import torch.distributed as dist
+
+    if dist.get_rank() == 1:
+        raise ValueError("fault injected on rank 1")
+    dist.barrier()
+
+
+def _multihost(rank: int, world: int, work: str, address: str) -> None:
+    import torch
+    import torch.distributed as dist
+
+    from mfcc_rust_tpu_torch.parallel.mesh import initialize_multihost
+
+    torch.set_num_threads(1)
+    got = initialize_multihost(address, world, rank, device="cpu")
+    total = torch.tensor([rank + 1.0])
+    dist.all_reduce(total)
+    with open(os.path.join(work, f"multihost.rank{rank}.json"), "w") as f:
+        json.dump({"rank_world": list(got), "sum": float(total)}, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 def main(argv) -> None:
     task, rank, world, work = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    if task == "multihost":
+        _multihost(rank, world, work, argv[4])
+        return
     _init(rank, world, work)
     import torch.distributed as dist
 

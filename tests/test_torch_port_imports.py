@@ -188,6 +188,8 @@ def test_export_cli_and_utils_pull_in_no_jax_and_need_cuda_by_default(tmp_path):
 def test_port_sources_name_no_jax():
     files = list((ROOT / "mfcc_rust_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
                                                                   ROOT / "bench_torch.py"]
+    files += sorted((ROOT / "examples_torch").glob("*.py"))
+    assert ROOT / "mfcc_rust_tpu_torch" / "entry.py" in files and len(files) > 40
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()
@@ -284,3 +286,41 @@ def test_builder_matches_reference():
     pb = P.SpeechConfigBuilder(16000).fft_points(1024).num_cepstral(20).window("hann").build()
     assert dataclasses.asdict(jb) == dataclasses.asdict(pb)
     assert (pb.frame_size, pb.frame_step, pb.freq_size) == (jb.frame_size, jb.frame_step, jb.freq_size)
+
+
+def test_entry_and_examples_pull_in_no_jax_and_need_cuda_by_default(tmp_path):
+    """With jax, jaxlib and the JAX package shadowed by packages that refuse
+    to import, ``entry`` runs on the CPU when asked, its defaults and every
+    port example's default ``--device cuda`` refuse for want of CUDA."""
+    for name in ("jax", "jaxlib", "mfcc_rust_tpu"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(f"raise ImportError('{name} is blocked')\n")
+    env = {"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": "",
+           "PYTHONPATH": f"{tmp_path}:{ROOT}"}
+    code = textwrap.dedent("""
+        import sys
+        from mfcc_rust_tpu_torch.entry import dryrun_multichip, entry
+        bad = [k for k in sys.modules
+               if k.split('.')[0] in ('jax', 'jaxlib', 'mfcc_rust_tpu')]
+        assert not bad, bad
+        fn, (x,) = entry(device="cpu")
+        assert tuple(fn(x).shape) == (8, 98, 13)
+        for call in (entry, lambda: dryrun_multichip(1)):
+            try:
+                call()
+            except RuntimeError as e:
+                assert "CUDA" in str(e)
+            else:
+                raise AssertionError("ran without CUDA")
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+    examples = sorted((ROOT / "examples_torch").glob("*.py"))
+    assert [p.name for p in examples] == sorted(p.name for p in (ROOT / "examples").glob("*.py"))
+    for path in examples:
+        res = subprocess.run([sys.executable, str(path)], cwd=tmp_path, capture_output=True,
+                             text=True, timeout=120, env={**env, "TMPDIR": str(tmp_path)})
+        assert res.returncode != 0 and "CUDA is not available" in res.stderr, \
+            (path.name, res.stderr[-2000:])
