@@ -61,6 +61,7 @@ import mfcc_rust_tpu_torch as P
 from mfcc_rust_tpu_torch import features as F
 from mfcc_rust_tpu_torch.ops.cuda import ct_mel as k2
 from mfcc_rust_tpu_torch.ops.cuda import speechpy_mfcc as k1
+from mfcc_rust_tpu_torch.utils import graphs
 from mfcc_rust_tpu_torch.utils.bucketing import bucket_length
 from mfcc_rust_tpu_torch.utils.profiling import speed_of_light
 from tests.golden import dfn_ref, librosa_ref, speechpy_ref
@@ -310,11 +311,14 @@ def _plain_twins():
     """Inside, each kernel's wrapper is its plain PyTorch version, on every
     device: the function a line computes, with nothing else changed.  (The
     ``pallas="off"`` lowering is not that function: its MFCC sums X_0 in
-    float32, which the kernel and its plain version take in float64.)"""
+    float32, which the kernel and its plain version take in float64.)
+    Every call runs eagerly inside (``utils.graphs.disabled()``): a CUDA
+    graph replays the kernels it captured."""
     saved = k1.mfcc_fused, k2.ct_mel
     k1.mfcc_fused, k2.ct_mel = k1.mfcc_fused_plain, k2.ct_mel_plain
     try:
-        yield
+        with graphs.disabled():
+            yield
     finally:
         k1.mfcc_fused, k2.ct_mel = saved
 
@@ -401,13 +405,16 @@ def _enqueue(fn, xs) -> tuple:
     enqueued behind a ~0.1 s device spin, so the host clock reads the
     enqueue alone (no call waits for the device) and the CUDA events read
     the calls back to back (no call waits for the host); medians of
-    ENQ_REPS."""
+    ENQ_REPS.  One untimed call goes first after each synchronize: the
+    first call after a synchronize costs the host 0.1-0.9 ms more, whatever
+    it runs, which would otherwise sit in the window."""
     host, dev = [], []
     for _ in range(ENQ_REPS):
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(SPIN_CYCLES)
+        fn(xs[-1])
         start.record()
         t0 = time.perf_counter()
         out = None
@@ -474,7 +481,7 @@ def _measure(cfg, feature, shape, kernel, rng, target_ms) -> dict:
     before = _launches()
     t = _slope_timer(fn, xs, shape[0] * shape[-1] / cfg.sample_rate, target_ms=target_ms)
     enq_us, dev_ms = _enqueue(fn, xs)
-    calls = t["calls"] + ENQ_CALLS * ENQ_REPS
+    calls = t["calls"] + (ENQ_CALLS + 1) * ENQ_REPS  # each rep: one untimed call
     launches = _launched(before)
     _check_launches(f"{feature} {shape}", launches, calls, kernel)
     return {"value": t["value"], "rel_spread": t["rel_spread"], "ms": t["ms"],

@@ -62,7 +62,18 @@ launch count set to 0, failing unless the path's kernel launched:
   must pass its gate (``bench_torch`` raises otherwise) and the gates must
   catch the suite's plain products run in TF32 (``tf32_control``); the
   kernels' launches over the lines go to the kernels line as
-  ``launches_bench``.
+  ``launches_bench``;
+* compiled: the CUDA-graph replay layer (``utils/graphs.py``,
+  ``compiled_phase``): every ``api`` feature entry point and every
+  pipeline class and ``FeatureExtractor`` at 48 x 10 s, 16 kHz, or 32 x
+  10 s, 22,050 Hz, each call with the counts zeroed just before: one
+  capture, then replays; launches a call equal to the eager call's;
+  replays within 1e-6 of eager, and on the K1/K2 paths within 1e-4 of the
+  plain kernels and within the float64 oracles; host µs to enqueue and
+  device ms a call, eager and replayed; capture ms; the bytes the graphs
+  hold; the enqueue profile of the librosa and ``extract`` lines; a
+  capture that fails must raise.  The replayed calls' launches go to the
+  kernels line as ``launches_compiled``.
 
 Then it holds each kernel to its plain PyTorch version on the card
 (max|Δ|/max|ref| <= 1e-4: K1 runs an FFT where its plain version multiplies
@@ -1512,7 +1523,11 @@ def held_to_plain(k1, k2):
     yields {"k1": [...], "k2": [...]}, max|Δ|/max|ref| of each launch.
     The wrappers count their launches on their module's name, which is the
     checker inside, so the counts go on as before and the plain calls add
-    none."""
+    none.  Inside, every call runs eagerly (``utils.graphs.disabled()``: a
+    capture cannot read a result back); the compiled phase holds the
+    replays to the plain versions."""
+    from mfcc_rust_tpu_torch.utils import graphs
+
     readings = {"k1": [], "k2": []}
     saved = []
 
@@ -1533,7 +1548,8 @@ def held_to_plain(k1, k2):
     checked(k1, "mfcc_fused", k1.mfcc_fused_plain, "k1")
     checked(k2, "ct_mel", k2.ct_mel_plain, "k2")
     try:
-        yield readings
+        with graphs.disabled():
+            yield readings
     finally:
         for mod, name, kernel, call in saved:
             kernel.launches = call.launches
@@ -1648,6 +1664,318 @@ def entry_phase(np, torch, PF, k1, k2) -> dict:
                                + dry[0], dry[1]],
             "launches_examples": [sum(e["launches"][i] for e in examples.values())
                                   for i in (0, 1)]}
+
+
+# ------------------------------------------------------------ compiled --
+COMPILED_TOL = 1e-6  # a replay against the eager call, max|Δ|/max|ref|
+PROFILE_CALLS, PROFILE_CHUNK = 1000, 8
+PROFILE_SPIN = 40_000_000  # ~20 ms of device spin ahead of each chunk of calls
+LOOP_CALLS = 100  # calls of a path back to back, synced once: the wall time a call
+
+
+def loop_ms(torch, fn, xs) -> float:
+    """Wall ms a call of ``fn`` over :data:`LOOP_CALLS` calls back to back,
+    synchronized once at the end (after one untimed call): what a loop that
+    keeps the device busy pays, host and device overlapped."""
+    fn(xs[-1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(LOOP_CALLS):
+        out = fn(xs[i % len(xs)])
+    torch.cuda.synchronize()
+    del out
+    return 1e3 * (time.perf_counter() - t0) / LOOP_CALLS
+
+
+def _leaves(out) -> list:
+    """The tensors of a result: a tensor, a tuple of them, or a dict of
+    either, in order."""
+    if isinstance(out, dict):
+        return [t for v in out.values() for t in _leaves(v)]
+    if isinstance(out, (tuple, list)):
+        return [t for v in out for t in _leaves(v)]
+    return [out]
+
+
+def _compare(got, ref) -> tuple:
+    """(worst max|Δ|/max|ref| over the leaves, every leaf bitwise equal)."""
+    pairs = list(zip(_leaves(got), _leaves(ref)))
+    return (max(rel_err(a, b)[0] for a, b in pairs),
+            all(a.shape == b.shape and bool((a == b).all()) for a, b in pairs))
+
+
+def compiled_paths(P, bench):
+    """Every entry point that replays a CUDA graph, at the two full-width
+    shapes: (name, function of a device batch, family, (K1, K2) launches of
+    one call, oracle of one row or None, the oracle's rule).  The speechpy
+    family takes 48 x 10 s at 16 kHz (the headline), the librosa family 32 x
+    10 s at 22,050 Hz (2048/512/128): the nine ``api`` sites, then
+    ``Pipeline.forward`` of each pipeline class and ``FeatureExtractor``."""
+    from tests.golden import librosa_ref
+
+    sp, lb = P.speechpy_config(RATE), P.librosa_config(L_RATE)
+    o_mfcc = lambda row: bench.oracle("mfcc", sp, row)
+    o_mel = lambda row: bench.oracle("mel_spectrogram_librosa", lb, row)
+    o_log = lambda row: librosa_ref.power_to_db(o_mel(row))
+    o_lmfcc = lambda row: bench.oracle("mfcc_librosa", lb, row)
+    return [
+        ("api.mfcc", lambda x: P.mfcc(x, RATE), "speechpy", (1, 0), o_mfcc, "max"),
+        ("api.mfe", lambda x: P.mfe(x, RATE), "speechpy", (0, 0), None, None),
+        ("api.lmfe", lambda x: P.lmfe(x, RATE), "speechpy", (0, 0), None, None),
+        ("api.ssc", lambda x: P.ssc(x, RATE), "speechpy", (0, 0), None, None),
+        ("api.extract", lambda x: P.extract(x, RATE, which=SUITE_HEADS), "speechpy", (0, 0),
+         None, None),
+        ("api.mel_spectrogram", lambda x: P.mel_spectrogram(x, RATE), "speechpy", (0, 0),
+         None, None),
+        ("api.mel_spectrogram_librosa", lambda x: P.mel_spectrogram_librosa(x, L_RATE),
+         "librosa", (0, 1), o_mel, "librosa"),
+        ("api.log_mel_spectrogram", lambda x: P.log_mel_spectrogram(x, L_RATE), "librosa",
+         (0, 1), o_log, "max"),
+        ("api.mfcc_librosa", lambda x: P.mfcc_librosa(x, L_RATE), "librosa", (0, 1), o_lmfcc,
+         "max"),
+        ("MFCCPipeline", P.MFCCPipeline(sp), "speechpy", (1, 0), o_mfcc, "max"),
+        ("MFEPipeline", P.MFEPipeline(sp), "speechpy", (0, 0), None, None),
+        ("LogMFEPipeline", P.LogMFEPipeline(sp), "speechpy", (0, 0), None, None),
+        ("SSCPipeline", P.SSCPipeline(sp), "speechpy", (0, 0), None, None),
+        ("MelSpectrogramPipeline", P.MelSpectrogramPipeline(sp), "speechpy", (0, 0), None,
+         None),
+        ("LibrosaMelPipeline", P.LibrosaMelPipeline(lb), "librosa", (0, 1), o_mel, "librosa"),
+        ("LibrosaMFCCPipeline", P.LibrosaMFCCPipeline(lb), "librosa", (0, 1), o_lmfcc, "max"),
+        ("FeatureExtractor", P.FeatureExtractor(sp), "speechpy", (1, 0), o_mfcc, "max"),
+    ]
+
+
+def enqueue_profile(torch, fn, xs) -> dict:
+    """The host's time in one call of ``fn``, split by where it goes:
+    :data:`PROFILE_CALLS` calls under ``cProfile``, in chunks of
+    :data:`PROFILE_CHUNK` behind a device spin (so no call waits for the
+    device), each after one unprofiled call (as ``bench_torch._enqueue``),
+    then per call in µs: the whole profiled time, its builtin calls
+    (torch's C++ ops and Python's builtins; ctypes calls are not builtins
+    and stay in their caller), the Python around them, and the cumulative
+    time of the named functions (nested: the launch runs inside
+    ``autograd.Function.apply``, the tensor-cache lookups inside both).
+    cProfile's own cost inflates the Python share; the unprofiled host time
+    a call is ``enqueue_us`` beside it."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    for i in range(0, PROFILE_CALLS, PROFILE_CHUNK):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(PROFILE_SPIN)
+        out = fn(xs[-1])  # the first call after a synchronize, unprofiled
+        prof.enable()
+        for j in range(i, i + PROFILE_CHUNK):
+            out = fn(xs[j % len(xs)])
+        prof.disable()
+        del out
+    torch.cuda.synchronize()
+    stats = pstats.Stats(prof).stats  # (file, line, name) -> (cc, nc, tt, ct, callers)
+    per = lambda t: round(1e6 * t / PROFILE_CALLS, 2)
+    total = sum(v[2] for v in stats.values())
+    builtin = sum(v[2] for (f, _, _), v in stats.items() if f == "~")
+
+    def cum(test):
+        return sum(v[3] for (f, _, name), v in stats.items() if test(f.replace("\\", "/"), name))
+
+    launch = cum(lambda f, n: n == "_launch" and "ops/cuda/" in f)
+    launch_own = sum(v[2] for (f, _, n), v in stats.items() if n == "_launch" and "ops/cuda/" in f)
+    return {
+        "total_us": per(total), "builtin_us": per(builtin),
+        "python_us": per(total - builtin - launch_own),
+        "tensor_cache_us": per(cum(lambda f, n: n == "call" and f.endswith("constants.py"))),
+        "ct_mel_supported_us": per(cum(lambda f, n: n == "ct_mel_supported")),
+        "autograd_apply_us": per(cum(lambda f, n: n == "apply" and "autograd/function" in f)),
+        "pad_signal_us": per(cum(lambda f, n: n == "pad_signal")),
+        "launch_us": per(launch), "launch_own_us": per(launch_own),
+        "fill_us": per(cum(lambda f, n: n == "fill" and f.endswith("api.py"))),
+        "replay_us": per(cum(lambda f, n: n == "replay" and "cuda/graphs" in f)),
+        "clone_us": per(sum(v[2] for (f, _, n), v in stats.items()
+                            if f == "~" and "'clone'" in n)),
+    }
+
+
+def compiled_phase(np, torch, P, k1, k2) -> dict:
+    """The compiled-call layer (``utils/graphs.py``), the counterpart of the
+    JAX package's ``jax.jit`` at ``api._jitted`` and ``Pipeline._jit``.
+
+    For every path of :func:`compiled_paths`, on four device-resident
+    N(0, 0.1) batches of its family, each step with the counts zeroed just
+    before: one eager call (``graphs.disabled()``), the first graphed call
+    (it must capture once) and replayed calls (each must replay and capture
+    nothing); the eager call, the first call and a replay must each launch
+    the path's (K1, K2).  A replay must sit within :data:`COMPILED_TOL` of
+    the eager call on two batches (and says whether it was bitwise); on the
+    K1/K2 paths it must sit within 1e-4 of the same call with the kernels'
+    plain versions (``bench_torch._plain_twins``) and, on two rows, within
+    the float64 oracle's limits (5e-3 of max|ref|; the librosa mel rtol
+    5e-3, atol 1e-4 max|ref|).  Then host µs to enqueue a call and device ms
+    a call, eager and replayed in turns (eager, replayed, replayed, eager),
+    by ``bench_torch._enqueue`` (eight calls behind a device spin after an
+    untimed one, median of five), the wall ms a call of a long loop
+    (:func:`loop_ms`) in the same turns, the capture's ms, the host µs of the graph
+    launch alone (:func:`host_us`), and the bytes each graph holds.  Beside:
+    ``api.mfcc`` from a numpy batch (host clock, synced), the enqueue
+    profile of the librosa and ``extract`` lines (:func:`enqueue_profile`),
+    a capture that fails (it must raise), and the bytes the cache
+    reserves.  Raises after printing every number."""
+    import bench_torch as bench
+    from mfcc_rust_tpu_torch.utils import graphs
+
+    fails, rec = [], {}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)
+    dev = torch.device("cuda")
+    shapes = {"speechpy": (BATCH, SECONDS * RATE), "librosa": (L_BATCH, SECONDS * L_RATE)}
+    host = {f: [rng.normal(0, 0.1, sh).astype(np.float32) for _ in range(4)]
+            for f, sh in shapes.items()}
+    batches = {f: [torch.from_numpy(h).to(dev) for h in hs] for f, hs in host.items()}
+    graphs.cache.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+
+    def counted(fn, x):
+        k1.mfcc_fused.launches = k2.ct_mel.launches = 0
+        out = fn(x)
+        torch.cuda.synchronize()
+        return out, (k1.mfcc_fused.launches, k2.ct_mel.launches)
+
+    def eager(fn):
+        def call(x):
+            with graphs.disabled():
+                return fn(x)
+        return call
+
+    for name, fn, family, want, oracle, rule in compiled_paths(P, bench):
+        xs, r = batches[family], {"family": family, "shape": list(shapes[family])}
+        out_e, r["launches_eager"] = counted(eager(fn), xs[0])
+        c0, p0 = graphs.cache.captures, graphs.cache.replays
+        t0 = time.perf_counter()
+        out_1, r["launches_first"] = counted(fn, xs[0])
+        r["first_call_ms"] = 1e3 * (time.perf_counter() - t0)
+        r["captures"] = graphs.cache.captures - c0
+        g = next(reversed(graphs.cache._graphs.values()))
+        r["capture_ms"] = 1e3 * g.capture_s
+        r["graph_bytes"] = g.pool_bytes() + g.static.numel() * g.static.element_size()
+        r["replay_us"] = host_us(torch, g.graph.replay)  # the graph launch alone
+        out_r, r["launches_replay"] = counted(fn, xs[0])
+        r["replays"] = graphs.cache.replays - p0
+        r["rel_eager"], r["bitwise"] = _compare(out_r, out_e)
+        r["rel_first"], _ = _compare(out_1, out_e)
+        with graphs.disabled():
+            ref1 = fn(xs[1])
+        r["rel_eager_2"], r["bitwise_2"] = _compare(fn(xs[1]), ref1)
+        r["finite"] = all(bool(torch.isfinite(t).all()) for t in _leaves(out_r))
+        bad = (r["captures"] != 1 or r["replays"] != 1
+               or not r["launches_eager"] == r["launches_first"] == r["launches_replay"] == want
+               or max(r["rel_eager"], r["rel_first"], r["rel_eager_2"]) > COMPILED_TOL
+               or not r["finite"])
+        if oracle is not None:
+            with bench._plain_twins():
+                ref_plain = fn(xs[0])
+            r["rel_plain"], _ = _compare(out_r, ref_plain)
+            r["rel_oracle"] = max(bench.rel_err(out_r[i], oracle(host[family][0][i]), rule)
+                                  for i in range(2))
+            bad = bad or r["rel_plain"] > REL_TOL or r["rel_oracle"] > ORACLE_TOL
+        timing = {"eager": [], "replayed": []}
+        loops = {"eager": [], "replayed": []}
+        for mode in ("eager", "replayed", "replayed", "eager"):
+            call = eager(fn) if mode == "eager" else fn
+            timing[mode].append(bench._enqueue(call, xs))
+            loops[mode].append(loop_ms(torch, call, xs))
+        for mode, pairs in timing.items():
+            r[f"enqueue_us_{mode}"] = [round(h, 2) for h, _ in pairs]
+            r[f"device_ms_{mode}"] = [round(d, 5) for _, d in pairs]
+            r[f"loop_ms_{mode}"] = [round(t, 5) for t in loops[mode]]
+        rec[name] = r
+        log(f"compiled {name} {tuple(shapes[family])}: captures {r['captures']}, replays "
+            f"{r['replays']}; launches (K1, K2) eager {r['launches_eager']}, first "
+            f"{r['launches_first']}, replay {r['launches_replay']} (want {want}); replay vs "
+            f"eager rel {r['rel_eager']:.3e} bitwise {r['bitwise']} (second batch "
+            f"{r['rel_eager_2']:.3e} {r['bitwise_2']}; first call {r['rel_first']:.3e}; limit "
+            f"{COMPILED_TOL})"
+            + (f"; vs plain kernels {r['rel_plain']:.3e} (limit {REL_TOL}), vs float64 oracle "
+               f"{r['rel_oracle']:.3e} ({rule} rule, limit {ORACLE_TOL})" if oracle else "")
+            + f"; enqueue us eager {r['enqueue_us_eager']} replayed {r['enqueue_us_replayed']}; "
+            f"device ms eager {r['device_ms_eager']} replayed {r['device_ms_replayed']}; "
+            f"loop ms a call ({LOOP_CALLS} calls) eager {r['loop_ms_eager']} replayed "
+            f"{r['loop_ms_replayed']}; "
+            f"first call {r['first_call_ms']:.1f} ms, capture {r['capture_ms']:.1f} ms; one "
+            f"graph launch {r['replay_us']:.2f} us (median of 500); graph holds "
+            f"{r['graph_bytes']} B")
+        if bad:
+            fails.append(f"{name}: {r}")
+
+    # api.mfcc from a numpy batch: the upload goes straight into the static input
+    audio = host["speechpy"][0]
+    from_host = {"eager": [], "replayed": []}
+    for mode in ("eager", "replayed", "replayed", "eager"):
+        fn = eager(lambda a: P.mfcc(a, RATE)) if mode == "eager" else (lambda a: P.mfcc(a, RATE))
+        fn(audio)
+        torch.cuda.synchronize()
+        for _ in range(10):
+            t0 = time.perf_counter()
+            fn(audio)
+            torch.cuda.synchronize()
+            from_host[mode].append(1e3 * (time.perf_counter() - t0))
+    rec["from_host_ms"] = {k: statistics.median(v) for k, v in from_host.items()}
+    rec["from_host_ms_all"] = from_host
+    log(f"compiled api.mfcc from a numpy {tuple(audio.shape)} batch, host ms a synced call "
+        f"(median of 20): eager {rec['from_host_ms']['eager']:.3f}, replayed "
+        f"{rec['from_host_ms']['replayed']:.3f}")
+
+    # where the host's time goes: the librosa and extract lines of bench_torch
+    prof = {}
+    for line, api_fn in (("librosa", lambda x: P.mel_spectrogram_librosa(x, L_RATE)),
+                         ("multi", lambda x: P.extract(x, RATE, which=bench.LINES["multi"][1]))):
+        cfg, feature, shape, _ = bench.LINES[line]
+        xs = [torch.from_numpy(rng.normal(0, 0.1, shape).astype(np.float32)).to(dev)
+              for _ in range(2)]
+        api_fn(xs[0])  # capture first
+        variants = {"features eager (the bench line)": bench._call(feature, cfg),
+                    "api eager": eager(api_fn), "api replayed": api_fn}
+        prof[line] = {}
+        for label, fn in variants.items():
+            p = enqueue_profile(torch, fn, xs)
+            p["enqueue_us"] = round(bench._enqueue(fn, xs)[0], 2)
+            prof[line][label] = p
+            log(f"enqueue profile, {line} {tuple(shape)}, {label}, per call over "
+                f"{PROFILE_CALLS} (us; nested cumulative): {p}")
+    rec["profile"] = prof
+
+    # a capture that fails raises, keeps nothing, and the layer goes on
+    probe = graphs.GraphCache()
+    try:
+        probe.run(("sync",), lambda s: s * float(s.sum()), (4,), torch.float32, dev,
+                  lambda s: s.fill_(1.0))
+        rec["failed_capture"] = "no error"
+        fails.append("a capture that syncs did not raise")
+    except Exception as e:  # noqa: BLE001 - any error is the expected outcome
+        rec["failed_capture"] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    again, _ = counted(lambda x: P.mfcc(x, RATE), batches["speechpy"][2])
+    torch.cuda.synchronize()
+    log(f"compiled: a capture that syncs raised {rec['failed_capture']!r}; graphs kept "
+        f"{len(probe)}; api.mfcc afterwards {tuple(again.shape)}")
+    if len(probe) or not bool(torch.isfinite(again).all()):
+        fails.append("the layer did not go on after a failed capture")
+
+    st = graphs.cache.stats()
+    rec["cache"] = dict(st, reserved_bytes=torch.cuda.memory_reserved() - reserved0)
+    rec["seconds"] = time.perf_counter() - t_phase
+    # the launches of the replayed calls, each driven with the counts zeroed
+    rec["launches"] = [sum(r["launches_replay"][i] for r in rec.values()
+                           if isinstance(r, dict) and "launches_replay" in r) for i in (0, 1)]
+    log(f"compiled cache: {st['graphs']} graphs, {st['captures']} captures, {st['replays']} "
+        f"replays; pools {st['pool_bytes']} B + static inputs {st['static_bytes']} B = "
+        f"{st['bytes']} B; reserved since the phase began "
+        f"{rec['cache']['reserved_bytes']} B; phase {rec['seconds']:.1f} s")
+    graphs.cache.clear()
+    if fails:
+        raise AssertionError("compiled phase: " + "; ".join(fails))
+    return rec
+
 
 
 def bench_phase(np, torch, k1, k2) -> dict:
@@ -1936,6 +2264,7 @@ def main() -> int:
         record["profiling"] = profiling_phase(np, torch, P, k1, k2, tmp, measured)
     record["entry"] = entry_phase(np, torch, PF, k1, k2)
     record["bench"] = bench_phase(np, torch, k1, k2)
+    record["compiled"] = compiled_phase(np, torch, P, k1, k2)
     kernels = [{
         "name": k1.KERNEL, "route": "cuda",
         "source": "mfcc_rust_tpu_torch/ops/cuda/speechpy_mfcc.cu",
@@ -1948,10 +2277,12 @@ def main() -> int:
         "launches_bench": record["bench"]["launches"][k1.KERNEL],
         "launches_entry": record["entry"]["launches_entry"][0],
         "launches_examples": record["entry"]["launches_examples"][0],
+        "launches_compiled": record["compiled"]["launches"][0],
     }, dict(k2_entry, launches_corpus=record["corpus"]["a"]["launches"][1],
             launches_bench=record["bench"]["launches"][k2.KERNEL],
             launches_entry=record["entry"]["launches_entry"][1],
-            launches_examples=record["entry"]["launches_examples"][1])]
+            launches_examples=record["entry"]["launches_examples"][1],
+            launches_compiled=record["compiled"]["launches"][1])]
     record.update({
         "main_path": {"shape": [BATCH, t_true], "bucket": t_main, "launches": launches,
                       "first_call_s": first_s, "api_ms": api_s * 1e3, "api_ms_all": [h * 1e3 for h in host]},

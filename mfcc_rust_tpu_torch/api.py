@@ -10,25 +10,40 @@ the true frame count) so a service sees few distinct shapes; pass
 (``preemphasis``, deltas, CMVN, ``stack_frames``, ``log_power_spectrum``)
 keep the input's dtype; the feature entry points compute in float32 unless
 ``dtype`` says otherwise.
+
+The feature entry points (``mfcc``, ``mfe``, ``lmfe``, ``ssc``,
+``extract``, ``mel_spectrogram`` and the three librosa ones) are where the
+JAX package calls ``_jitted``: on CUDA they replay one CUDA graph per
+(function, config, bucketed shape) from :mod:`.utils.graphs`, the input
+written straight into the graph's static input (uploaded there from numpy,
+the bucket's tail zeroed, the librosa centre pad's edges filled), and
+trim a fresh copy of its output.  Few buckets mean few captures.  They run
+eagerly on the CPU and for an input that requires a gradient
+(:func:`.utils.graphs.runs_eagerly`).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as tF
 
 from . import features as F
 from .config import FeatureConfig, librosa_config
+from .constants import tensor_cache
 from .ops import delta as _delta
 from .ops import framing as _framing
 from .ops import normalize as _normalize
 from .ops import resample as _resample
 from .ops import spectrum as _spectrum
 from .ops import stft as _stft
+from .utils import graphs
 from .utils.bucketing import bucket_length
 from .utils.device import resolve_device
 
 
+@functools.lru_cache(maxsize=64)
 def _speechpy_cfg(
     sampling_frequency,
     frame_length=0.020,
@@ -41,7 +56,10 @@ def _speechpy_cfg(
     dc_elimination=True,
     precision="high",
     dtype="float32",
+    window="rect",
 ) -> FeatureConfig:
+    """The config of a speechpy-family call (cached: a served call builds
+    none)."""
     return FeatureConfig(
         sample_rate=int(sampling_frequency),
         fft_points=int(fft_length),
@@ -54,7 +72,21 @@ def _speechpy_cfg(
         dc_elimination=bool(dc_elimination),
         precision=str(precision),
         dtype=str(dtype),
+        window=window,
     )
+
+
+@functools.lru_cache(maxsize=64)
+def _librosa_cfg(sr, n_fft, hop_length, win_length, n_mels, n_mfcc, fmin, fmax, power,
+                 center) -> FeatureConfig:
+    """The config of a librosa-family call (cached, as :func:`_speechpy_cfg`)."""
+    return librosa_config(sr, n_fft, hop_length, win_length, n_mels, n_mfcc=n_mfcc, fmin=fmin,
+                          fmax=fmax, power=power).replace(center=center)
+
+
+@functools.lru_cache(maxsize=64)
+def _uncentred(cfg: FeatureConfig) -> FeatureConfig:
+    return cfg.replace(center=False)
 
 
 def _prep(signal, cfg: FeatureConfig, bucket: bool, device):
@@ -66,6 +98,28 @@ def _prep(signal, cfg: FeatureConfig, bucket: bool, device):
         if b != n:
             sig = tF.pad(sig, (0, b - n))
     return sig, n
+
+
+def _features(fn, signal, cfg: FeatureConfig, bucket: bool, device, key=None):
+    """(``fn(bucketed signal, cfg)``, true length): eagerly on
+    :func:`_prep`'s signal where :func:`.utils.graphs.runs_eagerly`, else
+    through the graph of (``key``, default ``fn``; cfg; bucketed shape), the
+    signal written into its static input and the bucket's tail zeroed."""
+    x = torch.as_tensor(signal)
+    dev = resolve_device(device)
+    n = x.shape[-1]
+    if graphs.runs_eagerly(x, dev):
+        sig, n = _prep(x, cfg, bucket, dev)
+        return fn(sig, cfg), n
+    b = bucket_length(n) if bucket else n
+
+    def fill(static):
+        static[..., :n].copy_(x)
+        if b > n:
+            static[..., n:].zero_()
+
+    return graphs.cache.run((fn if key is None else key, cfg), lambda s: fn(s, cfg),
+                            x.shape[:-1] + (b,), getattr(torch, cfg.dtype), dev, fill), n
 
 
 def _frames_nopad(cfg: FeatureConfig, true_len: int) -> int:
@@ -83,8 +137,8 @@ def mfcc(signal, sampling_frequency, frame_length=0.020, frame_stride=0.01,
     cfg = _speechpy_cfg(sampling_frequency, frame_length, frame_stride,
                         num_cepstral, num_filters, fft_length, low_frequency,
                         high_frequency, dc_elimination, precision, dtype)
-    sig, n = _prep(signal, cfg, bucket, device)
-    return F.mfcc(sig, cfg)[..., : _frames_nopad(cfg, n), :]
+    out, n = _features(F.mfcc, signal, cfg, bucket, device)
+    return out[..., : _frames_nopad(cfg, n), :]
 
 
 def mfe(signal, sampling_frequency, frame_length=0.020, frame_stride=0.01,
@@ -93,8 +147,7 @@ def mfe(signal, sampling_frequency, frame_length=0.020, frame_stride=0.01,
     """Mel filterbank energies: ((..., F, num_filters), (..., F))."""
     cfg = _speechpy_cfg(sampling_frequency, frame_length, frame_stride,
                         13, num_filters, fft_length, low_frequency, high_frequency)
-    sig, n = _prep(signal, cfg, bucket, device)
-    feats, energies = F.mfe(sig, cfg)
+    (feats, energies), n = _features(F.mfe, signal, cfg, bucket, device)
     k = _frames_nopad(cfg, n)
     return feats[..., :k, :], energies[..., :k]
 
@@ -105,8 +158,8 @@ def lmfe(signal, sampling_frequency, frame_length=0.020, frame_stride=0.01,
     """Log mel filterbank energies, (..., F, num_filters)."""
     cfg = _speechpy_cfg(sampling_frequency, frame_length, frame_stride,
                         13, num_filters, fft_length, low_frequency, high_frequency)
-    sig, n = _prep(signal, cfg, bucket, device)
-    return F.lmfe(sig, cfg)[..., : _frames_nopad(cfg, n), :]
+    out, n = _features(F.lmfe, signal, cfg, bucket, device)
+    return out[..., : _frames_nopad(cfg, n), :]
 
 
 def ssc(signal, sampling_frequency, frame_length=0.020, frame_stride=0.01,
@@ -115,8 +168,8 @@ def ssc(signal, sampling_frequency, frame_length=0.020, frame_stride=0.01,
     """Spectral subband centroids in Hz, (..., F, num_filters)."""
     cfg = _speechpy_cfg(sampling_frequency, frame_length, frame_stride,
                         13, num_filters, fft_length, low_frequency, high_frequency)
-    sig, n = _prep(signal, cfg, bucket, device)
-    return F.ssc(sig, cfg)[..., : _frames_nopad(cfg, n), :]
+    out, n = _features(F.ssc, signal, cfg, bucket, device)
+    return out[..., : _frames_nopad(cfg, n), :]
 
 
 def extract(signal, sampling_frequency, which=("mfcc",), frame_length=0.020,
@@ -131,10 +184,12 @@ def extract(signal, sampling_frequency, which=("mfcc",), frame_length=0.020,
     cfg = _speechpy_cfg(sampling_frequency, frame_length, frame_stride,
                         num_cepstral, num_filters, fft_length, low_frequency,
                         high_frequency, dc_elimination, precision, dtype)
-    sig, n = _prep(signal, cfg, bucket, device)
+    which = tuple(which)
+    feats, n = _features(lambda s, c: F.extract(s, c, which), signal, cfg, bucket, device,
+                         key=(F.extract, which))
     k = _frames_nopad(cfg, n)
     out = {}
-    for name, val in F.extract(sig, cfg, tuple(which)).items():
+    for name, val in feats.items():
         if name == "mfe":
             out[name] = (val[0][..., :k, :], val[1][..., :k])
         elif name == "energy":
@@ -157,10 +212,10 @@ def mel_spectrogram(signal, sampling_frequency, frame_length=0.020,
         raise ValueError("mel_spectrogram supports only 1-D or 2-D input")
     cfg = _speechpy_cfg(sampling_frequency, frame_length, frame_stride,
                         num_cepstral, num_filters, fft_length, low_frequency,
-                        high_frequency, dc_elimination).replace(window="vorbis")
-    sig, n = _prep(sig_in, cfg, bucket, device)
+                        high_frequency, dc_elimination, window="vorbis")
+    out, n = _features(F.mel_spectrogram, sig_in, cfg, bucket, device)
     t_true = -(-n // cfg.stream_hop)
-    out = F.mel_spectrogram(sig, cfg)[..., :t_true]
+    out = out[..., :t_true]
     # the reference never writes its last n_pad frames; the start is clamped
     # at 0, so a clip of at most n_pad frames is all zeros (not the bucket's
     # computed frames)
@@ -263,14 +318,57 @@ def _prep_librosa(y, cfg: FeatureConfig, bucket: bool, device):
     return sig, cfg, count
 
 
+@tensor_cache(maxsize=64)
+def _edge_index(n: int, half: int, mode: str, device: torch.device):
+    """(where, what): the positions of the centre pad's two edges in the
+    padded signal of n samples, and the samples of the signal that each
+    reads (:func:`.ops.framing.pad_index`)."""
+    where = torch.cat([torch.arange(half, device=device),
+                       torch.arange(half + n, n + 2 * half, device=device)])
+    what = torch.cat([_framing.pad_index(-half, 0, n, mode, device),
+                      _framing.pad_index(n, n + half, n, mode, device)])
+    return where, what
+
+
+def _librosa(fn, y, cfg: FeatureConfig, bucket: bool, device):
+    """(``fn`` of the centre-padded, bucketed signal, true frame count), as
+    :func:`_prep_librosa` pads it: eagerly where
+    :func:`.utils.graphs.runs_eagerly`, else through the graph of (``fn``,
+    the uncentred cfg, bucketed shape), the signal written into its static
+    input between the two edges of the centre pad, then the bucket's zeros."""
+    x = torch.as_tensor(y)
+    dev = resolve_device(device)
+    if graphs.runs_eagerly(x, dev):
+        sig, cfg, count = _prep_librosa(x, cfg, bucket, dev)
+        return fn(sig, cfg), count
+    n = x.shape[-1]
+    count = _stft.librosa_frame_count(n, cfg.fft_points, cfg.frame_step, cfg.center)
+    half = cfg.fft_points // 2 if cfg.center else 0
+    # librosa_config pads in "reflect"; raises for n = 0, as pad_signal does
+    where, what = _edge_index(n, half, cfg.pad_mode, dev) if half else (None, None)
+    t = n + 2 * half
+    b = bucket_length(t) if bucket else t
+    cfg = _uncentred(cfg)
+
+    def fill(static):
+        body = static[..., half:half + n]
+        body.copy_(x)
+        if half:
+            static.index_copy_(-1, where, body.index_select(-1, what))
+        if b > t:
+            static[..., t:].zero_()
+
+    return graphs.cache.run((fn, cfg), lambda s: fn(s, cfg), x.shape[:-1] + (b,),
+                            getattr(torch, cfg.dtype), dev, fill), count
+
+
 def mel_spectrogram_librosa(y, sr=22050, n_fft=2048, hop_length=512, win_length=None,
                             n_mels=128, fmin=0.0, fmax=None, power=2.0, center=True,
                             bucket=True, device=None):
     """librosa-compatible mel spectrogram, (..., n_mels, frames)."""
-    cfg = librosa_config(sr, n_fft, hop_length, win_length, n_mels, fmin=fmin,
-                         fmax=fmax, power=power).replace(center=center)
-    sig, cfg, count = _prep_librosa(y, cfg, bucket, device)
-    return F.mel_spectrogram_librosa(sig, cfg)[..., :count]
+    cfg = _librosa_cfg(sr, n_fft, hop_length, win_length, n_mels, 20, fmin, fmax, power, center)
+    out, count = _librosa(F.mel_spectrogram_librosa, y, cfg, bucket, device)
+    return out[..., :count]
 
 
 def log_mel_spectrogram(y, sr=22050, n_fft=2048, hop_length=512, n_mels=128, fmin=0.0,
@@ -278,16 +376,14 @@ def log_mel_spectrogram(y, sr=22050, n_fft=2048, hop_length=512, n_mels=128, fmi
     """librosa ``power_to_db(melspectrogram)``.  Bucket frames are all-zero
     power, so they can neither raise the top_db reference maximum nor
     survive the final slice."""
-    cfg = librosa_config(sr, n_fft, hop_length, None, n_mels, fmin=fmin,
-                         fmax=fmax).replace(center=center)
-    sig, cfg, count = _prep_librosa(y, cfg, bucket, device)
-    return F.log_mel_spectrogram(sig, cfg)[..., :count]
+    cfg = _librosa_cfg(sr, n_fft, hop_length, None, n_mels, 20, fmin, fmax, 2.0, center)
+    out, count = _librosa(F.log_mel_spectrogram, y, cfg, bucket, device)
+    return out[..., :count]
 
 
 def mfcc_librosa(y, sr=22050, n_mfcc=20, n_fft=2048, hop_length=512, n_mels=128,
                  fmin=0.0, fmax=None, center=True, bucket=True, device=None):
     """librosa-compatible MFCC, (..., n_mfcc, frames)."""
-    cfg = librosa_config(sr, n_fft, hop_length, None, n_mels, n_mfcc=n_mfcc, fmin=fmin,
-                         fmax=fmax).replace(center=center)
-    sig, cfg, count = _prep_librosa(y, cfg, bucket, device)
-    return F.mfcc_librosa(sig, cfg)[..., :count]
+    cfg = _librosa_cfg(sr, n_fft, hop_length, None, n_mels, n_mfcc, fmin, fmax, 2.0, center)
+    out, count = _librosa(F.mfcc_librosa, y, cfg, bucket, device)
+    return out[..., :count]

@@ -5,13 +5,17 @@ that the port imports nothing of that package; ``tests/test_torch_port_imports.p
 pins them array-equal to the originals.  Everything is computed in float64
 and cast once per (config, device, dtype) by :func:`bundle_tensor` or
 ``features._speechpy_tensors``; such caches of tensors take
-:func:`tensor_cache`, which stores nothing while a trace runs.
+:func:`tensor_cache`, which stores nothing while a trace runs or a CUDA
+graph is captured.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import functools
 import math
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -21,28 +25,90 @@ import torch
 # ------------------------------------------------------------ tensor caches --
 def _tracing() -> bool:
     """A trace is running (``torch.export``, ``torch.compile``, ``make_fx``):
-    the tensors made now are fake or symbolic, valid only inside it."""
-    return torch.compiler.is_compiling() or torch._guards.detect_fake_mode() is not None
+    the tensors made now are fake or symbolic, valid only inside it.  (A
+    fake mode outside a compile sits on the dispatch-mode stack; the stack's
+    length is read first because ``detect_fake_mode`` costs microseconds on
+    every lookup of an eager call.)"""
+    return torch.compiler.is_compiling() or (
+        torch._C._len_torch_dispatch_stack() > 0
+        and torch._guards.detect_fake_mode() is not None)
+
+
+def _capturing() -> bool:
+    """The current CUDA stream is capturing a graph: a tensor made now lives
+    in the graph's private memory pool, which is freed with the graph.
+    (Without a CUDA context no capture can run; the CPU build has no query.)"""
+    return torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
+
+
+CacheInfo = collections.namedtuple("CacheInfo", "hits misses maxsize currsize")
+
+_held = threading.local()  # .values: the list that :func:`holding` opened, if any
+
+
+@contextlib.contextmanager
+def holding():
+    """Inside, on this thread, every value a :func:`tensor_cache` returns is
+    appended to the list this yields: a CUDA graph captured inside reads
+    those tensors at their addresses on every replay, so whoever keeps the
+    graph keeps the list, whatever the cache evicts meanwhile."""
+    saved, _held.values = getattr(_held, "values", None), []
+    try:
+        yield _held.values
+    finally:
+        _held.values = saved
 
 
 def tensor_cache(maxsize: int):
     """``functools.lru_cache`` for a function that builds tensors, except
-    while a trace runs: then the function builds its tensors afresh and the
-    cache neither stores nor returns them.  A tensor made inside a trace is
-    a fake one, and an eager call that later found it in the cache would
-    compute on it."""
+    while a trace runs or a CUDA graph is captured.  In a trace the function
+    builds its tensors afresh and the cache neither stores nor returns them:
+    a tensor made inside a trace is a fake one, and an eager call that later
+    found it in the cache would compute on it.  In a capture the cache
+    returns what it holds but stores nothing: a tensor built there lives in
+    the graph's pool and would outlive the graph in the cache (and building
+    one from numpy, a pageable copy, fails the capture; the graph layer's
+    warm-up fills the caches first).  Inside :func:`holding` every value
+    returned is also held there.  One lock guards the store, as
+    ``lru_cache``'s does; the function runs outside it."""
 
     def wrap(fn):
-        cached = functools.lru_cache(maxsize=maxsize)(fn)
+        store = collections.OrderedDict()
+        stats = [0, 0]  # hits, misses
+        lock = threading.Lock()
+        missing = object()
 
         @functools.wraps(fn)
         def call(*args, **kwargs):
             if _tracing():
                 return fn(*args, **kwargs)
-            return cached(*args, **kwargs)
+            key = (args, tuple(sorted(kwargs.items()))) if kwargs else args
+            with lock:
+                value = store.get(key, missing)
+                if value is not missing:
+                    stats[0] += 1
+                    store.move_to_end(key)
+                else:
+                    stats[1] += 1
+            if value is missing:
+                value = fn(*args, **kwargs)
+                if not _capturing():
+                    with lock:
+                        store[key] = value
+                        if len(store) > maxsize:
+                            store.popitem(last=False)
+            held = getattr(_held, "values", None)
+            if held is not None:
+                held.append(value)
+            return value
 
-        call.cache_info = cached.cache_info
-        call.cache_clear = cached.cache_clear
+        def cache_clear():
+            with lock:
+                store.clear()
+                stats[:] = [0, 0]
+
+        call.cache_info = lambda: CacheInfo(stats[0], stats[1], maxsize, len(store))
+        call.cache_clear = cache_clear
         return call
 
     return wrap

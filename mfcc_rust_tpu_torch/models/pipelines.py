@@ -13,7 +13,8 @@ librosa pipelines (the constants of their plain lowering; on a CUDA
 float32 input they launch the CT mel kernel, whose constants are its own)
 hold theirs only when built with ``hold_constants=True``, as
 :mod:`..export` builds them; otherwise :mod:`..features` caches them per
-device.
+device.  ``forward`` on a CUDA input replays a CUDA graph per input shape
+(:mod:`..utils.graphs`), as the JAX pipelines call a jitted function.
 :class:`FeatureExtractor` holds one pipeline of each speechpy family and
 the vorbis mel spectrogram.
 
@@ -35,6 +36,7 @@ from .. import features as F
 from ..config import FeatureConfig, fp32_matmul, librosa_config, vorbis_config
 from ..constants import bundle_tensor
 from ..ops import stft as _stft
+from ..utils import graphs
 from ..utils.device import resolve_device
 from .incremental import IncrementalFrontend, incremental_supported
 
@@ -65,8 +67,20 @@ class Pipeline(nn.Module):
         return F._speechpy_tensors(cfg, device, dtype) if F._fast_path_ok(cfg) else None
 
     def forward(self, signal: torch.Tensor):
+        """The feature function on ``signal``.  On CUDA this replays one CUDA
+        graph per (function, config, buffers, input shape) from
+        :mod:`..utils.graphs`, the counterpart of the JAX pipeline's
+        ``jax.jit``; eagerly on the CPU, for an input that requires a
+        gradient, and inside a trace (:meth:`lower`)."""
         consts = dict(self.named_buffers()) if self._has_consts else None
-        return getattr(F, self._fn_name)(signal, self.cfg, consts)
+        fn = getattr(F, self._fn_name)
+        if graphs.runs_eagerly(signal, signal.device):
+            return fn(signal, self.cfg, consts)
+        # the buffers' addresses key the graph, which reads them there
+        ptrs = tuple(t.data_ptr() for t in consts.values()) if consts else ()
+        return graphs.cache.run((fn, self.cfg, ptrs), lambda s: fn(s, self.cfg, consts),
+                                signal.shape, signal.dtype, signal.device,
+                                lambda s: s.copy_(signal), keep=consts)
 
     def lower(self, signal_shape, dtype: Optional[torch.dtype] = None):
         """The ``torch.export.ExportedProgram`` of this pipeline for

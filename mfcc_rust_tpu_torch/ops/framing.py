@@ -35,27 +35,32 @@ def pad_signal(signal: torch.Tensor, left: int, right: int,
         return pad_signal(signal.movedim(dim, -1), left, right, mode).movedim(-1, dim)
     if mode == "constant":
         return tF.pad(signal, (left, right))
-    t = signal.shape[-1]
+    idx = pad_index(-left, signal.shape[-1] + right, signal.shape[-1], mode, signal.device)
+    return signal.index_select(-1, idx)
+
+
+def pad_index(start: int, stop: int, t: int, mode: str, device=None) -> torch.Tensor:
+    """The samples that positions ``start .. stop - 1`` of an axis of ``t``
+    samples read once it is padded in ``mode`` (not "constant"), position 0
+    being its first sample: numpy's folds, as :func:`pad_signal` reads
+    them."""
     if t == 0:
         raise ValueError(f"cannot {mode}-pad an empty axis")
-    idx = torch.arange(-left, t + right, device=signal.device)
+    idx = torch.arange(start, stop, device=device)
     if mode == "reflect":
         if t == 1:
-            idx = torch.zeros_like(idx)
-        else:
-            period = 2 * (t - 1)
-            m = idx % period
-            idx = torch.where(m >= t, period - m, m)
-    elif mode == "symmetric":
+            return torch.zeros_like(idx)
+        period = 2 * (t - 1)
+        m = idx % period
+        return torch.where(m >= t, period - m, m)
+    if mode == "symmetric":
         m = idx % (2 * t)
-        idx = torch.where(m >= t, 2 * t - 1 - m, m)
-    elif mode == "edge":
-        idx = idx.clamp(0, t - 1)
-    elif mode == "wrap":
-        idx = idx % t
-    else:
-        raise ValueError(f"unsupported pad mode {mode!r}")
-    return signal.index_select(-1, idx)
+        return torch.where(m >= t, 2 * t - 1 - m, m)
+    if mode == "edge":
+        return idx.clamp(0, t - 1)
+    if mode == "wrap":
+        return idx % t
+    raise ValueError(f"unsupported pad mode {mode!r}")
 
 
 def speechpy_frame_counts(

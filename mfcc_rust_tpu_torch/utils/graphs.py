@@ -1,0 +1,287 @@
+"""Per-shape CUDA-graph replay: the port's counterpart of the JAX package's
+compiled-call layer (``api._jitted``, ``_jitted_extract`` and
+``Pipeline._jit``, which compile one program per function, config and input
+shape, the Pallas kernel inside).
+
+:data:`cache` holds up to :data:`MAXSIZE` graphs, least recently used out
+first, as ``api._jitted``'s ``lru_cache(16)``.  A graph's key is the
+caller's (the function and its config, plus whatever else fixes the launch
+sequence) with the input's shape, dtype and device.  :meth:`GraphCache.run`:
+
+* first call of a key: the caller's ``fill`` writes the input into a new
+  static input; one eager warm-up of the function on the cache's stream
+  builds every tensor cache, the kernels' launch plans and cuBLAS's state;
+  then the function is captured on that stream.  The warm-up's output is
+  the call's result, so a first call launches each kernel as often as an
+  eager call does.  The graph keeps every tensor-cache value the capture
+  read (:func:`..constants.holding`): it reads them at their addresses on
+  every replay, whatever the caches evict later;
+* every later call: on the cache's stream of the device, ordered after the
+  caller's stream and before the caller's later work, ``fill`` writes the
+  input into the static input, the graph replays (the glue, K1 or K2, the
+  heads, in one graph launch), and the static outputs are copied into
+  fresh tensors of the caller's stream: JAX returns fresh arrays, and a
+  result must survive the next call.  One stream per device puts the calls
+  of every thread and stream in one order on the device, as one lock does
+  on the host.
+
+A capture that fails raises; nothing falls back to an eager call.  The
+callers (``api``, ``models.pipelines.Pipeline``) run eagerly only where
+:func:`runs_eagerly` says the semantics need it.
+
+Launch counts: each kernel wrapper counts its launches (``.launches``).  A
+capture runs the wrappers but launches nothing, so its counts are taken
+back and kept with the graph; each replay adds them, as many as the device
+performs.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import threading
+import time
+import warnings
+from typing import Callable
+
+import torch
+
+from ..constants import _capturing, _tracing, holding
+
+MAXSIZE = 16
+
+_enabled = True
+
+
+def runs_eagerly(x: torch.Tensor, device: torch.device) -> bool:
+    """Whether a call on ``x`` computing on ``device`` runs eagerly instead
+    of through a graph: on the CPU; when ``x`` requires a gradient (autograd
+    records the kernels' ``autograd.Function``s); inside a trace, which
+    records the function itself (``torch.export`` of a pipeline), or inside
+    an enclosing capture, which records the eager launches (as ``jax.jit``
+    inlines into an enclosing trace); and inside :func:`disabled`."""
+    return (device.type != "cuda" or not _enabled
+            or (x.requires_grad and torch.is_grad_enabled())
+            or _capturing() or _tracing())
+
+
+@contextlib.contextmanager
+def disabled():
+    """Inside, every call runs eagerly: the eager calls that a measurement
+    holds the replays against."""
+    global _enabled
+    saved, _enabled = _enabled, False
+    try:
+        yield
+    finally:
+        _enabled = saved
+
+
+_wrappers: list = []
+
+
+def _kernels() -> tuple:
+    """The kernel wrappers whose launches a graph counts (K1, K2): the
+    modules' own, whatever a check puts in their place meanwhile (it does so
+    under :func:`disabled`)."""
+    if not _wrappers:
+        from ..ops.cuda import ct_mel, speechpy_mfcc
+
+        _wrappers.extend((speechpy_mfcc.mfcc_fused, ct_mel.ct_mel))
+    return tuple(_wrappers)
+
+
+def _counts(kernels) -> tuple:
+    return tuple(k.launches for k in kernels)
+
+
+def _tree(fn, out):
+    """``fn`` on every tensor of a tensor, tuple, list or dict of them."""
+    if isinstance(out, torch.Tensor):
+        return fn(out)
+    if isinstance(out, dict):
+        return {k: _tree(fn, v) for k, v in out.items()}
+    if isinstance(out, (tuple, list)):
+        return type(out)(_tree(fn, v) for v in out)
+    raise TypeError(f"a graphed function returns tensors, got {type(out).__name__}")
+
+
+def _copy_tree(dst, src) -> None:
+    """Copy every tensor of ``src`` into its place in ``dst`` (trees alike)."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(dst, dict):
+        for k in dst:
+            _copy_tree(dst[k], src[k])
+    else:
+        for d, s in zip(dst, src):
+            _copy_tree(d, s)
+
+
+def _tensors(value):
+    """The tensors of a tensor-cache value (tensors in tuples, lists and
+    dicts, beside other values)."""
+    if isinstance(value, torch.Tensor):
+        yield value
+    elif isinstance(value, dict):
+        for v in value.values():
+            yield from _tensors(v)
+    elif isinstance(value, (tuple, list)):
+        for v in value:
+            yield from _tensors(v)
+
+
+class _Graph:
+    """One captured call: its static input and outputs, the launches of one
+    replay per kernel, and what must live as long as the graph reads it (a
+    module's buffers, the tensor-cache values of the capture)."""
+
+    __slots__ = ("graph", "static", "out", "launches", "keep", "capture_s")
+
+    def __init__(self, graph, static, out, launches, keep, capture_s):
+        self.graph, self.static, self.out = graph, static, out
+        self.launches, self.keep, self.capture_s = launches, keep, capture_s
+
+    def pool_bytes(self) -> int:
+        """Bytes of device memory the graph's private pool holds."""
+        pool = self.graph.pool()
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if s["segment_pool_id"] == pool)
+
+
+class GraphCache:
+    """An LRU cache of captured calls; see the module's docstring."""
+
+    def __init__(self, maxsize: int = MAXSIZE):
+        self.maxsize = maxsize
+        self._graphs: "collections.OrderedDict[tuple, _Graph]" = collections.OrderedDict()
+        self._streams: dict = {}
+        self._lock = threading.Lock()
+        self.captures = 0
+        self.replays = 0
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def clear(self) -> None:
+        """Drop every graph; its pool is freed once nothing holds a tensor
+        of it (``torch.cuda.empty_cache`` then returns it to the device)."""
+        with self._lock:
+            self._graphs.clear()
+
+    @staticmethod
+    def key(key: tuple, shape, dtype: torch.dtype, device: torch.device) -> tuple:
+        """The full key of a call: the caller's, the input's shape, dtype and
+        device (with its index), and inference mode (its tensors cannot be
+        written outside it)."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        return key, tuple(shape), dtype, device, torch.is_inference_mode_enabled()
+
+    def run(self, key: tuple, fn: Callable, shape, dtype: torch.dtype,
+            device: torch.device, fill: Callable[[torch.Tensor], None], keep=None):
+        """``fn(static)`` for the input that ``fill`` writes into the static
+        input (``shape``, ``dtype`` on ``device``): captured at the first
+        call of the key, replayed at every later one.  ``keep`` lives as long
+        as the graph (what ``fn`` reads besides the static input)."""
+        full = self.key(key, shape, dtype, device)
+        with self._lock:  # one call at a time writes a static input and replays
+            g = self._graphs.get(full)
+            if g is None:
+                static = torch.empty(tuple(shape), dtype=dtype, device=full[3])
+                fill(static)
+                out, self._graphs[full] = self._capture(fn, static, keep)
+                self.captures += 1
+                if len(self._graphs) > self.maxsize:
+                    self._graphs.popitem(last=False)
+                return out
+            self._graphs.move_to_end(full)
+            out = self._replay(g, fill)
+            for k, n in zip(_kernels(), g.launches):
+                if n:
+                    k.launches += n
+            self.replays += 1
+            return out
+
+    def _replay(self, g: _Graph, fill: Callable[[torch.Tensor], None]):
+        """Fill, replay and copy out on the cache's stream; the copies are
+        the caller's stream's tensors."""
+        out = _tree(torch.empty_like, g.out)
+        with self._on_cache_stream(g.static.device):
+            fill(g.static)
+            g.graph.replay()
+            _copy_tree(out, g.out)
+        return out
+
+    @contextlib.contextmanager
+    def _on_cache_stream(self, device: torch.device):
+        """Inside, work goes to the cache's stream of ``device`` after the
+        caller's stream's work so far; the caller's stream waits for it on
+        the way out."""
+        main = torch.cuda.current_stream(device)
+        side = self._streams.get(device)
+        if side is None:
+            side = self._streams[device] = torch.cuda.Stream(device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            yield side
+        main.wait_stream(side)
+
+    def _warm_up(self, fn: Callable, static: torch.Tensor):
+        """One eager call of ``fn`` on the cache's stream, which builds what
+        a capture may not (tensor caches, launch plans, cuBLAS's workspace
+        for that stream); its output, usable on the caller's stream.  The
+        tensor-cache values it builds are marked as used on the caller's
+        stream too, so that their memory is not reused before the caller's
+        work on them is done."""
+        main = torch.cuda.current_stream(static.device)
+        with holding() as held, self._on_cache_stream(static.device):
+            out = fn(static)
+        for t in (t for v in held for t in _tensors(v) if t.is_cuda):
+            t.record_stream(main)
+        _tree(lambda t: t.record_stream(main), out)
+        return out
+
+    def _record(self, fn: Callable, static: torch.Tensor):
+        """(the graph of ``fn`` on ``static``, its static outputs)."""
+        graph = torch.cuda.CUDAGraph()
+        with warnings.catch_warnings():
+            # a call with no work (no frames) captures an empty graph
+            warnings.filterwarnings("ignore", message="The CUDA Graph is empty")
+            with torch.cuda.graph(graph, stream=self._streams[static.device],
+                                  capture_error_mode="thread_local"):
+                out = fn(static)
+        return graph, out
+
+    def _capture(self, fn: Callable, static: torch.Tensor, keep):
+        """(the warm-up's output, the captured call).  The launches the
+        capture counted are taken back and kept with the graph, and so are
+        the tensor-cache values it read; a capture that fails raises with
+        the counts as they were."""
+        out = self._warm_up(fn, static)
+        kernels = _kernels()
+        before = _counts(kernels)
+        t0 = time.perf_counter()
+        try:
+            with holding() as held:
+                graph, static_out = self._record(fn, static)
+        finally:
+            launches = tuple(a - b for a, b in zip(_counts(kernels), before))
+            for k, n in zip(kernels, launches):
+                if n:
+                    k.launches -= n
+        return out, _Graph(graph, static, static_out, launches, (keep, held),
+                           time.perf_counter() - t0)
+
+    def stats(self) -> dict:
+        """Captures, replays, graphs held, and the device bytes they hold:
+        their pools and their static inputs (``bytes``), on the card."""
+        pools = sum(g.pool_bytes() for g in self._graphs.values())
+        static = sum(g.static.numel() * g.static.element_size() for g in self._graphs.values())
+        return {"captures": self.captures, "replays": self.replays, "graphs": len(self),
+                "pool_bytes": pools, "static_bytes": static, "bytes": pools + static,
+                "capture_s": [g.capture_s for g in self._graphs.values()]}
+
+
+cache = GraphCache()

@@ -527,3 +527,287 @@ def test_examples_launch_the_kernels_on_card(cuda_device, name):
     assert (len(readings["k1"]), len(readings["k2"])) == launches
     assert max(readings["k1"] + readings["k2"], default=0.0) <= 1e-4, readings
     assert chip_smoke.example_lines_differ(lines, cpu_lines) == []
+
+
+# The compiled-call layer (utils/graphs.py): each entry point that the JAX
+# package jits, and each pipeline, on a CUDA input that needs no gradient
+# captures one graph and replays it; a replay is held to the eager call
+# (graphs.disabled()) at 1e-6 of max|ref| (both run the same kernels on the
+# same values; the replay is expected bitwise).
+SP, LB = P.speechpy_config(16000), P.librosa_config(22050)
+# (name, a function making the callable, (K1, K2) launches a call)
+GRAPHED = [
+    ("api.mfcc", lambda: lambda x: P.mfcc(x, 16000), (1, 0)),
+    ("api.mfe", lambda: lambda x: P.mfe(x, 16000), (0, 0)),
+    ("api.lmfe", lambda: lambda x: P.lmfe(x, 16000), (0, 0)),
+    ("api.ssc", lambda: lambda x: P.ssc(x, 16000), (0, 0)),
+    ("api.extract", lambda: lambda x: P.extract(x, 16000, which=HEADS), (0, 0)),
+    ("api.mel_spectrogram", lambda: lambda x: P.mel_spectrogram(x, 16000), (0, 0)),
+    ("api.mel_spectrogram_librosa", lambda: P.mel_spectrogram_librosa, (0, 1)),
+    ("api.log_mel_spectrogram", lambda: P.log_mel_spectrogram, (0, 1)),
+    ("api.mfcc_librosa", lambda: P.mfcc_librosa, (0, 1)),
+    ("MFCCPipeline", lambda: P.MFCCPipeline(SP), (1, 0)),
+    ("MFEPipeline", lambda: P.MFEPipeline(SP), (0, 0)),
+    ("LogMFEPipeline", lambda: P.LogMFEPipeline(SP), (0, 0)),
+    ("SSCPipeline", lambda: P.SSCPipeline(SP), (0, 0)),
+    ("MelSpectrogramPipeline", lambda: P.MelSpectrogramPipeline(SP), (0, 0)),
+    ("LibrosaMelPipeline", lambda: P.LibrosaMelPipeline(LB), (0, 1)),
+    ("LibrosaMFCCPipeline", lambda: P.LibrosaMFCCPipeline(LB), (0, 1)),
+    ("FeatureExtractor", lambda: P.FeatureExtractor(SP), (1, 0)),
+]
+
+
+@pytest.fixture
+def graph_cache(cuda_device):
+    from mfcc_rust_tpu_torch.utils import graphs
+
+    graphs.cache.clear()
+    yield graphs
+    graphs.cache.clear()
+
+
+def _leaves(out):
+    if isinstance(out, dict):
+        return [t for v in out.values() for t in _leaves(v)]
+    if isinstance(out, tuple):
+        return [t for v in out for t in _leaves(v)]
+    return [out]
+
+
+def _launches():
+    return pk.mfcc_fused.launches, ck.ct_mel.launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,make,want", GRAPHED, ids=[c[0] for c in GRAPHED])
+def test_entry_points_replay_a_graph_equal_to_eager_on_card(graph_cache, name, make, want):
+    graphs = graph_cache
+    rng = np.random.default_rng(40)
+    xs = [torch.from_numpy(rng.normal(0, 0.1, (2, 16000)).astype(np.float32)).cuda()
+          for _ in range(3)]
+    fn = make()
+    outs, counts = [], []
+    for i, x in enumerate(xs):
+        before, (c0, r0) = _launches(), (graphs.cache.captures, graphs.cache.replays)
+        with graphs.disabled():
+            eager = fn(x)
+        torch.cuda.synchronize()
+        eager_launches = tuple(a - b for a, b in zip(_launches(), before))
+        before = _launches()
+        got = fn(x)
+        torch.cuda.synchronize()
+        counts.append(tuple(a - b for a, b in zip(_launches(), before)))
+        assert eager_launches == counts[-1] == want, (name, i, eager_launches, counts[-1])
+        # the first call captures, every later one replays: never eagerly
+        assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == \
+            ((1, 0) if i == 0 else (0, 1)), name
+        for a, b in zip(_leaves(got), _leaves(eager)):
+            assert a.is_cuda and a.shape == b.shape
+            assert rel(a, b) <= 1e-6, (name, i, rel(a, b))
+        outs.append(got)
+    # results are fresh tensors: the first replay's survives the second
+    with graphs.disabled():
+        again = fn(xs[1])
+    for a, b in zip(_leaves(outs[1]), _leaves(again)):
+        assert rel(a, b) <= 1e-6, name
+
+
+@pytest.mark.cuda
+def test_bucket_tail_and_centre_pad_rewritten_per_call_on_card(graph_cache):
+    graphs = graph_cache
+    c0, r0 = graphs.cache.captures, graphs.cache.replays
+    rng = np.random.default_rng(41)
+    calls = [(lambda x: P.mfcc(x, 16000), (15000, 13000)),
+             (lambda x: P.ssc(x, 16000), (15000, 13000)),
+             (lambda x: P.mel_spectrogram_librosa(x), (21000, 20000)),
+             (lambda x: P.mfcc_librosa(x, center=False), (23000, 21000))]
+    for fn, lengths in calls:
+        for n in lengths + lengths[:1]:
+            x = rng.normal(0, 0.1, (2, n)).astype(np.float32)
+            got = fn(x)
+            with graphs.disabled():
+                ref = fn(x)
+            assert rel(got, ref) <= 1e-6, n
+    # one bucket each: one capture, two replays
+    assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == (4, 8)
+
+
+@pytest.mark.cuda
+def test_launches_are_counted_per_replay_on_card(graph_cache):
+    graphs = graph_cache
+    x = torch.from_numpy(np.random.default_rng(42).normal(0, 0.1, (4, 16000))
+                         .astype(np.float32)).cuda()
+    c0, r0 = graphs.cache.captures, graphs.cache.replays
+    before = _launches()
+    for _ in range(3):
+        P.mfcc(x, 16000)
+        P.mel_spectrogram_librosa(x, 16000, n_fft=512, hop_length=160)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (3, 3)
+    assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == (2, 4)
+    g = list(graphs.cache._graphs.values())
+    assert sorted(e.launches for e in g) == [(0, 1), (1, 0)]
+
+
+@pytest.mark.cuda
+def test_inputs_needing_a_gradient_run_eagerly_on_card(graph_cache):
+    graphs = graph_cache
+    x = torch.from_numpy(np.random.default_rng(43).normal(0, 0.1, (2, 8000))
+                         .astype(np.float32)).cuda().requires_grad_(True)
+    c0, before = graphs.cache.captures, _launches()
+    (P.mfcc(x, 16000).sum() + P.MFCCPipeline(SP)(x).sum()).backward()
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (2, 0)
+    assert graphs.cache.captures == c0 and len(graphs.cache) == 0
+    assert bool(torch.isfinite(x.grad).all())
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises_on_card(graph_cache):
+    graphs = graph_cache
+    cache = graphs.GraphCache()
+    with pytest.raises(Exception):
+        # float() reads the result back: a capture cannot
+        cache.run(("sync",), lambda s: s * float(s.sum()), (4,), torch.float32,
+                  torch.device("cuda"), lambda s: s.fill_(1.0))
+    assert len(cache) == 0 and cache.captures == 0
+    # the layer goes on afterwards
+    r0 = graphs.cache.replays
+    x = torch.zeros((2, 16000), device="cuda")
+    out = P.mfcc(x, 16000)
+    out2 = P.mfcc(x + 0.1, 16000)
+    torch.cuda.synchronize()
+    assert graphs.cache.replays == r0 + 1 and bool(torch.isfinite(out2).all()) and out.is_cuda
+
+
+@pytest.mark.cuda
+def test_eviction_frees_the_pool_on_card(graph_cache):
+    import gc
+
+    graphs = graph_cache
+    cache = graphs.GraphCache(maxsize=1)
+    big = (64, 1 << 20)  # a 256 MB intermediate in the graph's pool
+    fn = lambda s: (s * 2.0 + 1.0).sum(-1)
+    dev = torch.device("cuda")
+    fill = lambda s: s.fill_(1.0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = cache.run(("a",), fn, big, torch.float32, dev, fill)
+    (ga,) = cache._graphs.values()
+    pool, held = ga.graph.pool(), ga.pool_bytes()
+    assert held >= 256 << 20 and float(out[0]) == 3.0 * (1 << 20)
+    assert float(cache.run(("a",), fn, big, torch.float32, dev, fill)[0]) == 3.0 * (1 << 20)
+    del ga, out
+    cache.run(("b",), lambda s: s + 1.0, (4,), torch.float32, dev, fill)  # evicts "a"
+    assert len(cache) == 1
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    left = [s for s in torch.cuda.memory_snapshot() if s["segment_pool_id"] == pool]
+    assert left == [], [s["total_size"] for s in left]
+
+
+def _clear_tensor_caches():
+    """Empty every tensor cache of the port (``constants.tensor_cache``)."""
+    import sys
+
+    from mfcc_rust_tpu_torch import constants as pc
+
+    for name, mod in list(sys.modules.items()):
+        if name.startswith("mfcc_rust_tpu_torch"):
+            for f in list(vars(mod).values()):
+                info = getattr(f, "cache_info", None)
+                if callable(info) and type(info()) is pc.CacheInfo:
+                    f.cache_clear()
+
+
+@pytest.mark.cuda
+def test_replays_survive_the_tensor_caches_dropping_their_constants_on_card(graph_cache):
+    """A graph reads its constants (the kernels' tables, the DFT walls, the
+    filterbanks) at the addresses it captured.  Once every tensor cache has
+    dropped them and memory of each one's size has been taken and filled
+    with NaN, a replay must still equal the eager call: the graph keeps
+    what it reads."""
+    import gc
+
+    from mfcc_rust_tpu_torch import constants as pc
+
+    graphs = graph_cache
+    x = torch.from_numpy(np.random.default_rng(45).normal(0, 0.1, (2, 16000))
+                         .astype(np.float32)).cuda()
+    calls = [lambda x: P.mfcc(x, 16000), lambda x: P.ssc(x, 16000),
+             lambda x: P.mel_spectrogram(x, 16000),
+             lambda x: P.mel_spectrogram_librosa(x, 16000, n_fft=512, hop_length=160),
+             lambda x: P.mfcc_librosa(x, 16000, n_fft=512, hop_length=160)]
+    refs, sizes = [], set()
+    for fn in calls:
+        fn(x)  # captures
+        with pc.holding() as held, graphs.disabled():
+            refs.append(fn(x))
+        sizes.update(t.numel() * t.element_size() for v in held for t in graphs._tensors(v)
+                     if t.is_cuda)
+        del held
+    torch.cuda.synchronize()
+    c0, r0 = graphs.cache.captures, graphs.cache.replays
+    _clear_tensor_caches()
+    gc.collect()
+    junk = []  # on the caller's stream and the cache's, where the warm-ups built them
+    for s in [torch.cuda.current_stream(), *graphs.cache._streams.values()]:
+        with torch.cuda.stream(s):
+            junk += [torch.full((max(n // 4, 1),), float("nan"), device="cuda")
+                     for n in sorted(sizes) for _ in range(4)]
+    torch.cuda.synchronize()
+    for fn, ref in zip(calls, refs):
+        assert rel(fn(x), ref) <= 1e-6
+    assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == (0, len(calls))
+    del junk
+
+
+@pytest.mark.cuda
+def test_calls_on_two_streams_each_get_their_own_result_on_card(graph_cache):
+    """Two streams call one graph at once (each behind a device spin of the
+    same length, so their work would overlap on the device): each result
+    must be its own input's, as the eager call gives it."""
+    graphs = graph_cache
+    rng = np.random.default_rng(46)
+    xs = [torch.from_numpy(rng.normal(0, 0.1, (16, 160000)).astype(np.float32)).cuda()
+          for _ in range(2)]
+    pipe = P.MFCCPipeline(SP)
+    with graphs.disabled():
+        refs = [pipe(x) for x in xs]
+    pipe(xs[0])  # captures
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    r0 = graphs.cache.replays
+    for _ in range(5):
+        for s in streams:
+            with torch.cuda.stream(s):
+                torch.cuda._sleep(20_000_000)
+        outs = []
+        for s, x in zip(streams, xs):
+            with torch.cuda.stream(s):
+                outs.append(pipe(x))
+        torch.cuda.synchronize()
+        for out, ref in zip(outs, refs):
+            assert rel(out, ref) <= 1e-6
+    assert graphs.cache.replays - r0 == 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["SSCPipeline", "MFCCPipeline", "MelSpectrogramPipeline"])
+def test_framed_lowerings_replay_on_card(graph_cache, name):
+    """Off the chunk-GEMM fast path (``fft_impl="fft"``: the framed
+    lowering, the SSC ramp among its constants), every constant comes from
+    a tensor cache the warm-up filled: nothing is uploaded inside the
+    capture, which would fail it."""
+    graphs = graph_cache
+    cfg = P.speechpy_config(16000, fft_impl="fft")
+    assert not PF._fast_path_ok(cfg)
+    pipe = getattr(P, name)(cfg)
+    rng = np.random.default_rng(44)
+    c0 = graphs.cache.captures
+    for _ in range(3):
+        x = torch.from_numpy(rng.normal(0, 0.1, (2, 8000)).astype(np.float32)).cuda()
+        got = pipe(x)
+        with graphs.disabled():
+            assert rel(got, pipe(x)) <= 1e-6
+    assert graphs.cache.captures - c0 == 1

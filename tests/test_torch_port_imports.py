@@ -214,6 +214,49 @@ def test_bench_torch_imports_no_jax():
     assert res.returncode == 0, res.stderr
 
 
+def test_graph_layer_pulls_in_no_jax_and_needs_cuda_by_default(tmp_path):
+    """The compiled-call layer (``utils/graphs.py``) and the entry points and
+    pipelines on it import neither JAX nor the JAX package, even where each
+    import would be refused; without CUDA the entry points refuse unless
+    asked for the CPU, and on the CPU they capture nothing."""
+    for name in ("jax", "jaxlib", "mfcc_rust_tpu"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(f"raise ImportError('{name} is blocked')\n")
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import torch
+        import mfcc_rust_tpu_torch.utils.graphs as G
+        import mfcc_rust_tpu_torch as P
+        bad = [k for k in sys.modules
+               if k.split('.')[0] in ('jax', 'jaxlib', 'mfcc_rust_tpu')]
+        assert not bad, bad
+        assert not torch.cuda.is_available()
+        x = np.random.default_rng(0).normal(0, 0.1, (2, 8000)).astype(np.float32)
+        for call in (lambda: P.mfcc(x, 16000), lambda: P.mel_spectrogram_librosa(x),
+                     lambda: P.MFCCPipeline(P.speechpy_config(16000))):
+            try:
+                call()
+            except RuntimeError as e:
+                assert "CUDA" in str(e)
+            else:
+                raise AssertionError("ran without CUDA")
+        P.mfcc(x, 16000, device="cpu"), P.extract(x, 16000, ("mfcc", "ssc"), device="cpu")
+        P.MFCCPipeline(P.speechpy_config(16000), device="cpu")(torch.from_numpy(x))
+        assert (G.cache.captures, G.cache.replays, len(G.cache)) == (0, 0, 0)
+        assert G.runs_eagerly(torch.from_numpy(x), torch.device("cpu"))
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=120,
+                         env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": "",
+                              "PYTHONPATH": f"{tmp_path}:{ROOT}"})
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+    graphs_py = ROOT / "mfcc_rust_tpu_torch" / "utils" / "graphs.py"
+    assert "import jax" not in graphs_py.read_text() and "mfcc_rust_tpu." not in \
+        graphs_py.read_text()
+
+
 PRESETS = [
     ("speechpy 20/10", m.speechpy_config(16000)),
     ("speechpy 25/10", m.speechpy_config(16000, frame_length=0.025)),
