@@ -19,12 +19,17 @@ launch count set to 0, failing unless the path's kernel launched:
   launch none; ``FeatureExtractor`` and the ``transforms`` modules then
   must launch K1 or K2, each with the counts zeroed just before;
 * streaming: six 60 s sessions of ``models.StreamingFeatures`` and
-  ``models.StreamingExtractor`` (``streaming_phase``), each with the counts
-  zeroed just before: the carried chunk-GEMM sessions and the streaming
-  STFT must launch no kernel, the recompute sessions K1 or K2 once per
-  call that emits frames.  Each session is held to its batch function and
-  its float64 oracle, ``reset()`` must reproduce it, and each call is timed
-  (``"streaming"`` in the record; not in the kernels line);
+  ``models.StreamingExtractor`` (``streaming_phase``), each run eagerly
+  and replayed from the session's own CUDA graphs, in turns, each run with
+  the counts zeroed just before: the carried chunk-GEMM sessions and the
+  streaming STFT must launch no kernel, the recompute sessions K1 or K2
+  once per call that emits frames, inside their graphs when replayed.
+  Each run is held to its batch function and its float64 oracle, the
+  replays to the eager run, every recompute launch to its kernel's plain
+  version; ``reset()`` must reproduce a session, two interleaved sessions
+  must not share a carry, captures are bounded by the JAX package's
+  buckets, and each call is timed (``"streaming"`` in the record; the
+  replayed launches go to the kernels line as ``launches_streaming``);
 * corpus: 2,703 WAV files written from seed 0 (LibriSpeech dev-clean's
   count, ``bench.py``'s length profile), then ``parallel.CorpusRunner`` on
   a one-rank CUDA mesh (``corpus_phase``) with the counts zeroed just
@@ -618,20 +623,20 @@ def feed_session(torch, sess, chunks, finalize: bool = False):
     """Feed the host chunks to a streaming session, one ``process()`` call
     at a time, each followed by a device sync so the frames are in hand.
     Returns (rows, or the (mel, energy) pair of ``mfe``; host ms of each
-    call; calls that emitted frames)."""
-    outs, times, emitting = [], [], 0
+    call; rows each call emitted)."""
+    outs, times, rows = [], [], []
     for c in chunks:
         t0 = time.perf_counter()
         o = sess.process(c)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        emitting += (o[0] if isinstance(o, tuple) else o).shape[0] > 0
+        rows.append((o[0] if isinstance(o, tuple) else o).shape[0])
         outs.append(o)
     if finalize:
         outs.append(sess.finalize())
     if isinstance(outs[0], tuple):
-        return tuple(torch.cat(p) for p in zip(*outs)), times, emitting
-    return torch.cat(outs), times, emitting
+        return tuple(torch.cat(p) for p in zip(*outs)), times, rows
+    return torch.cat(outs), times, rows
 
 
 def call_device_ms(torch, sess, chunks, spin: int = 5_000_000) -> tuple:
@@ -686,13 +691,31 @@ def streaming_phase(np, torch, P, k1, k2) -> dict:
     first speechpy filter weighs that bin alone, so the log of band 0 makes
     the rounding a relative error of ~4e-5.  The same session in float64
     (its first 10 s) is then held to the float64 batch within 1e-10.
-    After ``reset()`` the first 10 s again must give the first frames to
-    1e-6.  Times: the host clock around each call and its sync (median,
-    p99, the median's share of the chunk's duration, audio-s/s), and for
-    S1 and S3 the device time of one call (CUDA events).  Any failed check
-    raises after the phase has printed every number."""
+
+    Each session runs in turns: eagerly (``utils.graphs.disabled()``), then
+    replayed from its own graph cache (its first calls capture), the same
+    replayed session again after ``reset()`` (it must capture nothing), and
+    the eager one again after ``reset()``.  Every run passes the gates
+    above and launches (K1, K2) as eager does; each is held to the first
+    eager run within COMPILED_TOL (bitwise expected: the same pieces through
+    the same products), with the same rows a call.  Captures: each key
+    once, at most the four carried step sizes, the emission buckets the
+    recompute calls used, the extractor's chunk lengths.  S3's and S5's
+    every launch is then held to its kernel's plain version
+    (:func:`held_to_plain`, eager: a capture cannot read back).  After
+    ``reset()`` the replayed session's first 10 s again must give the first
+    frames to 1e-6, and two S1 sessions replayed call by call on two
+    signals must each equal its own run.  Times: the host clock around each
+    call and its sync (median, p99, the median's share of the chunk's
+    duration, audio-s/s) for every run, for S1 and S3 the device time of
+    one call (CUDA events) eager and replayed in turns, each session's
+    capture ms and the bytes its graphs hold (pool, static inputs, state).
+    The launches of the replayed runs after reset go to the kernels line
+    as ``launches_streaming``.  Any failed check raises after the phase
+    has printed every number."""
     from mfcc_rust_tpu_torch import features as PF
     from mfcc_rust_tpu_torch.models import StreamingExtractor, StreamingFeatures
+    from mfcc_rust_tpu_torch.utils import graphs
     from tests.golden import dfn_ref, librosa_ref, speechpy_ref
 
     dev = torch.device("cuda")
@@ -761,51 +784,166 @@ def streaming_phase(np, torch, P, k1, k2) -> dict:
                        for u, v in zip(a, ref))
         return rel_err(a, ref if isinstance(ref, torch.Tensor) else torch.from_numpy(ref))[0]
 
-    for name, make, x, sizes, path, per_call in sessions:
-        rate = L_RATE if x is x22 else RATE
-        sess = make()
-        chunks = cut(x, sizes)
-        if path != "stft":
-            check((sess._inc is not None) == (path == "incremental"), f"{name}: path")
+    def bitwise(a, ref) -> bool:
+        pairs = zip(a, ref) if isinstance(a, tuple) else [(a, ref)]
+        return all(u.shape == v.shape and bool((u == v).all()) for u, v in pairs)
+
+    def session_cache(sess):
+        """The session's own graph cache (the carried front end's, or its own)."""
+        inc = getattr(sess, "_inc", None)
+        return inc._graphs if inc is not None else sess._graphs
+
+    def drive(sess, chunks, replay: bool, finalize: bool = False):
+        """:func:`feed_session` with every launch count zeroed just before,
+        eagerly (``graphs.disabled()``) or replayed; adds the (K1, K2)
+        launches of the run."""
         k1.mfcc_fused.launches = k2.ct_mel.launches = 0
-        out, times, emitting = feed_session(torch, sess, chunks, finalize=path == "stft")
-        launches = (k1.mfcc_fused.launches, k2.ct_mel.launches)
-        want = tuple(emitting * n for n in per_call)
-        check(launches == want, f"{name}: launches {launches}, want {want}")
-        ref = batch[name]()
-        torch.cuda.synchronize()
-        r_batch = rel_pair(out, ref)
-        r_oracle = rel_pair(out, oracle[name]())
-        tol = REL_TOL if name == "S1" else STREAM_TOL
-        check(r_batch <= tol, f"{name}: vs batch {r_batch:.3e}")
-        check(r_oracle <= ORACLE_TOL, f"{name}: vs oracle {r_oracle:.3e}")
-        # reset: the first 10 s again
-        sess.reset()
-        n10 = int(np.searchsorted(np.cumsum(sizes), 10 * rate, side="right"))
-        again, _, _ = feed_session(torch, sess, chunks[:n10])
-        head = tuple(o[:a.shape[0]] for o, a in zip(out, again)) if isinstance(out, tuple) \
-            else out[:again.shape[0]]
-        r_reset = rel_pair(again, head)
-        check(r_reset <= 1e-6 and (again[0] if isinstance(again, tuple) else again).shape[0] > 0,
-              f"{name}: reset {r_reset:.3e}")
-        rows = (out[0] if isinstance(out, tuple) else out).shape
+        with contextlib.nullcontext() if replay else graphs.disabled():
+            out, times, rows = feed_session(torch, sess, chunks, finalize=finalize)
+        return out, times, rows, (k1.mfcc_fused.launches, k2.ct_mel.launches)
+
+    def host_times(times, sizes, rate) -> dict:
         dur = np.asarray(sizes[:len(times)], dtype=np.float64) / rate * 1e3
         t = np.asarray(times)
-        r = {"path": path, "calls": len(chunks), "rows": list(rows), "emitting_calls": emitting,
-             "launches": list(launches), "rel_batch": r_batch, "rel_oracle": r_oracle,
-             "rel_reset": r_reset, "median_ms": float(np.median(t)),
-             "p99_ms": float(np.percentile(t, 99)), "rt_share": float(np.median(t / dur)),
-             "chunk_ms": float(np.median(dur)),
-             "audio_s_per_s": STREAM_SECONDS / (t.sum() / 1e3),
-             "times_ms": times}
+        return {"median_ms": float(np.median(t)), "p99_ms": float(np.percentile(t, 99)),
+                "rt_share": float(np.median(t / dur)), "chunk_ms": float(np.median(dur)),
+                "audio_s_per_s": sum(sizes[:len(times)]) / rate / (t.sum() / 1e3),
+                "times_ms": times}
+
+    def emit_bucket(n: int) -> int:
+        return next((b for b in StreamingFeatures.EMIT_BUCKETS if b >= n), n)
+
+    card = smi("name,power.limit")
+    rec["card"] = card
+    log(f"streaming on {card}")
+    launches_replayed = [0, 0]
+    for name, make, x, sizes, path, per_call in sessions:
+        rate = L_RATE if x is x22 else RATE
+        stft = path == "stft"
+        chunks = cut(x, sizes)
+        ref_batch, ref_oracle = batch[name](), oracle[name]()
+        torch.cuda.synchronize()
+        eager_sess, replay_sess = make(), make()
+        if not stft:
+            check((replay_sess._inc is not None) == (path == "incremental"), f"{name}: path")
+        cache = session_cache(replay_sess)
+        tol = REL_TOL if name == "S1" else STREAM_TOL
+        r = {"path": path, "calls": len(chunks), "runs": {}}
+        first = first_rows = None
+        # in turns: eager, replayed (its first calls capture), the replayed
+        # session again after reset() (replays only), the eager one again
+        for label, sess, replay in (("eager", eager_sess, False),
+                                    ("replayed", replay_sess, True),
+                                    ("replayed after reset", replay_sess, True),
+                                    ("eager after reset", eager_sess, False)):
+            if label.endswith("reset"):
+                sess.reset()
+            c0, p0 = cache.captures, cache.replays
+            out, times, rows, launches = drive(sess, chunks, replay, finalize=stft)
+            if first is None:
+                first, first_rows = out, rows
+            emitting = sum(n > 0 for n in rows)
+            want = tuple(emitting * n for n in per_call)
+            run = dict(host_times(times, sizes, rate), launches=list(launches),
+                       emitting_calls=emitting,
+                       rows=list((out[0] if isinstance(out, tuple) else out).shape),
+                       rel_batch=rel_pair(out, ref_batch), rel_oracle=rel_pair(out, ref_oracle),
+                       rel_eager=rel_pair(out, first), bitwise_eager=bitwise(out, first),
+                       captures=cache.captures - c0, replays=cache.replays - p0)
+            r["runs"][label] = run
+            check(launches == want, f"{name} {label}: launches {launches}, want {want}")
+            check(run["rel_batch"] <= tol, f"{name} {label}: vs batch {run['rel_batch']:.3e}")
+            check(run["rel_oracle"] <= ORACLE_TOL,
+                  f"{name} {label}: vs oracle {run['rel_oracle']:.3e}")
+            check(run["rel_eager"] <= COMPILED_TOL,
+                  f"{name} {label}: vs eager {run['rel_eager']:.3e}")
+            check(rows == first_rows, f"{name} {label}: rows a call differ from eager's")
+            if label == "replayed after reset":
+                check(run["captures"] == 0, f"{name}: captured again after reset()")
+                launches_replayed = [a + b for a, b in zip(launches_replayed, launches)]
+            elif not replay:
+                check(run["captures"] == run["replays"] == 0, f"{name} {label}: used a graph")
+            log(f"streaming {name} ({path}) {label}: {len(chunks)} calls of median "
+                f"{run['chunk_ms']:.3f} ms audio -> {tuple(run['rows'])}; launches (K1, K2) "
+                f"{launches} over {emitting} emitting calls (want {want}); vs batch "
+                f"{run['rel_batch']:.3e} (limit {tol}), vs float64 oracle "
+                f"{run['rel_oracle']:.3e} (limit {ORACLE_TOL}), vs eager {run['rel_eager']:.3e} "
+                f"bitwise {run['bitwise_eager']} (limit {COMPILED_TOL}); captures "
+                f"{run['captures']}, replays {run['replays']}; host ms a call: median "
+                f"{run['median_ms']:.4f}, p99 {run['p99_ms']:.4f}; median share of the "
+                f"chunk's duration {run['rt_share']:.4f}; {run['audio_s_per_s']:.1f} audio-s/s")
+        if name == "S1":
+            s1_eager = first
+        check(session_cache(eager_sess).captures == 0, f"{name}: the eager session captured")
+        # captures: each key once; the carried step at most its four sizes,
+        # the recompute path the emission buckets its calls used, the
+        # extractor its chunk lengths
+        keys = {k[1] for k in cache._graphs}
+        bound = {"incremental": 4,
+                 "recompute": len({emit_bucket(n) for n in first_rows if n > 0}),
+                 "stft": len({c.size for c in chunks})}[path]
+        check(cache.captures == len(cache) == len(keys) and cache.captures <= bound,
+              f"{name}: captures {cache.captures}, graphs {len(cache)}, bound {bound}")
+        st = cache.stats()
+        r.update(captures=cache.captures, capture_bound=bound, keys=sorted(map(list, keys)),
+                 capture_ms=[1e3 * t for t in st["capture_s"]], graph_bytes=st["bytes"],
+                 pool_bytes=st["pool_bytes"], static_bytes=st["static_bytes"],
+                 state_bytes=st["state_bytes"])
+        log(f"streaming {name} graphs: {cache.captures} captures (bound {bound}) of keys "
+            f"{sorted(keys)}; capture ms {[round(t, 3) for t in r['capture_ms']]}; the "
+            f"session's graphs hold {st['bytes']} B (pool {st['pool_bytes']}, static inputs "
+            f"{st['static_bytes']}, state {st['state_bytes']})")
+        # every K1 / K2 launch of the recompute sessions against its plain
+        # version (eager: a capture cannot read back; the replays equal
+        # the eager rows above)
+        if any(per_call):
+            with held_to_plain(k1, k2) as readings:
+                out_p, _, rows_p = feed_session(torch, make(), chunks)
+            worst = worst_reading(readings)
+            key = "k1" if per_call[0] else "k2"
+            r["held_to_plain"] = worst
+            r["rel_held_run"] = rel_pair(out_p, first)
+            emitting = sum(n > 0 for n in rows_p)
+            check(worst[key][0] == emitting and worst[key][1] <= REL_TOL
+                  and r["rel_held_run"] <= COMPILED_TOL,
+                  f"{name}: held to plain {worst}, vs eager {r['rel_held_run']:.3e}")
+            log(f"streaming {name}: every launch held to its plain version: {worst} "
+                f"(launches checked, worst max|d|/max|ref|; limit {REL_TOL}) over {emitting} "
+                f"emitting calls; that run vs eager {r['rel_held_run']:.3e}")
+        # reset with replay on: the first 10 s again
+        replay_sess.reset()
+        n10 = int(np.searchsorted(np.cumsum(sizes), 10 * rate, side="right"))
+        again, _, _ = feed_session(torch, replay_sess, chunks[:n10])
+        head = tuple(o[:a.shape[0]] for o, a in zip(first, again)) \
+            if isinstance(first, tuple) else first[:again.shape[0]]
+        r["rel_reset"] = rel_pair(again, head)
+        check(r["rel_reset"] <= 1e-6 and (again[0] if isinstance(again, tuple) else again)
+              .shape[0] > 0, f"{name}: reset {r['rel_reset']:.3e}")
+        log(f"streaming {name}: replayed after reset(), the first 10 s vs the first rows "
+            f"{r['rel_reset']:.3e} (limit 1e-6)")
         rec[name] = r
-        log(f"streaming {name} ({path}): {len(chunks)} calls of median {r['chunk_ms']:.3f} ms "
-            f"audio -> {tuple(rows)}; launches (K1, K2) {launches} over {emitting} emitting "
-            f"calls; vs batch {r_batch:.3e} (limit {tol}), vs float64 oracle "
-            f"{r_oracle:.3e} (limit {ORACLE_TOL}), reset {r_reset:.3e} (limit 1e-6)")
-        log(f"streaming {name} host ms a call: median {r['median_ms']:.4f}, p99 "
-            f"{r['p99_ms']:.4f}; median share of the chunk's duration {r['rt_share']:.4f}; "
-            f"{r['audio_s_per_s']:.1f} audio-s/s")
+
+    # two S1 sessions replayed call by call on two signals: each equals its
+    # own run alone (the first 10 s of S1's eager rows, and a run of its own)
+    y16 = np.random.default_rng(7).normal(0.0, 0.1, 10 * RATE).astype(np.float32)
+    ca, cb = cut(x16, [160] * 1000), cut(y16, [160] * 1000)
+    alone_b, _, _ = feed_session(torch, StreamingFeatures(sp, feature="mfcc"), cb)
+    a, b = StreamingFeatures(sp, feature="mfcc"), StreamingFeatures(sp, feature="mfcc")
+    outs = ([], [])
+    for u, v in zip(ca, cb):
+        outs[0].append(a.process(u))
+        outs[1].append(b.process(v))
+    got_a, got_b = torch.cat(outs[0]), torch.cat(outs[1])
+    torch.cuda.synchronize()
+    inter = {"rel_a": rel_err(got_a, s1_eager[:got_a.shape[0]])[0],
+             "rel_b": rel_err(got_b, alone_b)[0],
+             "replays": [session_cache(a).replays, session_cache(b).replays]}
+    rec["interleaved"] = inter
+    check(max(inter["rel_a"], inter["rel_b"]) <= COMPILED_TOL and min(inter["replays"]) > 0,
+          f"interleaved S1 sessions: {inter}")
+    log(f"streaming S1, two sessions replayed call by call on two signals: each vs its own "
+        f"run {inter['rel_a']:.3e}, {inter['rel_b']:.3e} (limit {COMPILED_TOL}); replays "
+        f"{inter['replays']}")
 
     # the carried algorithm against the batch in float64 on the card: S1's
     # first 10 s, where float32 rounding does not reach the comparison
@@ -818,22 +956,77 @@ def streaming_phase(np, torch, P, k1, k2) -> dict:
     log(f"streaming S1 in float64, first 10 s, vs the float64 batch on the card: "
         f"{rec['S1']['rel_batch_float64']:.3e} (limit 1e-10)")
 
-    # the launch plans the recompute paths give the kernels at B = 1
-    rec["S3"]["plan"] = k1.launch_plan(sp3, 1, 10)
-    rec["S5"]["plan"] = k2.launch_plan(lc5, 1, 10)
-    log(f"S3 K1 launch plan at (1, {10 * 160 + 400}): {rec['S3']['plan']}")
-    log(f"S5 K2 launch plan at (1, {10 * 160 + 352}): {rec['S5']['plan']}")
+    # the launch plans the recompute paths give the kernels at B = 1 (the
+    # 16-frame bucket of 10 new frames)
+    rec["S3"]["plan"] = k1.launch_plan(sp3, 1, 16)
+    rec["S5"]["plan"] = k2.launch_plan(lc5, 1, 16)
+    log(f"S3 K1 launch plan at (1, {16 * 160 + 400}): {rec['S3']['plan']}")
+    log(f"S5 K2 launch plan at (1, {16 * 160 + 352}): {rec['S5']['plan']}")
 
-    # device time of one call's work, device-resident chunks
+    # device time of one call's work, device-resident chunks, in turns
     for name, make, size in (("S1", lambda: StreamingFeatures(sp, feature="mfcc"), 160),
                              ("S3", lambda: StreamingFeatures(sp3, feature="mfcc"), 1600)):
         chunks = [d16[i:i + size] for i in range(0, 220 * size, size)]
-        devt, host = call_device_ms(torch, make(), chunks)
-        rec[name]["device_ms"] = devt
-        rec[name]["enqueue_ms"] = host
-        log(f"streaming {name} device ms of one call's work (CUDA events, median of "
-            f"{len(devt)}): {statistics.median(devt):.4f}; host enqueue median "
-            f"{statistics.median(host):.4f} ms, max {max(host):.4f} ms (spin ~2.5 ms)")
+        for mode in ("eager", "replayed", "replayed", "eager"):
+            with contextlib.nullcontext() if mode == "replayed" else graphs.disabled():
+                devt, host = call_device_ms(torch, make(), chunks)
+            rec[name].setdefault(f"device_ms_{mode}", []).append(devt)
+            rec[name].setdefault(f"enqueue_ms_{mode}", []).append(host)
+            log(f"streaming {name} {mode}: device ms of one call's work (CUDA events, median "
+                f"of {len(devt)}): {statistics.median(devt):.4f}; host enqueue median "
+                f"{statistics.median(host):.4f} ms, max {max(host):.4f} ms (spin ~2.5 ms)")
+    # where the host's time goes in one call, eager and replayed (cProfile)
+    for name, make, size in (("S1", lambda: StreamingFeatures(sp, feature="mfcc"), 160),
+                             ("S3", lambda: StreamingFeatures(sp3, feature="mfcc"), 1600)):
+        chunks = [d16[i:i + size] for i in range(0, 220 * size, size)]
+        for mode in ("eager", "replayed"):
+            with contextlib.nullcontext() if mode == "replayed" else graphs.disabled():
+                prof = enqueue_profile(torch, make().process, chunks)
+            rec[name][f"profile_{mode}"] = prof
+            log(f"streaming {name} {mode}: host us a call under cProfile ({PROFILE_CALLS} "
+                f"calls): total {prof['total_us']}, torch ops (builtins) {prof['builtin_us']}, "
+                f"Python {prof['python_us']}, CUDAGraph.replay {prof['replay_us']}; most own "
+                f"time: {prof['top_own_us']}")
+    # the parts of one S1 call, host us (median of 500 back to back; the
+    # device waited on after each only where "synced"; the graph launched
+    # on the caller's stream, or on the cache's inside its two waits)
+    chunks = [d16[i:i + 160] for i in range(0, 600 * 160, 160)]
+    sess, eager_sess = (StreamingFeatures(sp, feature="mfcc") for _ in range(2))
+    for c in chunks[:20]:
+        sess.process(c)
+    g = next(iter(session_cache(sess)._graphs.values()))
+    pos = [0]
+
+    def call(s):
+        pos[0] += 1
+        return s.process(chunks[pos[0] % len(chunks)])
+
+    def synced(fn):
+        def run():
+            fn()
+            torch.cuda.synchronize()
+        return run
+
+    def on_cache_stream(fn):  # inside the waits that order the cache's stream
+        def run():
+            with session_cache(sess)._on_cache_stream(g.static.device):
+                fn()
+        return run
+
+    parts = {"synchronize alone": host_us(torch, torch.cuda.synchronize),
+             "graph launch": host_us(torch, g.graph.replay),
+             "graph launch, synced": host_us(torch, synced(g.graph.replay)),
+             "cache-stream waits alone": host_us(torch, on_cache_stream(lambda: None)),
+             "graph launch on the cache stream": host_us(torch, on_cache_stream(g.graph.replay)),
+             "process() replayed": host_us(torch, lambda: call(sess)),
+             "process() replayed, synced": host_us(torch, synced(lambda: call(sess)))}
+    with graphs.disabled():
+        parts["process() eager"] = host_us(torch, lambda: call(eager_sess))
+        parts["process() eager, synced"] = host_us(torch, synced(lambda: call(eager_sess)))
+    rec["S1"]["call_parts_us"] = parts
+    log(f"streaming S1, host us of one call's parts (median of 500): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+    rec["launches"] = launches_replayed
     rec["clocks"] = smi("clocks.sm,power.draw,power.limit,temperature.gpu")
     log(f"clocks.sm, power.draw, power.limit, temperature: {rec['clocks']}")
     if fails:
@@ -1756,7 +1949,8 @@ def enqueue_profile(torch, fn, xs) -> dict:
     time of the named functions (nested: the launch runs inside
     ``autograd.Function.apply``, the tensor-cache lookups inside both).
     cProfile's own cost inflates the Python share; the unprofiled host time
-    a call is ``enqueue_us`` beside it."""
+    a call is ``enqueue_us`` beside it.  ``top_own_us``: the twelve functions
+    with the most own time a call."""
     import cProfile
     import pstats
 
@@ -1793,6 +1987,8 @@ def enqueue_profile(torch, fn, xs) -> dict:
         "replay_us": per(cum(lambda f, n: n == "replay" and "cuda/graphs" in f)),
         "clone_us": per(sum(v[2] for (f, _, n), v in stats.items()
                             if f == "~" and "'clone'" in n)),
+        "top_own_us": [(f"{Path(f).name}:{line} {n}" if f != "~" else n, per(v[2]))
+                       for (f, line, n), v in sorted(stats.items(), key=lambda kv: -kv[1][2])[:12]],
     }
 
 
@@ -2278,11 +2474,13 @@ def main() -> int:
         "launches_entry": record["entry"]["launches_entry"][0],
         "launches_examples": record["entry"]["launches_examples"][0],
         "launches_compiled": record["compiled"]["launches"][0],
+        "launches_streaming": record["streaming"]["launches"][0],
     }, dict(k2_entry, launches_corpus=record["corpus"]["a"]["launches"][1],
             launches_bench=record["bench"]["launches"][k2.KERNEL],
             launches_entry=record["entry"]["launches_entry"][1],
             launches_examples=record["entry"]["launches_examples"][1],
-            launches_compiled=record["compiled"]["launches"][1])]
+            launches_compiled=record["compiled"]["launches"][1],
+            launches_streaming=record["streaming"]["launches"][1])]
     record.update({
         "main_path": {"shape": [BATCH, t_true], "bucket": t_main, "launches": launches,
                       "first_call_s": first_s, "api_ms": api_s * 1e3, "api_ms_all": [h * 1e3 for h in host]},

@@ -12,6 +12,12 @@ O(new samples); the state is O(r) frame rows.
 Accumulation order: within a frame, contributions are added in ascending
 shift order, the order of the batch product's shifted form, so a session
 fed in chunks gives the batch output up to the rounding of the products.
+
+A feed's whole chunks go through the step in pieces of ``K_BUCKETS`` chunks
+(greedy, largest first), as the JAX front end's jitted steps do: on a CUDA
+session each piece replays the session's CUDA graph of its size
+(:mod:`..utils.graphs`), at most four, and eagerly the same pieces run the
+same products.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from ..config import FeatureConfig, fp32_matmul
 from ..constants import chunk_gemm_wall, constant_bundle
 from ..features import _cepstra, _fast_path_ok, _stacked_fb
 from ..ops.spectrum import zero_handling
+from ..utils import graphs
 from ..utils.device import resolve_device
 
 
@@ -59,14 +66,20 @@ class IncrementalFrontend(nn.Module):
     buffers (``_wcat``, the (hop, r*W) concatenated wall; ``_fb2``; ``_w2``;
     ``_dct``).  The carry — ``rem`` (< hop leftover samples), ``pending``
     ((P, W) partial product rows) and ``pending_e`` ((P,) partial energy
-    sums) — is a set of plain tensors on the module's device, rebuilt by
-    :meth:`reset`.
+    sums) — is a set of plain tensors on the module's device.  ``pending``
+    and ``pending_e`` are allocated once: the step updates them in place and
+    :meth:`reset` zeroes them in place, since a replayed step reads and
+    writes them at their addresses.
 
     Row layout: with C chunks consumed, the next row out is frame C - P,
     P = r - 1 + lag (lag 1 reproduces speechpy's one-frame emission lag,
     lag 0 librosa's emit-on-complete); rows of negative frames are warm-up,
     which the caller drops.
     """
+
+    #: chunk counts of one step, split greedily largest first (zero chunks
+    #: cannot pad a piece: they would advance the frame clock)
+    K_BUCKETS = (64, 16, 4, 1)
 
     def __init__(self, cfg: FeatureConfig, feature: str, device=None):
         super().__init__()
@@ -107,16 +120,18 @@ class IncrementalFrontend(nn.Module):
         self.register_buffer("_fb2", t(fb2), persistent=False)
         self.register_buffer("_w2", None if w2 is None else t(w2), persistent=False)
         self.register_buffer("_dct", t(bundle["dct"]), persistent=False)
+        self.pending = self._wcat.new_zeros((self.P, self.W))
+        self.pending_e = self._wcat.new_zeros((self.P,))
+        self._graphs = graphs.GraphCache(share_pool=True)
         self.reset()
 
     def reset(self) -> None:
-        """A fresh carry on the module's device."""
-        w = self._wcat
-        self.rem = w.new_zeros(0)
-        self.pending = w.new_zeros((self.P, self.W))
-        self.pending_e = w.new_zeros((self.P,))
+        """A fresh carry: no leftover samples, the partial sums zeroed in
+        place."""
+        self.rem = self._wcat.new_zeros(0)
+        self.pending.zero_()
+        self.pending_e.zero_()
 
-    @fp32_matmul()
     def feed(self, samples: torch.Tensor):
         """Consume (T,) samples on the module's device.  Returns the rows of
         the k chunks completed — (k, D), or for ``mfe`` the pair ((k, M),
@@ -128,22 +143,45 @@ class IncrementalFrontend(nn.Module):
         if k == 0:
             return None
         chunks = buf[:k * self.hop].reshape(k, self.hop)
-        r, p = self.r, self.P
+        eager = graphs.runs_eagerly(chunks, chunks.device)
+        state = (self.pending, self.pending_e)
+        outs, pos = [], 0
+        while pos < k:
+            kb = next(b for b in self.K_BUCKETS if b <= k - pos)
+            piece = chunks[pos:pos + kb]
+            if eager:
+                outs.append(self._step(piece, *state))
+            else:
+                outs.append(self._graphs.run((), self._step, piece.shape, piece.dtype,
+                                             piece.device, lambda s, p=piece: s.copy_(p),
+                                             state=state))
+            pos += kb
+        if len(outs) == 1:
+            return outs[0]
+        if self.feature == "mfe":
+            return tuple(torch.cat(p) for p in zip(*outs))
+        return torch.cat(outs)
+
+    @fp32_matmul()
+    def _step(self, chunks: torch.Tensor, pending: torch.Tensor, pending_e: torch.Tensor):
+        """The rows of (k, hop) chunks; ``pending`` and ``pending_e`` advance
+        in place."""
+        k, r, p = chunks.shape[0], self.r, self.P
         g = torch.matmul(chunks, self._wcat).reshape(k, r, self.W)
-        acc = torch.cat([self.pending, chunks.new_zeros((k, self.W))])
+        acc = torch.cat([pending, chunks.new_zeros((k, self.W))])
         for s in range(r):  # ascending shift: the batch order
             acc[p - s:p - s + k] += g[:, s]
         y = acc[:k]
-        self.pending = acc[k:]
+        pending.copy_(acc[k:])
         e = None
         if self._want_energy:
             # per-(chunk, shift) windowed sums of squares: the streaming form
             # of features._parseval_energies' per-chunk reductions
             ge = torch.matmul(chunks * chunks, self._w2.T)  # (k, r)
-            acc_e = torch.cat([self.pending_e, chunks.new_zeros(k)])
+            acc_e = torch.cat([pending_e, chunks.new_zeros(k)])
             for s in range(r):
                 acc_e[p - s:p - s + k] += ge[:, s]
-            self.pending_e = acc_e[k:]
+            pending_e.copy_(acc_e[k:])
             n = self.cfg.fft_points
             s0, s1 = y[:, 2 * self._kmax], y[:, 2 * self._kmax + 1]
             e = zero_handling((n * acc_e[:k] + s0 * s0 + s1 * s1) / (2.0 * n))

@@ -22,7 +22,11 @@ the vorbis mel spectrogram.
 sessions: feed chunks, get the newly completed frames, equal to what the
 batch transform gives on the samples seen.  They keep every tensor on the
 session's device and read nothing back from it: what a call emits is
-decided by host counts of samples.
+decided by host counts of samples.  On CUDA each session replays CUDA
+graphs from a cache of its own (:mod:`..utils.graphs`), as each JAX session
+calls a ``jax.jit`` of its own: the recompute path one graph per emission
+bucket, the extractor one per chunk length, the carried front end one per
+step size, with the carry in session tensors updated in place.
 """
 
 from __future__ import annotations
@@ -202,7 +206,14 @@ class StreamingFeatures:
     :func:`.incremental.incremental_supported` holds, and otherwise the
     recompute path, which runs the batch function on the buffered samples
     of the new frames (on a CUDA float32 session, ``mfcc`` through the
-    fused kernel and ``mel_librosa`` through the CT mel kernel)."""
+    fused kernel and ``mel_librosa`` through the CT mel kernel).  The
+    recompute path pads the count of new frames up to ``EMIT_BUCKETS``
+    (zero samples past the buffer; the padded frames are dropped), as the
+    JAX session does, so a ragged schedule meets a handful of shapes."""
+
+    #: emission counts are padded up to these; a count above the last is
+    #: taken as it is
+    EMIT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
 
     def __init__(self, cfg: Optional[FeatureConfig] = None, sample_rate: int = 16000,
                  feature: str = "mfcc", device=None):
@@ -232,6 +243,8 @@ class StreamingFeatures:
         self._dtype = getattr(torch, cfg.dtype)
         self._inc = (IncrementalFrontend(cfg, feature, self.device)
                      if incremental_supported(cfg, feature) else None)
+        if self._inc is None:
+            self._graphs = graphs.GraphCache(share_pool=True)
         self.reset()
 
     def reset(self) -> None:
@@ -281,14 +294,30 @@ class StreamingFeatures:
         self._buf = torch.cat([self._buf, x])
         if n_new <= 0:
             return self._empty()
-        # the least length with exactly n_new frames: speechpy's count
-        # floor((L - fl)/hop) needs n_new*hop + fl, librosa's one hop less
+        # the least length with exactly n_b frames: speechpy's count
+        # floor((L - fl)/hop) needs n_b*hop + fl, librosa's one hop less
         fl, hop = self._frame_len(), self.cfg.frame_step
-        need = n_new * hop + (fl - hop if self.feature == "mel_librosa" else fl)
-        out = self._batch(self._buf[:need])
+        n_b = next((b for b in self.EMIT_BUCKETS if b >= n_new), n_new)
+        need = n_b * hop + (fl - hop if self.feature == "mel_librosa" else fl)
+        out = self._recompute(self._buf[:need], need)
         self._buf = self._buf[n_new * hop:]
         self._emitted = ready
-        return out
+        if self.feature == "mfe":
+            return out[0][:n_new], out[1][:n_new]
+        return out[:n_new]
+
+    def _recompute(self, x: torch.Tensor, need: int):
+        """The batch function on ``x`` zero-filled to ``need`` samples: on
+        CUDA a replay of the graph of that length."""
+        n = x.shape[0]
+        if graphs.runs_eagerly(x, self.device):
+            return self._batch(torch.nn.functional.pad(x, (0, need - n)))
+
+        def fill(s):
+            s[:n].copy_(x)
+            s[n:].zero_()
+
+        return self._graphs.run((), self._batch, (need,), x.dtype, x.device, fill)
 
     def _batch(self, x: torch.Tensor):
         if self.feature == "mel_librosa":
@@ -305,7 +334,8 @@ class StreamingExtractor:
     the ``n_pad`` zero rows of the reference's layout, so a whole session
     concatenated equals the batch transform (``features.mel_spectrogram``,
     transposed).  Returns tensors on the session's device (``None`` means
-    CUDA)."""
+    CUDA).  The carry is one tensor, allocated once: a step updates it in
+    place, :meth:`reset` zeroes it in place."""
 
     def __init__(self, cfg: Optional[FeatureConfig] = None, sample_rate: int = 16000,
                  mel: bool = True, device=None):
@@ -317,11 +347,13 @@ class StreamingExtractor:
         self.device = resolve_device(device)
         self._dtype = getattr(torch, cfg.dtype)
         self._fbt = bundle_tensor(cfg, "fbank", self.device, self._dtype).T if mel else None
+        self._carry = _stft.streaming_init(self.cfg, dtype=self._dtype, device=self.device)
+        self._graphs = graphs.GraphCache(share_pool=True)
         self.reset()
 
     def reset(self) -> None:
         """Start a new stream: a zero carry and the warm-up to drop."""
-        self._carry = _stft.streaming_init(self.cfg, dtype=self._dtype, device=self.device)
+        self._carry.zero_()
         self._to_drop = self.cfg.stream_n_pad
 
     def process(self, chunk) -> torch.Tensor:
@@ -329,8 +361,11 @@ class StreamingExtractor:
         (new_frames, num_filters) mel energies (power bins with
         ``mel=False``)."""
         x = torch.as_tensor(chunk).to(device=self.device, dtype=self._dtype)
-        self._carry, power = _stft.stft_streaming(x, self.cfg, self._carry)
-        out = self._project(power)
+        if graphs.runs_eagerly(x, self.device):
+            out = self._step(x, self._carry)
+        else:  # one graph per chunk length, as the JAX jit traces per shape
+            out = self._graphs.run((), self._step, x.shape, x.dtype, x.device,
+                                   lambda s: s.copy_(x), state=(self._carry,))
         if self._to_drop:
             k = min(self._to_drop, out.shape[0])
             out = out[k:]
@@ -344,6 +379,12 @@ class StreamingExtractor:
         self.reset()
         return torch.zeros((self.cfg.stream_n_pad, width), dtype=self._dtype,
                            device=self.device)
+
+    def _step(self, x: torch.Tensor, carry: torch.Tensor) -> torch.Tensor:
+        """The rows of (T,) samples; ``carry`` advances in place."""
+        new, power = _stft.stft_streaming(x, self.cfg, carry)
+        carry.copy_(new)
+        return self._project(power)
 
     def _project(self, power: torch.Tensor) -> torch.Tensor:
         if not self.mel:

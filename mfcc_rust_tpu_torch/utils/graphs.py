@@ -26,8 +26,23 @@ sequence) with the input's shape, dtype and device.  :meth:`GraphCache.run`:
   on the host.
 
 A capture that fails raises; nothing falls back to an eager call.  The
-callers (``api``, ``models.pipelines.Pipeline``) run eagerly only where
-:func:`runs_eagerly` says the semantics need it.
+callers (``api``, ``models.pipelines.Pipeline``, the streaming sessions)
+run eagerly only where :func:`runs_eagerly` says the semantics need it.
+
+Streaming sessions (``models.incremental.IncrementalFrontend``, the
+recompute path of ``models.pipelines.StreamingFeatures`` and
+``models.pipelines.StreamingExtractor``) each own a :class:`GraphCache`, as
+the JAX sessions each own their ``jax.jit``: a stream neither evicts the
+``api`` graphs nor is evicted by them.  A session's graphs never run at
+once, so they share one memory pool (``share_pool=True``).  A graph may
+read and write caller-owned ``state`` beside its static input (the carry
+of a stream): tensors allocated once outside any graph pool, which the
+function updates in place and the caller resets in place (``zero_``); the
+graph reads and writes them at their addresses, so a replay carries the
+state with no host work.  The first call's warm-up is the real first step
+and the capture executes nothing, so the first call advances the state
+once.  A call whose state tensors are not the ones the graph captured
+raises: a replay would read the old ones.
 
 Launch counts: each kernel wrapper counts its launches (``.launches``).  A
 capture runs the wrappers but launches nothing, so its counts are taken
@@ -51,6 +66,11 @@ from ..constants import _capturing, _tracing, holding
 MAXSIZE = 16
 
 _enabled = True
+
+# One stream a device and one lock for every cache: a capture records all
+# work on its stream, so no other cache may use that stream meanwhile.
+_streams: dict = {}
+_lock = threading.RLock()
 
 
 def runs_eagerly(x: torch.Tensor, device: torch.device) -> bool:
@@ -131,32 +151,42 @@ def _tensors(value):
             yield from _tensors(v)
 
 
+def _pool_bytes(pool) -> int:
+    """Bytes of device memory a graph pool holds."""
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if s["segment_pool_id"] == pool)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 class _Graph:
-    """One captured call: its static input and outputs, the launches of one
-    replay per kernel, and what must live as long as the graph reads it (a
-    module's buffers, the tensor-cache values of the capture)."""
+    """One captured call: its static input and outputs, the state it reads
+    and writes, the launches of one replay per kernel, and what must live
+    as long as the graph reads it (a module's buffers, the tensor-cache
+    values of the capture)."""
 
-    __slots__ = ("graph", "static", "out", "launches", "keep", "capture_s")
+    __slots__ = ("graph", "static", "out", "state", "launches", "keep", "capture_s")
 
-    def __init__(self, graph, static, out, launches, keep, capture_s):
-        self.graph, self.static, self.out = graph, static, out
+    def __init__(self, graph, static, out, state, launches, keep, capture_s):
+        self.graph, self.static, self.out, self.state = graph, static, out, state
         self.launches, self.keep, self.capture_s = launches, keep, capture_s
 
     def pool_bytes(self) -> int:
-        """Bytes of device memory the graph's private pool holds."""
-        pool = self.graph.pool()
-        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
-                   if s["segment_pool_id"] == pool)
+        """Bytes of device memory the graph's pool holds (shared with the
+        other graphs of a ``share_pool`` cache)."""
+        return _pool_bytes(self.graph.pool())
 
 
 class GraphCache:
     """An LRU cache of captured calls; see the module's docstring."""
 
-    def __init__(self, maxsize: int = MAXSIZE):
+    def __init__(self, maxsize: int = MAXSIZE, share_pool: bool = False):
         self.maxsize = maxsize
         self._graphs: "collections.OrderedDict[tuple, _Graph]" = collections.OrderedDict()
-        self._streams: dict = {}
-        self._lock = threading.Lock()
+        self._share_pool = share_pool
+        self._pool = None  # the one pool of a share_pool cache, made at its first capture
         self.captures = 0
         self.replays = 0
 
@@ -166,7 +196,7 @@ class GraphCache:
     def clear(self) -> None:
         """Drop every graph; its pool is freed once nothing holds a tensor
         of it (``torch.cuda.empty_cache`` then returns it to the device)."""
-        with self._lock:
+        with _lock:
             self._graphs.clear()
 
     @staticmethod
@@ -180,22 +210,28 @@ class GraphCache:
         return key, tuple(shape), dtype, device, torch.is_inference_mode_enabled()
 
     def run(self, key: tuple, fn: Callable, shape, dtype: torch.dtype,
-            device: torch.device, fill: Callable[[torch.Tensor], None], keep=None):
-        """``fn(static)`` for the input that ``fill`` writes into the static
-        input (``shape``, ``dtype`` on ``device``): captured at the first
-        call of the key, replayed at every later one.  ``keep`` lives as long
-        as the graph (what ``fn`` reads besides the static input)."""
+            device: torch.device, fill: Callable[[torch.Tensor], None], keep=None,
+            state: tuple = ()):
+        """``fn(static, *state)`` for the input that ``fill`` writes into the
+        static input (``shape``, ``dtype`` on ``device``): captured at the
+        first call of the key, replayed at every later one.  ``state``: the
+        caller's tensors that ``fn`` reads and updates in place, the same
+        tensors at every call of the key.  ``keep`` lives as long as the
+        graph (what ``fn`` reads besides the static input and the state)."""
         full = self.key(key, shape, dtype, device)
-        with self._lock:  # one call at a time writes a static input and replays
+        with _lock:  # one call at a time writes a static input and replays
             g = self._graphs.get(full)
             if g is None:
                 static = torch.empty(tuple(shape), dtype=dtype, device=full[3])
                 fill(static)
-                out, self._graphs[full] = self._capture(fn, static, keep)
+                out, self._graphs[full] = self._capture(fn, static, keep, tuple(state))
                 self.captures += 1
                 if len(self._graphs) > self.maxsize:
                     self._graphs.popitem(last=False)
                 return out
+            if len(state) != len(g.state) or any(a is not b for a, b in zip(state, g.state)):
+                raise RuntimeError("a graph's state was rebound: it reads and writes the "
+                                   "tensors it captured, so update them in place")
             self._graphs.move_to_end(full)
             out = self._replay(g, fill)
             for k, n in zip(_kernels(), g.launches):
@@ -220,68 +256,77 @@ class GraphCache:
         caller's stream's work so far; the caller's stream waits for it on
         the way out."""
         main = torch.cuda.current_stream(device)
-        side = self._streams.get(device)
+        side = _streams.get(device)
         if side is None:
-            side = self._streams[device] = torch.cuda.Stream(device)
+            side = _streams[device] = torch.cuda.Stream(device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
             yield side
         main.wait_stream(side)
 
-    def _warm_up(self, fn: Callable, static: torch.Tensor):
+    def _warm_up(self, fn: Callable, static: torch.Tensor, state: tuple):
         """One eager call of ``fn`` on the cache's stream, which builds what
         a capture may not (tensor caches, launch plans, cuBLAS's workspace
-        for that stream); its output, usable on the caller's stream.  The
-        tensor-cache values it builds are marked as used on the caller's
-        stream too, so that their memory is not reused before the caller's
-        work on them is done."""
+        for that stream) and advances the state; its output, usable on the
+        caller's stream.  The tensor-cache values it builds are marked as
+        used on the caller's stream too, so that their memory is not reused
+        before the caller's work on them is done."""
         main = torch.cuda.current_stream(static.device)
         with holding() as held, self._on_cache_stream(static.device):
-            out = fn(static)
+            out = fn(static, *state)
         for t in (t for v in held for t in _tensors(v) if t.is_cuda):
             t.record_stream(main)
         _tree(lambda t: t.record_stream(main), out)
         return out
 
-    def _record(self, fn: Callable, static: torch.Tensor):
-        """(the graph of ``fn`` on ``static``, its static outputs)."""
+    def _record(self, fn: Callable, static: torch.Tensor, state: tuple):
+        """(the graph of ``fn`` on ``static`` and ``state``, its static
+        outputs).  Recording executes nothing, so the state is not
+        advanced."""
         graph = torch.cuda.CUDAGraph()
+        if self._share_pool and self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
         with warnings.catch_warnings():
             # a call with no work (no frames) captures an empty graph
             warnings.filterwarnings("ignore", message="The CUDA Graph is empty")
-            with torch.cuda.graph(graph, stream=self._streams[static.device],
+            with torch.cuda.graph(graph, pool=self._pool, stream=_streams[static.device],
                                   capture_error_mode="thread_local"):
-                out = fn(static)
+                out = fn(static, *state)
         return graph, out
 
-    def _capture(self, fn: Callable, static: torch.Tensor, keep):
-        """(the warm-up's output, the captured call).  The launches the
-        capture counted are taken back and kept with the graph, and so are
-        the tensor-cache values it read; a capture that fails raises with
-        the counts as they were."""
-        out = self._warm_up(fn, static)
+    def _capture(self, fn: Callable, static: torch.Tensor, keep, state: tuple):
+        """(the warm-up's output, the captured call).  One warm-up, then the
+        recording: a second warm-up would step a stream's state twice.  The
+        launches the capture counted are taken back and kept with the graph,
+        and so are the tensor-cache values it read; a capture that fails
+        raises with the counts as they were."""
+        out = self._warm_up(fn, static, state)
         kernels = _kernels()
         before = _counts(kernels)
         t0 = time.perf_counter()
         try:
             with holding() as held:
-                graph, static_out = self._record(fn, static)
+                graph, static_out = self._record(fn, static, state)
         finally:
             launches = tuple(a - b for a, b in zip(_counts(kernels), before))
             for k, n in zip(kernels, launches):
                 if n:
                     k.launches -= n
-        return out, _Graph(graph, static, static_out, launches, (keep, held),
+        return out, _Graph(graph, static, static_out, state, launches, (keep, held),
                            time.perf_counter() - t0)
 
     def stats(self) -> dict:
         """Captures, replays, graphs held, and the device bytes they hold:
-        their pools and their static inputs (``bytes``), on the card."""
-        pools = sum(g.pool_bytes() for g in self._graphs.values())
-        static = sum(g.static.numel() * g.static.element_size() for g in self._graphs.values())
+        their pools (a shared pool once), their static inputs and their
+        state (``bytes``), on the card."""
+        graphs = self._graphs.values()
+        pools = sum(_pool_bytes(p) for p in {g.graph.pool() for g in graphs})
+        static = sum(_nbytes(g.static) for g in graphs)
+        state = sum(_nbytes(t) for t in {id(t): t for g in graphs for t in g.state}.values())
         return {"captures": self.captures, "replays": self.replays, "graphs": len(self),
-                "pool_bytes": pools, "static_bytes": static, "bytes": pools + static,
-                "capture_s": [g.capture_s for g in self._graphs.values()]}
+                "pool_bytes": pools, "static_bytes": static, "state_bytes": state,
+                "bytes": pools + static + state,
+                "capture_s": [g.capture_s for g in graphs]}
 
 
 cache = GraphCache()

@@ -12,6 +12,8 @@ band energy turns that rounding into its relative error; the CT mel kernel
 factors the FFT otherwise than its plain version.  ``mfcc_librosa`` is held
 at rtol 1e-3, atol 1e-4, the reference's own tolerance for its kernel."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -398,6 +400,88 @@ def test_streaming_launch_counts_on_card(cuda_device):
     assert (pk.mfcc_fused.launches, ck.ct_mel.launches) == before
 
 
+def _stream_chunks(seed, cfg, feature, size, n=32000):
+    """Seeded chunks of ``size`` samples (0: ragged, 1-4,000), with one of 85
+    hops third, so the carried step meets every ``K_BUCKETS`` size."""
+    rng = np.random.default_rng(seed)
+    hop = cfg.stream_hop if feature == "stft" else cfg.frame_step
+    x = rng.normal(0, 0.1, n + 85 * hop + 7).astype(np.float32)
+    sizes = list(rng.integers(1, 4001, 40)) if size == 0 else [size] * (n // size)
+    sizes.insert(2, 85 * hop + (0 if feature == "stft" else 7))
+    ends = np.cumsum(sizes)
+    return [x[e - k:e] for k, e in zip(sizes, ends) if e <= x.size]
+
+
+def _session_graphs(sess):
+    inc = getattr(sess, "_inc", None)
+    return inc._graphs if inc is not None else sess._graphs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cfg,feature,size,path", STREAMING, ids=[c[0] for c in STREAMING])
+def test_streaming_sessions_replay_equal_to_eager_on_card(cuda_device, name, cfg, feature,
+                                                          size, path):
+    """A session replaying its own CUDA graphs returns, call by call, the
+    eager session's rows bit for bit, with the eager session's K1 and K2
+    launches (the recompute sessions' kernels inside their graphs), and
+    captures each key once."""
+    from mfcc_rust_tpu_torch.utils import graphs
+
+    chunks = _stream_chunks(25, cfg, feature, size)
+    eager, replayed = _session(cfg, feature, cuda_device), _session(cfg, feature, cuda_device)
+    counts = []
+    for sess, ctx in ((eager, graphs.disabled), (replayed, contextlib.nullcontext)):
+        before = _launches()
+        with ctx():
+            outs = [sess.process(c) for c in chunks]
+        torch.cuda.synchronize()
+        counts.append(tuple(a - b for a, b in zip(_launches(), before)))
+        if sess is eager:
+            ref = outs
+    for got, want in zip(outs, ref):
+        for a, b in zip(_leaves(got), _leaves(want)):
+            assert a.is_cuda and torch.equal(a, b), name
+    emitting = sum(_leaves(o)[0].shape[0] > 0 for o in ref)
+    per_call = {("recompute", "mfcc"): (1, 0), ("recompute", "mel_librosa"): (0, 1)}
+    want = tuple(emitting * k for k in per_call.get((path, feature), (0, 0)))
+    assert counts[0] == counts[1] == want, (name, counts, want)
+    cache = _session_graphs(replayed)
+    assert _session_graphs(eager).captures == 0
+    assert cache.captures == len(cache) and cache.replays > 0
+    if path == "incremental":
+        assert cache.captures <= 4
+    st = cache.stats()
+    assert st["pool_bytes"] > 0 and st["bytes"] == st["pool_bytes"] + st["static_bytes"] + \
+        st["state_bytes"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cfg,feature,size,path", [STREAMING[i] for i in (0, 2, 4, 5)],
+                         ids=[STREAMING[i][0] for i in (0, 2, 4, 5)])
+def test_streaming_reset_in_place_under_replay_on_card(cuda_device, name, cfg, feature, size,
+                                                       path):
+    """``reset()`` mid-stream zeroes the carry where the graphs read it: the
+    same chunks again give the same rows, from the same state tensors."""
+    chunks = _stream_chunks(26, cfg, feature, size, n=16000)
+    sess = _session(cfg, feature, cuda_device)
+    state = ((sess._carry,) if path == "stft" else
+             (sess._inc.pending, sess._inc.pending_e) if path == "incremental" else ())
+    ptrs = [t.data_ptr() for t in state]
+    first = [sess.process(c) for c in chunks]
+    for c in chunks[:3]:
+        sess.process(c)
+    sess.reset()
+    again = [sess.process(c) for c in chunks]
+    torch.cuda.synchronize()
+    for a, b in zip(again, first):
+        for u, v in zip(_leaves(a), _leaves(b)):
+            assert torch.equal(u, v), name
+    new_state = ((sess._carry,) if path == "stft" else
+                 (sess._inc.pending, sess._inc.pending_e) if path == "incremental" else ())
+    assert [t.data_ptr() for t in new_state] == ptrs
+    assert _session_graphs(sess).replays > 0
+
+
 # ------------------------------------------------------------ corpus path --
 def _corpus_batch(seed: int = 30, b: int = 4, t: int = 160 * 200):
     rng = np.random.default_rng(seed)
@@ -751,7 +835,7 @@ def test_replays_survive_the_tensor_caches_dropping_their_constants_on_card(grap
     _clear_tensor_caches()
     gc.collect()
     junk = []  # on the caller's stream and the cache's, where the warm-ups built them
-    for s in [torch.cuda.current_stream(), *graphs.cache._streams.values()]:
+    for s in [torch.cuda.current_stream(), *graphs._streams.values()]:
         with torch.cuda.stream(s):
             junk += [torch.full((max(n // 4, 1),), float("nan"), device="cuda")
                      for n in sorted(sizes) for _ in range(4)]

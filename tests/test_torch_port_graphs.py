@@ -62,17 +62,18 @@ def _copy_into(dst, src):
 
 class _FakeGraph:
     """A CUDA graph's stand-in on the CPU: a replay recomputes the captured
-    function into the static outputs and, as a graph replay, runs no
-    wrapper (the counts it would make are put back)."""
+    function into the static outputs, on the state tensors it was captured
+    with, and, as a graph replay, runs no wrapper (the counts it would make
+    are put back)."""
 
-    def __init__(self, fn, static, out):
-        self.fn, self.static, self.out = fn, static, out
+    def __init__(self, fn, static, out, state=()):
+        self.fn, self.static, self.out, self.state = fn, static, out, state
         self.replays = 0
 
     def replay(self):
         kernels = graphs._kernels()
         counts = graphs._counts(kernels)
-        _copy_into(self.out, self.fn(self.static))
+        _copy_into(self.out, self.fn(self.static, *self.state))
         for k, c in zip(kernels, counts):
             if hasattr(k, "launches"):
                 k.launches = c
@@ -82,20 +83,24 @@ class _FakeGraph:
 class FakeCache(graphs.GraphCache):
     """The real cache with the CUDA steps replaced: the warm-up is a plain
     call, the capture records a :class:`_FakeGraph` (``capturing`` is True
-    meanwhile), and the cache's stream is the CPU's one order."""
+    meanwhile) and, as a capture executes nothing, leaves the state as it
+    found it; the cache's stream is the CPU's one order."""
 
     capturing = False
 
-    def _warm_up(self, fn, static):
-        return fn(static)
+    def _warm_up(self, fn, static, state=()):
+        return fn(static, *state)
 
-    def _record(self, fn, static):
+    def _record(self, fn, static, state=()):
+        saved = [t.clone() for t in state]
         self.capturing = True
         try:
-            out = fn(static)
+            out = fn(static, *state)
         finally:
             self.capturing = False
-        return _FakeGraph(fn, static, out), out
+            for t, v in zip(state, saved):
+                t.copy_(v)
+        return _FakeGraph(fn, static, out, state), out
 
     def _on_cache_stream(self, device):
         return contextlib.nullcontext()
