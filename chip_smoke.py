@@ -32,16 +32,20 @@ launch count set to 0, failing unless the path's kernel launched:
   replayed launches go to the kernels line as ``launches_streaming``);
 * corpus: 2,703 WAV files written from seed 0 (LibriSpeech dev-clean's
   count, ``bench.py``'s length profile), then ``parallel.CorpusRunner`` on
-  a one-rank CUDA mesh (``corpus_phase``) with the counts zeroed just
-  before: K1 must launch once a batch and K2 never; the outputs are held
-  to the float64 oracle and the moments to float64 moments over every
-  file; then five heads on a float16 wire (no launch), a mixed-rate corpus
-  with ``resample=True``, and one step on an NCCL group of world size 1
-  (bitwise equal to no group).  Its K1 and K2 counts go to the kernels
-  line as ``launches_corpus``;
+  a one-rank CUDA mesh (``corpus_phase``), each run once eagerly and once
+  replaying the steps' CUDA graphs (``parallel.data.steps``), in turns,
+  with the counts zeroed just before each: K1 must launch once a batch
+  and K2 never; the outputs are held to the float64 oracle and the
+  moments to float64 moments over every file, the replayed runs to the
+  eager ones and to a run with K1's plain version; then five heads on a
+  float16 wire (no launch), a mixed-rate corpus with ``resample=True``,
+  and one step on an NCCL group of world size 1 (captured, replayed,
+  bitwise equal to no group).  The first replayed run's K1 and K2 counts
+  go to the kernels line as ``launches_corpus``;
 * cli: ``cli.main`` in this process on the first 512 of those files
-  (``cli_phase``): K1 once a batch, K2 never, every output equal to the
-  corpus run's; then ``python -m mfcc_rust_tpu_torch`` on 64 files;
+  (``cli_phase``), eager and replayed: K1 once a batch, K2 never, every
+  output equal to the corpus run's; then ``python -m mfcc_rust_tpu_torch``
+  on 64 files;
 * export: ``mfcc``, ``mfe``, the vorbis mel and the librosa mel exported
   at the headline shapes on the card, saved, loaded and held to the eager
   plain path and their float64 oracles, with no kernel launch
@@ -121,6 +125,7 @@ BATCH, SECONDS, RATE = 48, 10, 16000
 REL_TOL = 1e-4
 ORACLE_TOL = 5e-3
 STREAM_TOL = 1e-5
+REPLAY_TOL = 1e-6
 
 
 def log(*a):
@@ -1039,6 +1044,10 @@ CORPUS_ORACLE_UTTS = 64
 CORPUS_B_CLIPS = 512
 CORPUS_C_CLIPS = 256
 CORPUS_C_RATES = (16000, 22050, 44100)
+# run (a) after its first (eager) pass: replayed once to capture every key,
+# then eager and replayed in turns with every key held
+CORPUS_TURNS = (("a_r", True), ("a_e2", False), ("a_r2", True), ("a_r3", True),
+                ("a_e3", False))
 STEP_SPIN = 30_000_000  # ~15 ms of device spin: longer than a step's enqueue
 
 
@@ -1078,25 +1087,133 @@ def dc_term(np, x, fl: int, hop: int, frames: int):
     return 4.0 * gamma * ab / np.maximum(x0, 1e-300)
 
 
+def corpus_run(torch, k1, k2, make, replay: bool) -> tuple:
+    """(runner, moments, record) of one corpus run, eager (inside
+    ``utils.graphs.disabled()``) or replayed from the steps' graphs
+    (``parallel.data.steps``), with the launch counts zeroed just before:
+    wall (synchronised), launches, batches, host scopes, and the graphs
+    captured in the run (count, recording ms) and held after it (bytes)."""
+    from mfcc_rust_tpu_torch.parallel import data as pdata
+    from mfcc_rust_tpu_torch.utils import graphs
+
+    steps = pdata.steps
+    c0, s0 = steps.captures, steps.capture_seconds
+    k1.mfcc_fused.launches = k2.ct_mel.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.nullcontext() if replay else graphs.disabled():
+        runner = make()
+        moments = runner.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    meter, st = runner.meter, steps.stats()
+    rec = {"mode": "replayed" if replay else "eager", "wall_s": wall,
+           "launches": [k1.mfcc_fused.launches, k2.ct_mel.launches],
+           "batches": int(meter.counters["dispatches"]), "scopes": dict(meter.scopes),
+           "dispatch_s": meter.scopes.get("dispatch", 0.0),
+           "dispatch_busy_s": meter.span_union("dispatch"),
+           "captures": steps.captures - c0, "capture_ms": (steps.capture_seconds - s0) * 1e3,
+           "graphs": st["graphs"], "bytes_held": st["bytes"], "pool_bytes": st["pool_bytes"],
+           "static_bytes": st["static_bytes"]}
+    return runner, moments, rec
+
+
+def run_line(label: str, r: dict) -> str:
+    return (f"{label} {r['mode']}: {r['wall_s']:.3f} s, dispatch scope {r['dispatch_s']:.4f} s; "
+            f"launches (K1, K2) {tuple(r['launches'])} in {r['batches']} batches; "
+            f"captures {r['captures']} ({r['capture_ms']:.1f} ms recording); graphs held "
+            f"{r['graphs']}, {r['bytes_held']} B (pool {r['pool_bytes']}, static inputs "
+            f"{r['static_bytes']})")
+
+
+def outputs_against(np, torch, ref_dir: Path, got_dir: Path, names) -> tuple:
+    """(files not bitwise equal, worst max|d|/max|ref| of a file, of every
+    array of an ``.npz``) of ``got_dir``'s outputs against ``ref_dir``'s."""
+    differ, worst = 0, 0.0
+    for name in names:
+        a, b = np.load(ref_dir / name), np.load(got_dir / name)
+        pairs = [(a[k], b[k]) for k in a.files] if name.endswith(".npz") else [(a, b)]
+        for x, y in pairs:
+            if x.shape != y.shape or x.dtype != y.dtype:
+                return len(names), float("inf")
+            if not np.array_equal(x, y):
+                differ += 1
+                worst = max(worst, rel_err(torch.from_numpy(y.astype(np.float64)),
+                                           torch.from_numpy(x.astype(np.float64)))[0])
+    return differ, worst
+
+
+def moments_rel(np, got, ref) -> float:
+    """Worst max|d|/max|ref| over the count, mean and m2 of two moments."""
+    return max(float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max()
+                     / max(np.abs(np.asarray(b, np.float64)).max(), 1e-300))
+               for a, b in zip(got, ref))
+
+
+def staged_writer(np, torch, shipped):
+    """A variant of ``parallel.data._write`` for the step's A/B: a host
+    array goes into the static input through one pinned staging buffer per
+    (dtype, device), reused, grown when too small, and ordered by an event:
+    the host waits for the last copy out of it before it writes it again.
+    The shipped fill pins a fresh copy each call (``pin_memory()``, from
+    PyTorch's caching host allocator); both copy the samples once on the
+    host.  Tensors and 2-D blocks take the shipped path."""
+    bufs = {}
+
+    def write(dst, v):
+        if isinstance(v, torch.Tensor) or not dst.is_cuda or dst.ndim != 1:
+            return shipped(dst, v)
+        m = min(v.shape[0], dst.shape[0])
+        buf, done = bufs.get((dst.dtype, dst.device), (None, None))
+        if buf is None or buf.shape[0] < m:
+            buf, done = torch.empty(m, dtype=dst.dtype, pin_memory=True), torch.cuda.Event()
+            bufs[(dst.dtype, dst.device)] = (buf, done)
+        else:
+            done.synchronize()
+        np.copyto(buf.numpy()[:m], v[:m])
+        dst[:m].copy_(buf[:m], non_blocking=True)
+        done.record()
+
+    return write
+
+
 def corpus_phase(np, torch, P, k1, k2, tmp: Path) -> dict:
     """The corpus path at LibriSpeech dev-clean's size, on one card.
 
     A corpus of 2,703 WAV files (``bench.py``'s length profile, seed 0:
     durations clip(lognormal(ln 6 s, 0.6), 1, 35) at 16 kHz, samples
     N(0, 0.1)) is written with the port's native ``write_wav`` into
-    ``tmp/wav`` (run (a) writes its outputs to ``tmp/a``: the "cli" phase
-    reads both), then:
+    ``tmp/wav`` (run (a)'s eager run writes its outputs to ``tmp/a``: the
+    "cli" phase reads both).  Each run goes once eagerly
+    (``utils.graphs.disabled()``) and once replayed from the steps' CUDA
+    graphs (``parallel.data.steps``), in turns, with the launch counts
+    zeroed just before each (:func:`corpus_run`); the replayed outputs and
+    moments must equal the eager ones (bitwise, or within REPLAY_TOL of
+    max|ref|: the same ops on the same values, only the static flat buffer
+    longer than the batch's, whose tail is masked).
 
     (a) ``CorpusRunner`` (batch 32, packed f32 outputs, the runner's
-        defaults) on a one-rank CUDA mesh, ``"mfcc"``: K1 once a batch,
-        with the launch counts zeroed just before.  Gates: every output
+        defaults) on a one-rank CUDA mesh, ``"mfcc"``: eager, replayed
+        (capturing each (batch, bucket) key), then eager and replayed in
+        turns (CORPUS_TURNS; every key held: no capture); then once with
+        K1's plain version in its place (``bench_torch._plain_twins``).
+        (b) and (c) run eager, replayed (capturing), replayed (every key
+        held), eager again.  K1 once a batch in
+        each run but the plain one.  Gates on the eager run: every output
         has ``frame_counts_host`` rows x 13; 64 seeded utterances within
         ORACLE_TOL of the float64 speechpy oracle; the returned moments
         equal float64 two-pass moments over every written file (count
-        exact, mean and std at rtol 1e-5, atol 1e-6).  The device time of
-        one step at B = 32 x the most frequent bucket (CUDA events after a
-        spin, median of 20), with its upload and on a device-resident
-        buffer, and K1's own time at that shape.
+        exact, mean and std at rtol 1e-5, atol 1e-6).  Every replayed
+        output within REL_TOL of the plain run's.  One step at B = 32 x
+        the most frequent bucket, eager and replayed, with the flat buffer
+        from the host and device-resident: device ms (CUDA events after a
+        spin, median of 20) and host ms to enqueue, K1's own time at that
+        shape, and the replayed step with a reused pinned staging buffer
+        (:func:`staged_writer`); the replayed step held to the eager one (REPLAY_TOL), to K1's
+        plain version and to the ``pallas="off"`` lowering (the chunk-GEMM,
+        which sums the DC bin in float32, within REL_TOL on this step); the
+        host profile of the device-resident step, eager and replayed
+        (:func:`enqueue_profile`); the host µs of ``data._pack_leaves`` on
+        that step's fetch group.
     (b) the five speechpy heads of the first 512 clips, float16 wire: no
         kernel launches; each head within 2^-11 |x| (the wire) + 2^-24 + 1e-5
         of the head's max (two float32 product shapes) of ``api.extract``
@@ -1105,24 +1222,28 @@ def corpus_phase(np, torch, P, k1, k2, tmp: Path) -> dict:
     (c) 256 clips, a third each at 16,000, 22,050 and 44,100 Hz,
         ``resample=True``: each output within ORACLE_TOL of
         ``api.resample`` then ``api.mfcc`` of the clip on the card.
-    (d) one step over a mesh on an NCCL group of world size 1 equals the
-        no-group mesh's bitwise.
+    (d) one step over a mesh on an NCCL group of world size 1 (its
+        all-reduces inside the capture), its capture and a replay, equals
+        the no-group mesh's eager step bitwise.
 
     One H100 cannot hold two NCCL ranks: multi-rank meshes are proven on
     the CPU under gloo (tests/test_torch_port_parallel.py).  Any failed gate
     raises after the phase has printed its numbers."""
     import torch.distributed as dist
 
+    import bench_torch
     from mfcc_rust_tpu_torch import runtime
-    from mfcc_rust_tpu_torch.parallel import (extraction_step_packed, frame_counts_host,
-                                              make_mesh, pack_signals)
+    from mfcc_rust_tpu_torch.parallel import data as pdata
+    from mfcc_rust_tpu_torch.parallel import (extraction_step_packed, fetch_outputs,
+                                              frame_counts_host, make_mesh, pack_signals)
     from mfcc_rust_tpu_torch.parallel.mesh import init_process_group
     from mfcc_rust_tpu_torch.parallel.runner import CorpusRunner
     from mfcc_rust_tpu_torch.runtime import read_wav, write_wav
+    from mfcc_rust_tpu_torch.utils import graphs
     from mfcc_rust_tpu_torch.utils.bucketing import bucket_length
     from tests.golden import speechpy_ref
 
-    fails, rec = [], {}
+    fails, rec = [], {"card": smi("name,power.limit")}
 
     def check(ok: bool, what: str):
         if not ok:
@@ -1141,30 +1262,60 @@ def corpus_phase(np, torch, P, k1, k2, tmp: Path) -> dict:
     rec["corpus"] = {"clips": CORPUS_CLIPS, "audio_s": audio_s, "wav_bytes": disk,
                      "build_s": time.perf_counter() - t0}
     log(f"corpus: {CORPUS_CLIPS} clips, {audio_s:.1f} audio-s ({audio_s / 3600:.3f} h), "
-        f"{disk / 1e6:.1f} MB of PCM16 WAV, written in {rec['corpus']['build_s']:.2f} s")
+        f"{disk / 1e6:.1f} MB of PCM16 WAV, written in {rec['corpus']['build_s']:.2f} s; "
+        f"card {rec['card']}")
+    names = [f"utt{i:05d}.npy" for i in range(CORPUS_CLIPS)]
+
+    def replay_gate(tag: str, r: dict, ref: dict, ref_dir: Path, got_dir: Path, files,
+                    moments=None, ref_moments=None):
+        differ, worst = outputs_against(np, torch, ref_dir, got_dir, files)
+        r["files_not_bitwise"], r["worst_rel_vs_eager"] = differ, worst
+        check(worst <= REPLAY_TOL, f"{tag}: replayed vs eager {worst:.3e} ({differ} files)")
+        check(r["launches"] == ref["launches"],
+              f"{tag}: replayed launches {r['launches']} != eager {ref['launches']}")
+        if moments is not None:
+            r["moments_rel_vs_eager"] = max(
+                moments_rel(np, a, b) for a, b in
+                zip(moments.values() if isinstance(moments, dict) else [moments],
+                    ref_moments.values() if isinstance(ref_moments, dict) else [ref_moments]))
+            check(r["moments_rel_vs_eager"] <= REPLAY_TOL,
+                  f"{tag}: moments vs eager {r['moments_rel_vs_eager']:.3e}")
+        log(run_line(f"corpus {tag}", r) + f"; outputs vs eager: {differ} of {len(files)} files "
+            f"not bitwise, worst {worst:.3e} (limit {REPLAY_TOL})")
+
+    def after_eager(tag: str, out: str, make, ref: dict, ref_moments, files) -> dict:
+        """After a run's eager pass: replayed (capturing), replayed (every
+        key held), eager again; each replayed pass held to the eager one."""
+        turns = {}
+        for suffix, replay in (("_r", True), ("_r2", True), ("_e2", False)):
+            _, mom, r = corpus_run(torch, k1, k2, make(out + suffix), replay)
+            replay_gate(f"{tag} {out}{suffix}", r, ref, tmp / out, tmp / (out + suffix), files,
+                        mom, ref_moments)
+            turns[out + suffix] = r
+        check(turns[out + "_r2"]["captures"] == 0,
+              f"{tag}: {turns[out + '_r2']['captures']} captures with every key held")
+        return turns
 
     # ----------------------------------------------------------- (a) --
     mesh = make_mesh()
-    k1.mfcc_fused.launches = k2.ct_mel.launches = 0
-    runner = CorpusRunner(paths, cfg, mesh, batch_size=32, out_dir=str(tmp / "a"),
-                          checkpoint_path=str(tmp / "a.npz"))
-    t0 = time.perf_counter()
-    moments = runner.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = (k1.mfcc_fused.launches, k2.ct_mel.launches)
+    pdata.steps.clear()
+
+    def runner_a(out: str, **kw):
+        return lambda: CorpusRunner(paths, cfg, mesh, batch_size=32, out_dir=str(tmp / out),
+                                    checkpoint_path=str(tmp / f"{out}.npz"), **kw)
+
+    runner, moments, a = corpus_run(torch, k1, k2, runner_a("a"), replay=False)
     meter = runner.meter
-    batches = int(meter.counters["dispatches"])
-    a = {"wall_s": wall, "audio_s_per_s": audio_s / wall, "batches": batches,
-         "launches": list(launches), "scopes": dict(meter.scopes),
-         "counters": dict(meter.counters),
-         "fetch_busy_s": meter.span_union("fetch"),
-         "dispatch_busy_s": meter.span_union("dispatch")}
-    check(launches == (batches, 0), f"(a): launches {launches}, want ({batches}, 0)")
+    batches = a["batches"]
+    a["audio_s_per_s"] = audio_s / a["wall_s"]
+    a["counters"] = dict(meter.counters)
+    a["fetch_busy_s"] = meter.span_union("fetch")
+    check(tuple(a["launches"]) == (batches, 0), f"(a): launches {a['launches']}, want "
+                                                f"({batches}, 0)")
     counts = frame_counts_host(lengths, cfg, "mfcc")
     outs, bad = [], 0
     for i in range(CORPUS_CLIPS):
-        f = np.load(tmp / "a" / f"utt{i:05d}.npy")
+        f = np.load(tmp / "a" / names[i])
         bad += f.shape != (counts[i], cfg.num_cepstral) or not np.isfinite(f).all()
         outs.append(f)
     check(bad == 0, f"(a): {bad} outputs of the wrong shape or not finite")
@@ -1190,10 +1341,10 @@ def corpus_phase(np, torch, P, k1, k2, tmp: Path) -> dict:
     check(worst <= ORACLE_TOL, f"(a): vs oracle {worst:.3e}")
     del allv, outs
     sc = ", ".join(f"{k} {v:.4f}" for k, v in sorted(meter.scopes.items()))
-    log(f"corpus (a) mfcc: {CORPUS_CLIPS} files in {wall:.3f} s = {a['audio_s_per_s']:.1f} "
-        f"audio-s/s end to end; {batches} batches, K1 launches {launches[0]}, K2 "
-        f"{launches[1]}; {a['frames']} frames")
-    log(f"corpus (a) scopes (host s): {sc}; fetch-span union {a['fetch_busy_s']:.4f} s, "
+    log(f"corpus (a) mfcc: {CORPUS_CLIPS} files in {a['wall_s']:.3f} s = "
+        f"{a['audio_s_per_s']:.1f} audio-s/s end to end (eager); {batches} batches, K1 launches "
+        f"{a['launches'][0]}, K2 {a['launches'][1]}; {a['frames']} frames")
+    log(f"corpus (a) scopes (host s, eager): {sc}; fetch-span union {a['fetch_busy_s']:.4f} s, "
         f"dispatch-span union {a['dispatch_busy_s']:.4f} s")
     log(f"corpus (a) bytes: H2D {meter.counters.get('h2d_bytes', 0) / 1e6:.3f} MB, D2H "
         f"{meter.counters.get('d2h_bytes', 0) / 1e6:.3f} MB; fetch groups "
@@ -1202,6 +1353,33 @@ def corpus_phase(np, torch, P, k1, k2, tmp: Path) -> dict:
         f"{int(moments.count)}, max|d mean| {a['mean_err']:.3e}, max|d std| "
         f"{a['std_err']:.3e} (rtol 1e-5, atol 1e-6); {CORPUS_ORACLE_UTTS} utterances vs "
         f"float64 oracle {worst:.3e} (limit {ORACLE_TOL})")
+    log(run_line("corpus (a)", a))
+    # replayed, capturing every key; then in turns, every key held
+    turns = {}
+    for out, replay in CORPUS_TURNS:
+        _, mom, r = corpus_run(torch, k1, k2, runner_a(out), replay)
+        replay_gate(f"(a) {out}", r, a, tmp / "a", tmp / out, names, mom, moments)
+        turns[out] = r
+    held = [r["captures"] for k, r in turns.items() if k != "a_r" and r["mode"] == "replayed"]
+    check(turns["a_r"]["captures"] > 0 and not any(held),
+          f"(a): captures {turns['a_r']['captures']}, then {held}")
+    steady = {m: [r for k, r in turns.items() if k != "a_r" and r["mode"] == m]
+              for m in ("eager", "replayed")}
+    log("corpus (a) in turns after the first two runs (eager / replayed): wall s "
+        + " / ".join(", ".join(f"{r['wall_s']:.3f}" for r in steady[m]) for m in steady)
+        + "; dispatch scope s " + " / ".join(
+            ", ".join(f"{r['dispatch_s']:.4f}" for r in steady[m]) for m in steady))
+    with bench_torch._plain_twins():
+        _, _, plain = corpus_run(torch, k1, k2, runner_a("a_p"), replay=False)
+    _, plain["worst_rel_replayed_vs_plain"] = outputs_against(np, torch, tmp / "a_p",
+                                                              tmp / "a_r", names)
+    check(tuple(plain["launches"]) == (0, 0), f"(a) plain: launches {plain['launches']}")
+    check(plain["worst_rel_replayed_vs_plain"] <= REL_TOL,
+          f"(a): replayed vs K1's plain version {plain['worst_rel_replayed_vs_plain']:.3e}")
+    log(f"corpus (a) with K1's plain version (eager): {plain['wall_s']:.3f} s, launches (K1, "
+        f"K2) {tuple(plain['launches'])}; every replayed output vs it: worst "
+        f"{plain['worst_rel_replayed_vs_plain']:.3e} (limit {REL_TOL}, a file's max|d|/max|ref|)")
+    a["turns"], a["plain"] = turns, plain
 
     # one step at B = 32 x the most frequent bucket
     keys = [bucket_length(n) for n in lengths]
@@ -1217,10 +1395,30 @@ def corpus_phase(np, torch, P, k1, k2, tmp: Path) -> dict:
     x_ext = torch.from_numpy(np.random.default_rng(3).normal(
         0.0, 0.1, (32, bucket + fl)).astype(np.float32)).to(mesh.device)
     step_audio = float(lens.sum()) / RATE
-    runs = {"step": lambda: extraction_step_packed(flat, offs, lens, bucket, cfg, mesh,
-                                                   "mfcc", frame_counts=fc),
-            "step_resident": lambda: extraction_step_packed(flat_d, offs, lens, bucket, cfg,
-                                                            mesh, "mfcc", frame_counts=fc),
+
+    def step(f, c=cfg):
+        return lambda: extraction_step_packed(f, offs, lens, bucket, c, mesh, "mfcc",
+                                              frame_counts=fc)
+
+    def eagerly(fn):
+        def call():
+            with graphs.disabled():
+                return fn()
+        return call
+
+    def staged(fn):
+        def call():
+            saved, pdata._write = pdata._write, staged_write
+            try:
+                return fn()
+            finally:
+                pdata._write = saved
+        return call
+
+    staged_write = staged_writer(np, torch, pdata._write)
+    runs = {"step": eagerly(step(flat)), "step_resident": eagerly(step(flat_d)),
+            "step_replayed": step(flat), "step_resident_replayed": step(flat_d),
+            "step_replayed_staged": staged(step(flat)),
             "k1": lambda: k1.mfcc_fused(x_ext, cfg)}
     times = {k: [] for k in runs}
     enqueue = {k: [] for k in runs}
@@ -1241,27 +1439,72 @@ def corpus_phase(np, torch, P, k1, k2, tmp: Path) -> dict:
             e.synchronize()
             times[k].append(s.elapsed_time(e))
     med = {k: statistics.median(v) for k, v in times.items()}
-    a["step"] = {"bucket": bucket, "clips_in_bucket": keys.count(key),
+    host = {k: statistics.median(v) for k, v in enqueue.items()}
+    k0 = k1.mfcc_fused.launches
+    got = runs["step_replayed"]()
+    ref = runs["step"]()
+    k1_step = k1.mfcc_fused.launches - k0
+    with bench_torch._plain_twins():
+        plain_ref = step(flat)()
+    with graphs.disabled():
+        off_ref = step(flat, cfg.replace(pallas="off"))()
+    leaf = lambda out: torch.utils._pytree.tree_leaves(out)
+    vs = {name: max(rel_err(u, v)[0] for u, v in zip(leaf(got), leaf(r)))
+          for name, r in (("eager", ref), ("plain", plain_ref), ("pallas_off", off_ref))}
+    vs["bitwise_eager"] = all(torch.equal(u, v) for u, v in zip(leaf(got), leaf(ref)))
+    check(k1_step == 2, f"(a) step: K1 launches {k1_step} for one replayed and one eager step")
+    check(vs["eager"] <= REPLAY_TOL, f"(a) step: replayed vs eager {vs['eager']:.3e}")
+    check(vs["plain"] <= REL_TOL, f"(a) step: replayed vs K1's plain version {vs['plain']:.3e}")
+    check(vs["pallas_off"] <= REL_TOL, f"(a) step: replayed vs pallas='off' {vs['pallas_off']:.3e}")
+    # _pack_leaves: the runner's one concatenation a fetch group (1 step)
+    group = leaf([got])
+    pack_us = []
+    for _ in range(200):
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        pdata._pack_leaves(group)
+        pack_us.append((time.perf_counter() - h0) * 1e6)
+    fetch_ms = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        fetch_outputs([got])
+        fetch_ms.append((time.perf_counter() - h0) * 1e3)
+    # where the host's time goes in one step, eager and replayed (cProfile)
+    prof = {k: enqueue_profile(torch, lambda _, fn=runs[k]: fn(), [None])
+            for k in ("step_resident", "step_resident_replayed")}
+    for k, pr in prof.items():
+        log(f"corpus (a) host profile of {k} (us a call over {PROFILE_CALLS}): total "
+            f"{pr['total_us']}, torch ops (builtins) {pr['builtin_us']}, Python "
+            f"{pr['python_us']}, CUDAGraph.replay {pr['replay_us']}; most own time: "
+            f"{pr['top_own_us']}")
+    a["step"] = {"bucket": bucket, "clips_in_bucket": keys.count(key), "profile": prof,
                  "audio_s": step_audio, "median_ms": med, "times_ms": times,
-                 "enqueue_ms": enqueue}
+                 "enqueue_ms": enqueue, "enqueue_median_ms": host, "vs": vs,
+                 "pack_leaves_us": pack_us, "pack_leaves_median_us": statistics.median(pack_us),
+                 "fetch_ms": fetch_ms, "fetch_median_ms": statistics.median(fetch_ms),
+                 "group_leaves": len(group)}
     log(f"corpus (a) one step at (32, {bucket}) (the most frequent bucket, "
         f"{keys.count(key)} clips; {step_audio:.1f} audio-s), CUDA events after a "
-        f"~15 ms spin, median of 20: {med['step']:.4f} ms with its upload, "
-        f"{med['step_resident']:.4f} ms on a device-resident buffer, K1 alone "
-        f"{med['k1']:.4f} ms; {step_audio / med['step'] * 1e3:.1f} audio-s/s on the device; "
-        "host enqueue median / max: " + ", ".join(
-            f"{k} {statistics.median(v):.4f} / {max(v):.4f} ms" for k, v in enqueue.items()))
+        f"~15 ms spin, median of 20 (device ms / host ms to enqueue): " + ", ".join(
+            f"{k} {med[k]:.4f} / {host[k]:.4f}" for k in runs)
+        + f"; K1 alone {med['k1']:.4f} ms; {step_audio / med['step_replayed'] * 1e3:.1f} "
+        f"audio-s/s on the device replayed; card {rec['card']}")
+    log(f"corpus (a) step replayed vs eager {vs['eager']:.3e} (bitwise {vs['bitwise_eager']}; "
+        f"limit {REPLAY_TOL}), vs K1's plain version {vs['plain']:.3e} (limit {REL_TOL}), vs the "
+        f"pallas='off' chunk-GEMM {vs['pallas_off']:.3e} (limit {REL_TOL}); K1 "
+        f"launches {k1_step} for one replayed and one eager step")
+    log(f"corpus (a) fetch group of one step ({len(group)} leaves): _pack_leaves host us median "
+        f"{a['step']['pack_leaves_median_us']:.1f} (max {max(pack_us):.1f}); fetch_outputs "
+        f"{a['step']['fetch_median_ms']:.4f} ms a group (synchronised)")
     rec["a"] = a
 
     # ----------------------------------------------------------- (b) --
-    k1.mfcc_fused.launches = k2.ct_mel.launches = 0
     sub = paths[:CORPUS_B_CLIPS]
-    t0 = time.perf_counter()
-    CorpusRunner(sub, cfg, mesh, feature=SUITE_HEADS, batch_size=32,
-                 out_dir=str(tmp / "b"), wire_dtype="float16").run()
-    torch.cuda.synchronize()
-    b = {"wall_s": time.perf_counter() - t0,
-         "launches": [k1.mfcc_fused.launches, k2.ct_mel.launches]}
+    runner_b = lambda out: lambda: CorpusRunner(sub, cfg, mesh, feature=SUITE_HEADS,
+                                                batch_size=32, out_dir=str(tmp / out),
+                                                wire_dtype="float16")
+    _, mom_b, b = corpus_run(torch, k1, k2, runner_b("b"), replay=False)
     check(b["launches"] == [0, 0], f"(b): launches {b['launches']}, want none")
     ratio = {h: 0.0 for h in SUITE_HEADS}
     dc_rows = 0
@@ -1286,10 +1529,13 @@ def corpus_phase(np, torch, P, k1, k2, tmp: Path) -> dict:
     b["worst_ratio"] = ratio
     b["rows_needing_dc_term"] = dc_rows
     check(max(ratio.values()) <= 1.0, f"(b): heads vs api.extract {ratio}")
-    log(f"corpus (b) five heads, float16 wire, {CORPUS_B_CLIPS} clips in {b['wall_s']:.3f} s; "
-        f"launches (K1, K2) {tuple(b['launches'])}; max |d| / bound vs api.extract: "
+    log(f"corpus (b) five heads, float16 wire, {CORPUS_B_CLIPS} clips in {b['wall_s']:.3f} s "
+        f"(eager); launches (K1, K2) {tuple(b['launches'])}; max |d| / bound vs api.extract: "
         + ", ".join(f"{h} {r:.3f}" for h, r in ratio.items())
         + f" (limit 1); rows of mfcc/lmfe past the bound without the DC term: {dc_rows}")
+    log(run_line("corpus (b)", b))
+    b["turns"] = after_eager("(b)", "b", runner_b, b, mom_b,
+                             [f"utt{i:05d}.npz" for i in range(len(sub))])
     rec["b"] = b
 
     # ----------------------------------------------------------- (c) --
@@ -1298,15 +1544,10 @@ def corpus_phase(np, torch, P, k1, k2, tmp: Path) -> dict:
     lc = [int(n * r / RATE) for n, r in
           zip(corpus_lengths(np, rng_c, CORPUS_C_CLIPS, RATE), rates)]
     cpaths = write_corpus(np, write_wav, rng_c, lc, rates, tmp / "wav_c")
-    k1.mfcc_fused.launches = k2.ct_mel.launches = 0
-    t0 = time.perf_counter()
-    rc = CorpusRunner(cpaths, cfg, mesh, batch_size=32, out_dir=str(tmp / "c"),
-                      resample=True)
-    rc.run()
-    torch.cuda.synchronize()
-    c = {"wall_s": time.perf_counter() - t0,
-         "launches": [k1.mfcc_fused.launches, k2.ct_mel.launches],
-         "dispatches": int(rc.meter.counters["dispatches"])}
+    runner_c = lambda out: lambda: CorpusRunner(cpaths, cfg, mesh, batch_size=32,
+                                                out_dir=str(tmp / out), resample=True)
+    _, mom_c, c = corpus_run(torch, k1, k2, runner_c("c"), replay=False)
+    c["dispatches"] = c["batches"]
     worst = 0.0
     for i, (p, sr) in enumerate(zip(cpaths, rates)):
         dec, _ = read_wav(p)
@@ -1319,30 +1560,38 @@ def corpus_phase(np, torch, P, k1, k2, tmp: Path) -> dict:
     c["rel"] = worst
     check(worst <= ORACLE_TOL, f"(c): vs api.resample + api.mfcc {worst:.3e}")
     log(f"corpus (c) resample=True, {CORPUS_C_CLIPS} clips at {CORPUS_C_RATES} Hz in "
-        f"{c['wall_s']:.3f} s; {c['dispatches']} dispatches, launches (K1, K2) "
+        f"{c['wall_s']:.3f} s (eager); {c['dispatches']} dispatches, launches (K1, K2) "
         f"{tuple(c['launches'])}; vs api.resample + api.mfcc {worst:.3e} "
         f"(limit {ORACLE_TOL})")
+    c["turns"] = after_eager("(c)", "c", runner_c, c, mom_c,
+                             [f"utt{i:05d}.npy" for i in range(CORPUS_C_CLIPS)])
     rec["c"] = c
 
     # ----------------------------------------------------------- (d) --
-    ref = extraction_step_packed(flat, offs, lens, bucket, cfg, make_mesh(), "mfcc",
-                                 frame_counts=fc)
+    with graphs.disabled():
+        ref = extraction_step_packed(flat, offs, lens, bucket, cfg, make_mesh(), "mfcc",
+                                     frame_counts=fc)
     rank_world = init_process_group(f"file://{tmp / 'pg'}", world_size=1, rank=0,
                                     backend="nccl", timeout=60.0)
+    c0, r0 = pdata.steps.captures, pdata.steps.replays
     try:
         gmesh = make_mesh()
-        got = extraction_step_packed(flat, offs, lens, bucket, cfg, gmesh, "mfcc",
-                                     frame_counts=fc)
-        same = all(torch.equal(u, v) for u, v in
-                   zip(torch.utils._pytree.tree_leaves(got),
-                       torch.utils._pytree.tree_leaves(ref)))
+        gots = [extraction_step_packed(flat, offs, lens, bucket, cfg, gmesh, "mfcc",
+                                       frame_counts=fc) for _ in range(3)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(u, v) for got in gots for u, v in zip(leaf(got), leaf(ref)))
         grouped = gmesh.group is not None
+        graphed = (pdata.steps.captures - c0, pdata.steps.replays - r0)
     finally:
         dist.destroy_process_group()
-    rec["d"] = {"rank_world": list(rank_world), "bitwise": same}
-    check(same and grouped and rank_world == (0, 1), "(d): NCCL world 1 != no-group mesh")
-    log(f"corpus (d) NCCL group of world 1 (rank, world) {rank_world}: one step at "
-        f"(32, {bucket}) bitwise equal to the no-group mesh: {same}")
+        pdata.steps.clear()  # no graph outlives the group it calls
+    rec["d"] = {"rank_world": list(rank_world), "bitwise": same,
+                "captures_replays": list(graphed)}
+    check(same and grouped and rank_world == (0, 1) and graphed == (1, 2),
+          f"(d): NCCL world 1 != no-group mesh, or (captures, replays) {graphed}")
+    log(f"corpus (d) NCCL group of world 1 (rank, world) {rank_world}: three steps at "
+        f"(32, {bucket}) through one graph ((captures, replays) {graphed}), each bitwise equal "
+        f"to the no-group mesh's eager step: {same}")
     rec["clocks"] = smi("clocks.sm,power.draw,power.limit,temperature.gpu")
     log(f"clocks.sm, power.draw, power.limit, temperature: {rec['clocks']}")
     if fails:
@@ -1462,55 +1711,69 @@ def export_phase(np, torch, P, k1, k2, flush, tmp: Path) -> dict:
 def cli_phase(np, torch, P, k1, k2, tmp: Path) -> dict:
     """The command line on the card (``mfcc_rust_tpu_torch.cli``), on the
     corpus phase's WAV files (``tmp/wav``): ``cli.main`` in this process on
-    the first 512 with ``--feature mfcc --out-dir --cmvn-out --quiet``, the
-    launch counts zeroed just before.  K1 must launch once a dispatched
-    batch (the report's ``counters.dispatches``; its ``batches`` counts
-    every metered scope, as the JAX package's does) and K2 never; each
-    ``.npy`` must equal run (a)'s output for that file (``tmp/a``) within
-    1e-6 (max|d|/max|ref|), the npz must hold count, mean, m2 and std, and
-    the report must count 512 utterances.  Then ``python -m
-    mfcc_rust_tpu_torch`` in a subprocess on the first 64 files must exit 0
-    with a last line that parses and counts 64 utterances.  Prints the
-    end-to-end audio-s/s (host clock around ``main``) and the host scopes."""
+    the first 512 with ``--feature mfcc --out-dir --cmvn-out --quiet``,
+    in turns eagerly (``utils.graphs.disabled()``), replaying the steps'
+    graphs (capturing, then with every key held: no capture) and eagerly
+    again, the launch counts zeroed just before each.  K1
+    must launch once a dispatched batch (the report's
+    ``counters.dispatches``; its ``batches`` counts every metered scope, as
+    the JAX package's does) and K2 never; each ``.npy`` must equal run
+    (a)'s output for that file (``tmp/a``) within 1e-6 (max|d|/max|ref|),
+    the npz must hold count, mean, m2 and std, and the report must count
+    512 utterances.  Then ``python -m mfcc_rust_tpu_torch`` in a subprocess
+    on the first 64 files must exit 0 with a last line that parses and
+    counts 64 utterances.  Prints the end-to-end audio-s/s (host clock
+    around ``main``), the host scopes and the graphs captured."""
     import contextlib
     import io
 
     from mfcc_rust_tpu_torch import cli
+    from mfcc_rust_tpu_torch.parallel import data as pdata
     from mfcc_rust_tpu_torch.runtime import read_wav
+    from mfcc_rust_tpu_torch.utils import graphs
 
     paths = sorted(str(p) for p in (tmp / "wav").glob("utt*.wav"))
     sub = paths[:CLI_CLIPS]
     audio_s = sum(read_wav(p)[0].shape[0] for p in sub) / RATE
-    out_dir, cmvn = tmp / "cli", tmp / "cli_cmvn.npz"
-    fails = []
-    k1.mfcc_fused.launches = k2.ct_mel.launches = 0
-    stdout = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(stdout):
-        rc = cli.main([*sub, "--feature", "mfcc", "--out-dir", str(out_dir),
-                       "--cmvn-out", str(cmvn), "--quiet"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = (k1.mfcc_fused.launches, k2.ct_mel.launches)
-    report = json.loads(stdout.getvalue().strip().splitlines()[-1])
-    dispatches = int(report["counters"]["dispatches"])
-    if rc != 0 or launches != (dispatches, 0) or report["utterances"] != CLI_CLIPS:
-        fails.append(f"rc {rc}, launches {launches}, dispatches {dispatches}, "
-                     f"utterances {report['utterances']}")
-    worst = 0.0
-    for p in sub:
-        name = Path(p).stem + ".npy"
-        a, b = np.load(out_dir / name), np.load(tmp / "a" / name)
-        worst = max(worst, float("inf") if a.shape != b.shape else
-                    rel_err(torch.from_numpy(a), torch.from_numpy(b))[0])
-    keys = sorted(np.load(cmvn).files)
-    if worst > 1e-6 or keys != ["count", "m2", "mean", "std"]:
-        fails.append(f"outputs vs run (a) {worst:.3e}, npz keys {keys}")
-    log(f"cli main, --feature mfcc on {CLI_CLIPS} files ({audio_s:.1f} audio-s) in {wall:.3f} s "
-        f"= {audio_s / wall:.1f} audio-s/s end to end; rc {rc}; {dispatches} batches, launches "
-        f"(K1, K2) {launches}; outputs vs corpus run (a) {worst:.3e} (limit 1e-6); npz {keys}")
-    log(f"cli host scopes (s): " + ", ".join(f"{k} {v:.4f}" for k, v in
-                                             sorted(report["scopes"].items())))
+    fails, runs = [], {}
+    for mode in ("eager", "replayed", "replayed_held", "eager_again"):
+        out_dir, cmvn = tmp / f"cli_{mode}", tmp / f"cli_cmvn_{mode}.npz"
+        k1.mfcc_fused.launches = k2.ct_mel.launches = 0
+        c0, s0 = pdata.steps.captures, pdata.steps.capture_seconds
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout), \
+                (graphs.disabled() if mode.startswith("eager") else contextlib.nullcontext()):
+            rc = cli.main([*sub, "--feature", "mfcc", "--out-dir", str(out_dir),
+                           "--cmvn-out", str(cmvn), "--quiet"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = (k1.mfcc_fused.launches, k2.ct_mel.launches)
+        report = json.loads(stdout.getvalue().strip().splitlines()[-1])
+        dispatches = int(report["counters"]["dispatches"])
+        if rc != 0 or launches != (dispatches, 0) or report["utterances"] != CLI_CLIPS:
+            fails.append(f"{mode}: rc {rc}, launches {launches}, dispatches {dispatches}, "
+                         f"utterances {report['utterances']}")
+        worst = 0.0
+        for p in sub:
+            name = Path(p).stem + ".npy"
+            a, b = np.load(out_dir / name), np.load(tmp / "a" / name)
+            worst = max(worst, float("inf") if a.shape != b.shape else
+                        rel_err(torch.from_numpy(a), torch.from_numpy(b))[0])
+        keys = sorted(np.load(cmvn).files)
+        if worst > 1e-6 or keys != ["count", "m2", "mean", "std"]:
+            fails.append(f"{mode}: outputs vs run (a) {worst:.3e}, npz keys {keys}")
+        runs[mode] = {"wall_s": wall, "audio_s_per_s": audio_s / wall, "launches": list(launches),
+                      "report": report, "rel_vs_run_a": worst,
+                      "captures": pdata.steps.captures - c0,
+                      "capture_ms": (pdata.steps.capture_seconds - s0) * 1e3}
+        log(f"cli main {mode}, --feature mfcc on {CLI_CLIPS} files ({audio_s:.1f} audio-s) in "
+            f"{wall:.3f} s = {audio_s / wall:.1f} audio-s/s end to end; rc {rc}; {dispatches} "
+            f"batches, launches (K1, K2) {launches}; captures {runs[mode]['captures']} "
+            f"({runs[mode]['capture_ms']:.1f} ms recording); outputs vs corpus run (a) "
+            f"{worst:.3e} (limit 1e-6); npz {keys}")
+        log(f"cli host scopes (s, {mode}): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                                          sorted(report["scopes"].items())))
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-m", "mfcc_rust_tpu_torch",
                           *paths[:CLI_SUBPROCESS_CLIPS], "--out-dir", str(tmp / "cli_m"),
@@ -1525,12 +1788,12 @@ def cli_phase(np, torch, P, k1, k2, tmp: Path) -> dict:
     log(f"python -m mfcc_rust_tpu_torch on {CLI_SUBPROCESS_CLIPS} files: rc {res.returncode} in "
         f"{sub_s:.3f} s (process included); utterances {sub_report.get('utterances')}, "
         f"corpus_frames {sub_report.get('corpus_frames')}")
+    if runs["replayed_held"]["captures"]:
+        fails.append(f"{runs['replayed_held']['captures']} captures with every key held")
     if fails:
         raise AssertionError("cli phase: " + "; ".join(fails))
-    return {"files": CLI_CLIPS, "audio_s": audio_s, "wall_s": wall,
-            "audio_s_per_s": audio_s / wall, "launches": list(launches), "report": report,
-            "rel_vs_run_a": worst, "subprocess": {"rc": res.returncode, "wall_s": sub_s,
-                                                  "report": sub_report}}
+    return {"files": CLI_CLIPS, "audio_s": audio_s, **runs["replayed"], "runs": runs,
+            "subprocess": {"rc": res.returncode, "wall_s": sub_s, "report": sub_report}}
 
 
 def profiling_phase(np, torch, P, k1, k2, tmp: Path, measured: dict) -> dict:
@@ -2469,13 +2732,13 @@ def main() -> int:
         "ms": med["kernel"], "plain_ms": med["plain"], "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": med["library"], "path": plan["path"],
-        "launches_corpus": record["corpus"]["a"]["launches"][0],
+        "launches_corpus": record["corpus"]["a"]["turns"]["a_r"]["launches"][0],
         "launches_bench": record["bench"]["launches"][k1.KERNEL],
         "launches_entry": record["entry"]["launches_entry"][0],
         "launches_examples": record["entry"]["launches_examples"][0],
         "launches_compiled": record["compiled"]["launches"][0],
         "launches_streaming": record["streaming"]["launches"][0],
-    }, dict(k2_entry, launches_corpus=record["corpus"]["a"]["launches"][1],
+    }, dict(k2_entry, launches_corpus=record["corpus"]["a"]["turns"]["a_r"]["launches"][1],
             launches_bench=record["bench"]["launches"][k2.KERNEL],
             launches_entry=record["entry"]["launches_entry"][1],
             launches_examples=record["entry"]["launches_examples"][1],

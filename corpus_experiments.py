@@ -16,6 +16,9 @@ backward), twice:
 * ``fetch_every=4``: four batches to a device->host copy;
 * ``io_threads=8``: eight decode threads in place of four.
 
+Every run is eager (``utils.graphs.disabled()``): the upload variants swap
+``parallel.data._upload``, which the replayed steps do not call.
+
 Each run prints its wall seconds, audio-s/s and host scopes.  Then one
 run of the shipped runner under ``torch.profiler`` (CUDA activity): the
 device time of its kernels and copies against the run's wall gives the
@@ -52,6 +55,7 @@ def main() -> int:
     import mfcc_rust_tpu_torch as P
     from mfcc_rust_tpu_torch.parallel import data, make_mesh, runner
     from mfcc_rust_tpu_torch.runtime import native_available, write_wav
+    from mfcc_rust_tpu_torch.utils import graphs
 
     assert native_available(), "the native WAV runtime did not build"
     card = cs.smi("name,power.limit")
@@ -88,7 +92,8 @@ def main() -> int:
             out = tmp / f"out{n}"
             r = runner.CorpusRunner(paths, cfg, mesh, batch_size=32, out_dir=str(out), **kw)
             t0 = time.perf_counter()
-            r.run()
+            with graphs.disabled():
+                r.run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             set_upload(shipped_upload)

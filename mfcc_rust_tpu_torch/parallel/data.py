@@ -15,7 +15,9 @@ the reference's single-matrix ``cmvn``).
 
 On a CUDA float32 shard the single-feature ``"mfcc"`` step runs the fused
 MFCC kernel (``ops/cuda/speechpy_mfcc``) on the halo-extended shard; every
-other head runs the plain chunk-GEMM on cuBLAS.
+other head runs the plain chunk-GEMM on cuBLAS.  On CUDA each step replays
+one CUDA graph per (step, config, feature, mesh, batch, bucket, dtypes)
+from :data:`steps`, the kernel inside, as the JAX package jits each step.
 
 Results stay on each rank: features and mask are this rank's (Bl, Fl, ...)
 block, packed outputs this data rank's valid frames.  :func:`fetch_outputs`
@@ -40,6 +42,7 @@ from ..ops import framing as _framing
 from ..ops.mel import apply_filterbank
 from ..ops.spectrum import zero_handling
 from ..ops.ssc import ssc_from_power
+from ..utils import graphs
 from . import halo
 from .mesh import DATA_AXIS, SEQ_AXIS, data_seq_sharding, data_sharding
 from .stats import CorpusMoments, local_moments, psum_moments
@@ -293,9 +296,7 @@ def _frame_pack_args(frame_counts):
     """(host exclusive-cumsum frame offsets, total valid frames) of the
     batch's per-row frame counts.  The cumsum runs in int64 and is narrowed
     through :func:`_as_int32`: counts summing to 2**31 or more raise instead
-    of wrapping.  The port's packed buffers hold exactly the valid frames:
-    eager PyTorch has no compiled shapes to keep few, so there is no
-    bucketed zero tail."""
+    of wrapping."""
     counts = np.asarray(frame_counts, dtype=np.int64)
     incl = _as_int32(np.cumsum(counts), "frame offset").astype(np.int64)
     offs = np.zeros(counts.shape[0], dtype=np.int64)
@@ -303,35 +304,48 @@ def _frame_pack_args(frame_counts):
     return offs, int(incl[-1]) if incl.size else 0
 
 
-def _pack_frame_tree(feats, lengths: torch.Tensor, frame_offs: np.ndarray, total: int,
-                     cfg: FeatureConfig, feature, mesh):
+def _packed_rows(frame_counts, mesh, bl: int):
+    """(this data rank's per-row frame counts, their exclusive offsets from
+    its first row, its valid-frame count) of the batch's frame counts."""
+    offs, _ = _frame_pack_args(frame_counts)
+    lo = mesh.coords[0] * bl
+    mine = np.asarray(frame_counts, dtype=np.int64)[lo:lo + bl]
+    return mine, offs[lo:lo + bl] - offs[lo], int(mine.sum())
+
+
+def _packed_index(counts: torch.Tensor, rel: torch.Tensor, n_cap: int):
+    """(row, frame, holds a frame) of each of ``n_cap`` packed positions,
+    built on the device from the rows' frame counts and exclusive offsets,
+    as the JAX epilogue does: position p lies in the last row whose offset
+    is <= p (a zero-frame row shares its offset with the next row); the
+    positions past the batch's frames hold none."""
+    p = torch.arange(n_cap, device=rel.device)
+    row = torch.clamp(torch.searchsorted(rel, p, right=True) - 1, 0, rel.shape[0] - 1)
+    fr = p - rel[row]
+    return row, fr, fr < counts[row]
+
+
+def _pack_frame_tree(feats, lengths: torch.Tensor, counts: torch.Tensor, rel: torch.Tensor,
+                     n_cap: int, cfg: FeatureConfig, feature, mesh):
     """Epilogue of the packed-output step on one data rank: gather every
     VALID frame row of this rank's padded (Bl, F, ...) feature leaves into
-    dense (n, ...) buffers, in (row-major, frame-major) corpus order, with
-    frame offsets starting at 0.  Where the time axis is sharded, the data
-    row first all-gathers its feature blocks along time.  ``frame_offs`` and
-    ``total`` are the batch's global offsets and valid-frame count
-    (:func:`_frame_pack_args`)."""
+    dense (n_cap, ...) buffers, in (row-major, frame-major) corpus order,
+    zeros past the rank's frames (the caller keeps its first n rows).
+    Where the time axis is sharded, the data row first all-gathers its
+    feature blocks along time.  ``counts`` and ``rel``: this rank's rows'
+    frame counts and their offsets from its first row
+    (:func:`_packed_rows`)."""
     feats = pytree.tree_map(lambda x: _all_gather_time(x, mesh), feats)
     any_leaf = pytree.tree_leaves(feats)[0]
     bl, f = any_leaf.shape[0], any_leaf.shape[1]
-    d = mesh.coords[0]
-    ends = np.append(frame_offs[1:], total)
-    mine = frame_offs[d * bl:(d + 1) * bl]
-    counts = ends[d * bl:(d + 1) * bl] - mine
-    n = int(counts.sum())
-    dev = any_leaf.device
-    both = _upload(np.concatenate([counts, mine - mine[0]]), dev)
-    c, offs = both[:bl], both[bl:]
-    row = torch.repeat_interleave(torch.arange(bl, device=dev), c, output_size=n)
-    fr = torch.arange(n, device=dev) - offs[row]
+    row, fr, has = _packed_index(counts, rel, n_cap)
     nv = torch.clamp(_n_valid_frames(lengths, cfg, feature), 0, f)
-    valid = fr < nv[row]
+    valid = has & (fr < nv[row])
     flat_idx = row * f + torch.clamp(fr, 0, f - 1)
 
     def pk(leaf):
         g = leaf.reshape((bl * f,) + leaf.shape[2:])[flat_idx]
-        v = valid.reshape((n,) + (1,) * (g.ndim - 1))
+        v = valid.reshape((n_cap,) + (1,) * (g.ndim - 1))
         return torch.where(v, g, torch.zeros((), dtype=g.dtype, device=g.device))
 
     return pytree.tree_map(pk, feats)
@@ -362,16 +376,8 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def _host_ints(mesh, *arrays) -> list:
-    """This data rank's rows of each (B,) host int array, shipped to the
-    device in ONE copy as int64."""
-    rows = [data_sharding(mesh).block(np.asarray(a)) for a in arrays]
-    both = _upload(np.concatenate(rows).astype(np.int64), mesh.device)
-    return list(torch.split(both, [len(r) for r in rows]))
-
-
 def _check_step(feature, cfg: FeatureConfig, mesh, b: int, t: int):
-    """Validate a step's shapes; returns (cfg, feature key)."""
+    """Validate a step's shapes; returns (cfg, feature key, hop)."""
     multi = isinstance(feature, (tuple, list))
     if multi and "melspec" in feature:
         raise ValueError("melspec (vorbis hop/framing) cannot join a multi-feature pass")
@@ -389,28 +395,111 @@ def _check_step(feature, cfg: FeatureConfig, mesh, b: int, t: int):
         raise ValueError(f"batch {b} not divisible by data axis {n_data}")
     if t % (n_seq * hop):
         raise ValueError(f"time {t} not divisible by seq axis * hop = {n_seq * hop}")
-    return cfg, tuple(feature) if multi else feature
+    return cfg, tuple(feature) if multi else feature, hop
 
 
-def _run_local(signals, lengths, cfg, key, mesh, frame_counts, wire_dtype):
-    """Shared body of both steps on this rank's signal block."""
-    if frame_counts is None and wire_dtype is not None:
-        raise ValueError("wire_dtype requires packed outputs (frame_counts)")
+def _packed(frame_counts, wire_dtype, mesh, bl: int, frames: int):
+    """(header rows, row capacity, trim) of a step's packed outputs, or
+    ([], None, None) without them.  The capacity is this rank's padded rows,
+    ``bl * frames``: it is fixed by the step's (batch, bucket) key, where the
+    batch's valid-frame count n is not; the trim keeps the first n rows."""
+    if frame_counts is None:
+        if wire_dtype is not None:
+            raise ValueError("wire_dtype requires packed outputs (frame_counts)")
+        return [], None, None
+    counts, rel, n = _packed_rows(frame_counts, mesh, bl)
+
+    def trim(out):
+        return pytree.tree_map(lambda x: x[:n], out[0]), out[1]
+
+    return [counts, rel], max(bl * frames, n), trim
+
+
+def _run_local(signals, lengths, cfg, key, mesh, pack, n_cap, wire_dtype):
+    """Shared body of the steps on this rank's signal block; ``pack``: the
+    packed outputs' (counts, offsets) tensors, or empty."""
     if isinstance(key, tuple):
         feats, mask, moments = _local_multi(signals, lengths, cfg, key, mesh)
     else:
         feats, mask, moments = _local_features(signals, lengths, cfg, key, mesh)
-    if frame_counts is None:
+    if not pack:
         return feats, mask, moments
-    offs, total = _frame_pack_args(frame_counts)
-    packed = _pack_frame_tree(feats, lengths, offs, total, cfg, key, mesh)
+    packed = _pack_frame_tree(feats, lengths, *pack, n_cap, cfg, key, mesh)
     return _cast_wire(packed, wire_dtype), moments
 
 
-def _flat_tensor(flat, mesh) -> torch.Tensor:
-    if isinstance(flat, torch.Tensor):
-        return flat.to(mesh.device)
-    return _upload(flat, mesh.device)
+def _host_rows(mesh, *arrays) -> list:
+    """This data rank's rows of each (B,) host int array, as int64."""
+    return [data_sharding(mesh).block(np.asarray(a).astype(np.int64)) for a in arrays]
+
+
+def _flat_capacity(offsets: np.ndarray, lengths: np.ndarray, t: int) -> int:
+    """Samples of the flat buffer that a step of bucket ``t`` reads: every
+    row's first min(length, t) samples lie below ``B * t``, unless a clip
+    is longer than the bucket (then the samples up to the last one read)."""
+    span = int(np.max(offsets + np.minimum(lengths, t), initial=0))
+    return max(len(offsets) * t, span)
+
+
+def _mesh_key(mesh) -> tuple:
+    """What of a mesh fixes a step's launches and collectives: its layout,
+    this rank's place in it, and its process groups (held by the key, so a
+    group's identity is never reused while a graph that calls it lives)."""
+    return (mesh.shape[DATA_AXIS], mesh.shape[SEQ_AXIS], mesh.coords, mesh.group,
+            mesh.seq_group, mesh.data_group)
+
+
+def _dtype_of(v) -> torch.dtype:
+    return v.dtype if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v)[:0]).dtype
+
+
+def _write(dst: torch.Tensor, v) -> None:
+    """Write ``v`` (a host array or a tensor) into the leading rows of the
+    static input ``dst`` on the current stream; a host array goes through
+    pinned memory, asynchronously.  A flat buffer's tail past them is never
+    read unmasked (:func:`_unpack_local`), so it is not cleared."""
+    m = min(v.shape[0], dst.shape[0])
+    if m == 0:
+        return
+    src = v[:m] if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v[:m]))
+    if dst.is_cuda and not src.is_cuda:
+        src = src.pin_memory()
+    dst[:m].copy_(src, non_blocking=True)
+
+
+STEP_GRAPHS = 128
+
+steps = graphs.GraphCache(maxsize=STEP_GRAPHS, share_pool=True)
+"""The corpus steps' graphs, the counterpart of the JAX package's jitted
+steps: one per (step, config, feature, mesh, batch, bucket, dtypes).  A
+corpus of 1-35 s clips falls into 17 length buckets, each batched at the
+runner's batch size and at the powers of two below it for its remainder
+(32, 16, ..., 1: up to 102 keys of one step), so the ``api`` LRU of 16
+would thrash, and so would any LRU smaller than the keys a run cycles
+through.  The steps run one at a time and each replay's outputs are
+copied out, so their graphs share one memory pool."""
+
+
+def _step(key: tuple, fn, inputs, mesh, trim=None):
+    """``fn(static)`` on this rank, for ``inputs``: a list of (value, static
+    shape), each value a host array or a tensor.  Eager on the values as
+    they are where :func:`..utils.graphs.runs_eagerly` says so, else
+    through :data:`steps`: each value is written into the leading rows of a
+    static input of its shape (the key's capacity), and the graph of
+    (``key``, the mesh, the shapes and dtypes) replays.  ``trim``: the part
+    of ``fn``'s outputs that is the result."""
+    probe = next((v for v, _ in inputs if isinstance(v, torch.Tensor)), torch.empty(0))
+    if graphs.runs_eagerly(probe, mesh.device):
+        out = fn(tuple(v.to(mesh.device) if isinstance(v, torch.Tensor)
+                       else _upload(v, mesh.device) for v, _ in inputs))
+        return out if trim is None else trim(out)
+
+    def fill(static):
+        for dst, (v, _) in zip(static, inputs):
+            _write(dst, v)
+
+    return steps.run(key + (_mesh_key(mesh),), fn, tuple(s for _, s in inputs),
+                     tuple(_dtype_of(v) for v, _ in inputs), mesh.device, fill, trim=trim)
 
 
 def extraction_step_packed(flat, offsets, lengths, t: int, cfg: FeatureConfig, mesh,
@@ -427,15 +516,31 @@ def extraction_step_packed(flat, offsets, lengths, t: int, cfg: FeatureConfig, m
     dense (n, ...) buffer of only this data rank's valid frames in row-major
     corpus order.  ``wire_dtype`` ("float16"/"bfloat16", packed outputs
     only) quantizes the feature leaves on device before the fetch — see
-    :func:`_cast_wire` for the error bound.  Moments stay f32."""
-    cfg, key = _check_step(feature, cfg, mesh, len(offsets), t)
+    :func:`_cast_wire` for the error bound.  Moments stay f32.
+
+    On CUDA the step replays one graph per (config, feature, mesh, batch,
+    bucket ``t``, dtypes) from :data:`steps`: the flat buffer's static
+    input holds ``B * t`` samples, whatever this batch's flat length."""
+    b = len(offsets)
+    cfg, key, hop = _check_step(feature, cfg, mesh, b, t)
+    offsets = np.asarray(_as_int32(offsets, "packed offset"), np.int64)
+    lengths = np.asarray(_as_int32(lengths, "clip length"), np.int64)
+    rows = _host_rows(mesh, offsets, lengths)
+    bl = len(rows[0])
+    pk_rows, n_cap, trim = _packed(frame_counts, wire_dtype, mesh, bl, t // hop)
+    header = np.concatenate(rows + pk_rows)
     t_local = t // mesh.shape[SEQ_AXIS]
-    flat_t = _flat_tensor(flat, mesh)
-    offs_l, lens_l = _host_ints(mesh, _as_int32(offsets, "packed offset"),
-                                _as_int32(lengths, "clip length"))
-    signals = _unpack_local(flat_t, offs_l, lens_l, t_local, getattr(torch, cfg.dtype),
-                            mesh.coords[1])
-    return _run_local(signals, lens_l, cfg, key, mesh, frame_counts, wire_dtype)
+    dtype = getattr(torch, cfg.dtype)
+
+    def body(static):
+        flat_t, ints = static
+        offs_l, lens_l, *pack = torch.split(ints, bl)
+        signals = _unpack_local(flat_t, offs_l, lens_l, t_local, dtype, mesh.coords[1])
+        return _run_local(signals, lens_l, cfg, key, mesh, pack, n_cap, wire_dtype)
+
+    cap = _flat_capacity(offsets, lengths, t)
+    return _step(("packed", cfg, key, b, t, n_cap, wire_dtype), body,
+                 [(flat, (cap,)), (header, header.shape)], mesh, trim)
 
 
 def extraction_step(signals, lengths, cfg: FeatureConfig, mesh, feature="mfcc",
@@ -456,9 +561,10 @@ def extraction_step(signals, lengths, cfg: FeatureConfig, mesh, feature="mfcc",
     {name: CorpusMoments}).
 
     ``frame_counts`` switches on packed outputs — see
-    :func:`extraction_step_packed`."""
+    :func:`extraction_step_packed`.  On CUDA the step replays one graph per
+    (config, feature, mesh, block shape, dtypes) from :data:`steps`."""
     b = len(lengths)
-    cfg, key = _check_step(feature, cfg, mesh, b, signals.shape[-1])
+    cfg, key, hop = _check_step(feature, cfg, mesh, b, signals.shape[-1])
     rows_local = signals.shape[0] != b
     if rows_local and signals.shape[0] * mesh.shape[DATA_AXIS] != b:
         raise ValueError(f"signals of {signals.shape[0]} rows for a batch of {b}")
@@ -467,9 +573,18 @@ def extraction_step(signals, lengths, cfg: FeatureConfig, mesh, feature="mfcc",
         block = signals[:, mesh.coords[1] * tl:(mesh.coords[1] + 1) * tl]
     else:
         block = data_seq_sharding(mesh).block(signals)
-    block = block.to(mesh.device) if isinstance(block, torch.Tensor) else _upload(block, mesh.device)
-    (lens_l,) = _host_ints(mesh, _as_int32(lengths, "clip length"))
-    return _run_local(block, lens_l, cfg, key, mesh, frame_counts, wire_dtype)
+    (lens,) = _host_rows(mesh, _as_int32(lengths, "clip length"))
+    bl = len(lens)
+    pk_rows, n_cap, trim = _packed(frame_counts, wire_dtype, mesh, bl, signals.shape[-1] // hop)
+    header = np.concatenate([lens] + pk_rows)
+
+    def body(static):
+        x, ints = static
+        lens_l, *pack = torch.split(ints, bl)
+        return _run_local(x, lens_l, cfg, key, mesh, pack, n_cap, wire_dtype)
+
+    return _step(("padded", cfg, key, b, n_cap, wire_dtype), body,
+                 [(block, tuple(block.shape)), (header, header.shape)], mesh, trim)
 
 
 def unpack_resample(flat, offsets, lengths_src, t_src: int, up: int, down: int, mesh):
@@ -478,14 +593,24 @@ def unpack_resample(flat, offsets, lengths_src, t_src: int, up: int, down: int, 
     polyphase-resample it by up/down in one pass, so the host->device copy
     carries only the packed source-rate samples.  Returns this rank's
     (B / n_data, t_src*up//down) rows on the mesh's device, the form
-    :func:`extraction_step` takes."""
+    :func:`extraction_step` takes.  On CUDA it replays one graph per (batch,
+    ``t_src``, up/down, mesh, flat dtype) from :data:`steps`."""
     from ..ops.resample import resample_poly
 
-    flat_t = _flat_tensor(flat, mesh)
-    offs_l, lens_l = _host_ints(mesh, _as_int32(offsets, "packed offset"),
-                                _as_int32(lengths_src, "clip length"))
-    sig = _unpack_local(flat_t, offs_l, lens_l, t_src, torch.float32)
-    return resample_poly(sig, up, down)
+    offsets = np.asarray(_as_int32(offsets, "packed offset"), np.int64)
+    lengths_src = np.asarray(_as_int32(lengths_src, "clip length"), np.int64)
+    header = np.concatenate(_host_rows(mesh, offsets, lengths_src))
+    bl = len(header) // 2
+
+    def body(static):
+        flat_t, ints = static
+        offs_l, lens_l = torch.split(ints, bl)
+        return resample_poly(_unpack_local(flat_t, offs_l, lens_l, t_src, torch.float32),
+                             up, down)
+
+    cap = _flat_capacity(offsets, lengths_src, t_src)
+    return _step(("resample", len(offsets), t_src, up, down), body,
+                 [(flat, (cap,)), (header, header.shape)], mesh)
 
 
 def pack_signals(clips, b_pad: int, mesh=None, flat_align: int = 2048, pcm16_exact=None):

@@ -464,12 +464,14 @@ class CorpusRunner:
             write_futures = []
 
         def send_and_step(msg: dict, flat: np.ndarray):
-            # the batch's one host->device copy of samples; the other ranks
-            # receive it by broadcast
+            # the batch's one host->device copy of samples: on one rank the
+            # step's own (into its graph's static input when it replays);
+            # on several, here, and the other ranks receive it by broadcast
+            if not multi_rank:
+                return self._step(msg, flat)
             flat_t = _upload(flat, dev)
-            if multi_rank:
-                msg = dict(msg, n_flat=int(flat.shape[0]), flat_dtype=str(flat.dtype))
-                self._send(msg, flat_t)
+            msg = dict(msg, n_flat=int(flat.shape[0]), flat_dtype=str(flat.dtype))
+            self._send(msg, flat_t)
             return self._step(msg, flat_t)
 
         def dispatch(batch: List[tuple], src_rate: int):

@@ -44,6 +44,16 @@ and the capture executes nothing, so the first call advances the state
 once.  A call whose state tensors are not the ones the graph captured
 raises: a replay would read the old ones.
 
+The corpus steps (``parallel.data``: the packed and padded extraction steps
+and the unpack-and-resample pass) own one :class:`GraphCache` too, sized to
+the corpus's (batch, bucket) grid.  Their static input is a tuple (the flat
+sample buffer at the key's capacity and one int64 header of offsets,
+lengths and frame offsets): ``shape`` and ``dtype`` are then tuples of
+them, ``fill`` writes each.  A packed-output step's rows are as many as its
+batch has valid frames, which the key does not fix: the graph writes a
+fixed row capacity and ``trim`` cuts its outputs to the batch's rows before
+the copy-out.
+
 Launch counts: each kernel wrapper counts its launches (``.launches``).  A
 capture runs the wrappers but launches nothing, so its counts are taken
 back and kept with the graph; each replay adds them, as many as the device
@@ -122,7 +132,8 @@ def _tree(fn, out):
     if isinstance(out, dict):
         return {k: _tree(fn, v) for k, v in out.items()}
     if isinstance(out, (tuple, list)):
-        return type(out)(_tree(fn, v) for v in out)
+        items = [_tree(fn, v) for v in out]
+        return type(out)(*items) if hasattr(out, "_fields") else type(out)(items)
     raise TypeError(f"a graphed function returns tensors, got {type(out).__name__}")
 
 
@@ -161,6 +172,18 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _empty(shape, dtype, device):
+    """A static input: one tensor, or a tuple of them where ``dtype`` is a
+    tuple (``shape`` then a tuple of shapes)."""
+    if isinstance(dtype, tuple):
+        return tuple(torch.empty(tuple(s), dtype=d, device=device) for s, d in zip(shape, dtype))
+    return torch.empty(tuple(shape), dtype=dtype, device=device)
+
+
+def _device_of(static) -> torch.device:
+    return next(_tensors(static)).device
+
+
 class _Graph:
     """One captured call: its static input and outputs, the state it reads
     and writes, the launches of one replay per kernel, and what must live
@@ -189,6 +212,7 @@ class GraphCache:
         self._pool = None  # the one pool of a share_pool cache, made at its first capture
         self.captures = 0
         self.replays = 0
+        self.capture_seconds = 0.0  # every capture's recording, evicted graphs' too
 
     def __len__(self) -> int:
         return len(self._graphs)
@@ -207,47 +231,54 @@ class GraphCache:
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        return key, tuple(shape), dtype, device, torch.is_inference_mode_enabled()
+        shape = tuple(map(tuple, shape)) if isinstance(dtype, tuple) else tuple(shape)
+        return key, shape, dtype, device, torch.is_inference_mode_enabled()
 
     def run(self, key: tuple, fn: Callable, shape, dtype: torch.dtype,
             device: torch.device, fill: Callable[[torch.Tensor], None], keep=None,
-            state: tuple = ()):
+            state: tuple = (), trim: Callable = None):
         """``fn(static, *state)`` for the input that ``fill`` writes into the
-        static input (``shape``, ``dtype`` on ``device``): captured at the
-        first call of the key, replayed at every later one.  ``state``: the
-        caller's tensors that ``fn`` reads and updates in place, the same
-        tensors at every call of the key.  ``keep`` lives as long as the
-        graph (what ``fn`` reads besides the static input and the state)."""
+        static input (``shape``, ``dtype`` on ``device``; tuples of them for
+        a tuple of static inputs): captured at the first call of the key,
+        replayed at every later one.  ``state``: the caller's tensors that
+        ``fn`` reads and updates in place, the same tensors at every call of
+        the key.  ``keep`` lives as long as the graph (what ``fn`` reads
+        besides the static input and the state).  ``trim``: the part of the
+        outputs this call returns (views of them), for outputs larger than
+        the call's result."""
         full = self.key(key, shape, dtype, device)
         with _lock:  # one call at a time writes a static input and replays
             g = self._graphs.get(full)
             if g is None:
-                static = torch.empty(tuple(shape), dtype=dtype, device=full[3])
+                static = _empty(shape, dtype, full[3])
                 fill(static)
-                out, self._graphs[full] = self._capture(fn, static, keep, tuple(state))
+                out, g = self._capture(fn, static, keep, tuple(state))
+                self._graphs[full] = g
                 self.captures += 1
+                self.capture_seconds += g.capture_s
                 if len(self._graphs) > self.maxsize:
                     self._graphs.popitem(last=False)
-                return out
+                return out if trim is None else trim(out)
             if len(state) != len(g.state) or any(a is not b for a, b in zip(state, g.state)):
                 raise RuntimeError("a graph's state was rebound: it reads and writes the "
                                    "tensors it captured, so update them in place")
             self._graphs.move_to_end(full)
-            out = self._replay(g, fill)
+            out = self._replay(g, fill, trim)
             for k, n in zip(_kernels(), g.launches):
                 if n:
                     k.launches += n
             self.replays += 1
             return out
 
-    def _replay(self, g: _Graph, fill: Callable[[torch.Tensor], None]):
-        """Fill, replay and copy out on the cache's stream; the copies are
-        the caller's stream's tensors."""
-        out = _tree(torch.empty_like, g.out)
-        with self._on_cache_stream(g.static.device):
+    def _replay(self, g: _Graph, fill: Callable[[torch.Tensor], None], trim=None):
+        """Fill, replay and copy out (the ``trim`` of the outputs) on the
+        cache's stream; the copies are the caller's stream's tensors."""
+        view = g.out if trim is None else trim(g.out)
+        out = _tree(torch.empty_like, view)
+        with self._on_cache_stream(_device_of(g.static)):
             fill(g.static)
             g.graph.replay()
-            _copy_tree(out, g.out)
+            _copy_tree(out, view)
         return out
 
     @contextlib.contextmanager
@@ -271,8 +302,9 @@ class GraphCache:
         caller's stream.  The tensor-cache values it builds are marked as
         used on the caller's stream too, so that their memory is not reused
         before the caller's work on them is done."""
-        main = torch.cuda.current_stream(static.device)
-        with holding() as held, self._on_cache_stream(static.device):
+        device = _device_of(static)
+        main = torch.cuda.current_stream(device)
+        with holding() as held, self._on_cache_stream(device):
             out = fn(static, *state)
         for t in (t for v in held for t in _tensors(v) if t.is_cuda):
             t.record_stream(main)
@@ -289,7 +321,7 @@ class GraphCache:
         with warnings.catch_warnings():
             # a call with no work (no frames) captures an empty graph
             warnings.filterwarnings("ignore", message="The CUDA Graph is empty")
-            with torch.cuda.graph(graph, pool=self._pool, stream=_streams[static.device],
+            with torch.cuda.graph(graph, pool=self._pool, stream=_streams[_device_of(static)],
                                   capture_error_mode="thread_local"):
                 out = fn(static, *state)
         return graph, out
@@ -321,7 +353,7 @@ class GraphCache:
         state (``bytes``), on the card."""
         graphs = self._graphs.values()
         pools = sum(_pool_bytes(p) for p in {g.graph.pool() for g in graphs})
-        static = sum(_nbytes(g.static) for g in graphs)
+        static = sum(_nbytes(t) for g in graphs for t in _tensors(g.static))
         state = sum(_nbytes(t) for t in {id(t): t for g in graphs for t in g.state}.values())
         return {"captures": self.captures, "replays": self.replays, "graphs": len(self),
                 "pool_bytes": pools, "static_bytes": static, "state_bytes": state,

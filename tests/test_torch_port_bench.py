@@ -264,7 +264,9 @@ def test_wire_model_accounts_a_cpu_corpus_run(tmp_path):
     r = CorpusRunner(paths, cfg, make_mesh(device="cpu"), batch_size=4,
                      out_dir=str(tmp_path / "out"), fetch_every=2, on_batch=batches.append)
     r.run()
-    meter, wall = r.meter, 2.0
+    meter = r.meter
+    # the run's own span: ramp + link-busy + idle + tail add up to it
+    (wall,) = [t1 - t0 for name, t0, t1 in meter.spans if name == "run"]
     link = {"h2d_fixed": 1e-4, "h2d_bw": 1e6, "d2h_fixed": 2e-3, "d2h_bw": 5e5}
     rec, ceiling = B.wire_model(wall, meter, "f32 wire", link, total_audio)
     c = meter.counters

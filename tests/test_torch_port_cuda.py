@@ -895,3 +895,63 @@ def test_framed_lowerings_replay_on_card(graph_cache, name):
         with graphs.disabled():
             assert rel(got, pipe(x)) <= 1e-6
     assert graphs.cache.captures - c0 == 1
+
+
+# ------------------------------------------------- corpus steps replayed --
+def _corpus_step(run: str, seed: int, mesh):
+    """One step of corpus run (a), (b) or (c) of ``chip_smoke.py`` on a
+    batch of four clips in one bucket: (a) the packed ``"mfcc"`` step with
+    packed outputs, K1 on its path; (b) the five speechpy heads on a
+    float16 wire; (c) the unpack-and-resample pass of 22,050 Hz clips, then
+    the padded ``"mfcc"`` step with packed outputs."""
+    from mfcc_rust_tpu_torch.parallel import data as pdata
+
+    cfg = P.speechpy_config(16000)
+    heads = ("mfcc", "lmfe", "mfe", "ssc", "energy")
+    clips, lengths, t = _corpus_batch(seed)
+    if run == "c":
+        src = [np.resize(c, int(len(c) * 22050 / 16000)) for c in clips]
+        flat, offs, lens = pdata.pack_signals(src, 4, pcm16_exact=True)
+        t_src = -(-(22050 * t // 16000) // 441) * 441  # the runner's source bucket
+        sig = pdata.unpack_resample(flat, offs, lens, t_src, 320, 441, mesh)
+        out_len = -(-lens * 320 // 441)
+        counts = pdata.frame_counts_host(out_len, cfg, "mfcc")
+        return sig, pdata.extraction_step(sig, out_len, cfg, mesh, "mfcc", frame_counts=counts)
+    flat, offs, lens = pdata.pack_signals(clips, 4, pcm16_exact=True)
+    feature = "mfcc" if run == "a" else heads
+    counts = pdata.frame_counts_host(lens, cfg, "mfcc")
+    return pdata.extraction_step_packed(flat, offs, lens, t, cfg, mesh, feature,
+                                        frame_counts=counts,
+                                        wire_dtype="float16" if run == "b" else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run,k1", [("a", 1), ("b", 0), ("c", 1)])
+def test_corpus_steps_replay_equal_to_eager_on_card(cuda_device, run, k1):
+    """Three batches of one bucket: the first call captures, the others
+    replay; each equals the same step run eagerly bitwise, and each call,
+    eager or replayed, counts K1 once on the ``"mfcc"`` paths (its graph's
+    launch, added per replay) and never on the five heads."""
+    from mfcc_rust_tpu_torch.parallel import data as pdata
+    from mfcc_rust_tpu_torch.parallel import make_mesh
+    from mfcc_rust_tpu_torch.utils import graphs
+
+    mesh = make_mesh(device=cuda_device)
+    pdata.steps.clear()
+    c0, r0 = pdata.steps.captures, pdata.steps.replays
+    for i, seed in enumerate((30, 31, 32)):
+        before = pk.mfcc_fused.launches
+        with graphs.disabled():
+            ref = _corpus_step(run, seed, mesh)
+        torch.cuda.synchronize()
+        assert pk.mfcc_fused.launches - before == k1
+        before = pk.mfcc_fused.launches
+        got = _corpus_step(run, seed, mesh)
+        torch.cuda.synchronize()
+        assert pk.mfcc_fused.launches - before == k1, (run, i)
+        for a, b in zip(torch.utils._pytree.tree_leaves(got), torch.utils._pytree.tree_leaves(ref)):
+            assert a.is_cuda and a.shape == b.shape and a.dtype == b.dtype
+            assert torch.equal(a, b), (run, i)
+    per_call = 2 if run == "c" else 1  # the resample pass and the step
+    assert (pdata.steps.captures - c0, pdata.steps.replays - r0) == (per_call, 2 * per_call)
+    pdata.steps.clear()
