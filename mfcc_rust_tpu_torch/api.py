@@ -19,12 +19,15 @@ written straight into the graph's static input (uploaded there from numpy,
 the bucket's tail zeroed, the librosa centre pad's edges filled), and
 trim a fresh copy of its output.  Few buckets mean few captures.  They run
 eagerly on the CPU and for an input that requires a gradient
-(:func:`.utils.graphs.runs_eagerly`).
+(:func:`.utils.graphs.runs_eagerly`).  Each runs in its span ``api.<name>``
+(:func:`.utils.profiling.span`) and counts its true and bucketed samples
+(:data:`.utils.bucketing.samples`).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.nn.functional as tF
@@ -38,9 +41,10 @@ from .ops import normalize as _normalize
 from .ops import resample as _resample
 from .ops import spectrum as _spectrum
 from .ops import stft as _stft
-from .utils import graphs
+from .utils import bucketing, graphs
 from .utils.bucketing import bucket_length
 from .utils.device import resolve_device
+from .utils.profiling import span
 
 
 @functools.lru_cache(maxsize=64)
@@ -100,6 +104,12 @@ def _prep(signal, cfg: FeatureConfig, bucket: bool, device):
     return sig, n
 
 
+def _rows(x: torch.Tensor) -> int:
+    """Rows of a (..., T) signal."""
+    n = x.shape[-1]
+    return x.numel() // n if n else math.prod(x.shape[:-1])
+
+
 def _features(fn, signal, cfg: FeatureConfig, bucket: bool, device, key=None):
     """(``fn(bucketed signal, cfg)``, true length): eagerly on
     :func:`_prep`'s signal where :func:`.utils.graphs.runs_eagerly`, else
@@ -108,16 +118,18 @@ def _features(fn, signal, cfg: FeatureConfig, bucket: bool, device, key=None):
     x = torch.as_tensor(signal)
     dev = resolve_device(device)
     n = x.shape[-1]
+    b = bucket_length(n) if bucket else n
     if graphs.runs_eagerly(x, dev):
         sig, n = _prep(x, cfg, bucket, dev)
+        bucketing.samples.add(_rows(x), n, b)
         return fn(sig, cfg), n
-    b = bucket_length(n) if bucket else n
 
     def fill(static):
         static[..., :n].copy_(x)
         if b > n:
             static[..., n:].zero_()
 
+    bucketing.samples.add(_rows(x), n, b)
     return graphs.cache.run((fn if key is None else key, cfg), lambda s: fn(s, cfg),
                             x.shape[:-1] + (b,), getattr(torch, cfg.dtype), dev, fill), n
 
@@ -134,42 +146,46 @@ def mfcc(signal, sampling_frequency, frame_length=0.020, frame_stride=0.01,
          high_frequency=None, dc_elimination=True, bucket=True,
          precision="high", dtype="float32", device=None):
     """MFCC features, (..., num_frames, num_cepstral)."""
-    cfg = _speechpy_cfg(sampling_frequency, frame_length, frame_stride,
-                        num_cepstral, num_filters, fft_length, low_frequency,
-                        high_frequency, dc_elimination, precision, dtype)
-    out, n = _features(F.mfcc, signal, cfg, bucket, device)
-    return out[..., : _frames_nopad(cfg, n), :]
+    with span("api.mfcc"):
+        cfg = _speechpy_cfg(sampling_frequency, frame_length, frame_stride,
+                            num_cepstral, num_filters, fft_length, low_frequency,
+                            high_frequency, dc_elimination, precision, dtype)
+        out, n = _features(F.mfcc, signal, cfg, bucket, device)
+        return out[..., : _frames_nopad(cfg, n), :]
 
 
 def mfe(signal, sampling_frequency, frame_length=0.020, frame_stride=0.01,
         num_filters=40, fft_length=512, low_frequency=0, high_frequency=None,
         bucket=True, device=None):
     """Mel filterbank energies: ((..., F, num_filters), (..., F))."""
-    cfg = _speechpy_cfg(sampling_frequency, frame_length, frame_stride,
-                        13, num_filters, fft_length, low_frequency, high_frequency)
-    (feats, energies), n = _features(F.mfe, signal, cfg, bucket, device)
-    k = _frames_nopad(cfg, n)
-    return feats[..., :k, :], energies[..., :k]
+    with span("api.mfe"):
+        cfg = _speechpy_cfg(sampling_frequency, frame_length, frame_stride,
+                            13, num_filters, fft_length, low_frequency, high_frequency)
+        (feats, energies), n = _features(F.mfe, signal, cfg, bucket, device)
+        k = _frames_nopad(cfg, n)
+        return feats[..., :k, :], energies[..., :k]
 
 
 def lmfe(signal, sampling_frequency, frame_length=0.020, frame_stride=0.01,
          num_filters=40, fft_length=512, low_frequency=0, high_frequency=None,
          bucket=True, device=None):
     """Log mel filterbank energies, (..., F, num_filters)."""
-    cfg = _speechpy_cfg(sampling_frequency, frame_length, frame_stride,
-                        13, num_filters, fft_length, low_frequency, high_frequency)
-    out, n = _features(F.lmfe, signal, cfg, bucket, device)
-    return out[..., : _frames_nopad(cfg, n), :]
+    with span("api.lmfe"):
+        cfg = _speechpy_cfg(sampling_frequency, frame_length, frame_stride,
+                            13, num_filters, fft_length, low_frequency, high_frequency)
+        out, n = _features(F.lmfe, signal, cfg, bucket, device)
+        return out[..., : _frames_nopad(cfg, n), :]
 
 
 def ssc(signal, sampling_frequency, frame_length=0.020, frame_stride=0.01,
         num_filters=40, fft_length=512, low_frequency=0, high_frequency=None,
         bucket=True, device=None):
     """Spectral subband centroids in Hz, (..., F, num_filters)."""
-    cfg = _speechpy_cfg(sampling_frequency, frame_length, frame_stride,
-                        13, num_filters, fft_length, low_frequency, high_frequency)
-    out, n = _features(F.ssc, signal, cfg, bucket, device)
-    return out[..., : _frames_nopad(cfg, n), :]
+    with span("api.ssc"):
+        cfg = _speechpy_cfg(sampling_frequency, frame_length, frame_stride,
+                            13, num_filters, fft_length, low_frequency, high_frequency)
+        out, n = _features(F.ssc, signal, cfg, bucket, device)
+        return out[..., : _frames_nopad(cfg, n), :]
 
 
 def extract(signal, sampling_frequency, which=("mfcc",), frame_length=0.020,
@@ -181,22 +197,23 @@ def extract(signal, sampling_frequency, which=("mfcc",), frame_length=0.020,
     tensors (``"mfe"`` maps to a (features, energies) pair).  Cheaper than
     the separate entry points when several features are wanted; the
     ``mfcc`` head is the plain chunk-GEMM path, not the fused kernel."""
-    cfg = _speechpy_cfg(sampling_frequency, frame_length, frame_stride,
-                        num_cepstral, num_filters, fft_length, low_frequency,
-                        high_frequency, dc_elimination, precision, dtype)
-    which = tuple(which)
-    feats, n = _features(lambda s, c: F.extract(s, c, which), signal, cfg, bucket, device,
-                         key=(F.extract, which))
-    k = _frames_nopad(cfg, n)
-    out = {}
-    for name, val in feats.items():
-        if name == "mfe":
-            out[name] = (val[0][..., :k, :], val[1][..., :k])
-        elif name == "energy":
-            out[name] = val[..., :k]
-        else:
-            out[name] = val[..., :k, :]
-    return out
+    with span("api.extract"):
+        cfg = _speechpy_cfg(sampling_frequency, frame_length, frame_stride,
+                            num_cepstral, num_filters, fft_length, low_frequency,
+                            high_frequency, dc_elimination, precision, dtype)
+        which = tuple(which)
+        feats, n = _features(lambda s, c: F.extract(s, c, which), signal, cfg, bucket, device,
+                             key=(F.extract, which))
+        k = _frames_nopad(cfg, n)
+        out = {}
+        for name, val in feats.items():
+            if name == "mfe":
+                out[name] = (val[0][..., :k, :], val[1][..., :k])
+            elif name == "energy":
+                out[name] = val[..., :k]
+            else:
+                out[name] = val[..., :k, :]
+        return out
 
 
 def mel_spectrogram(signal, sampling_frequency, frame_length=0.020,
@@ -207,23 +224,24 @@ def mel_spectrogram(signal, sampling_frequency, frame_length=0.020,
     (num_filters, T'), 2-D (C, T) -> (C, num_filters, T'), T' = ceil(T/hop);
     more dims raise.  The last ``n_pad`` frames are zero, as the reference
     never writes them; a clip of at most ``n_pad`` frames is all zeros."""
-    sig_in = torch.as_tensor(signal)
-    if sig_in.ndim > 2:
-        raise ValueError("mel_spectrogram supports only 1-D or 2-D input")
-    cfg = _speechpy_cfg(sampling_frequency, frame_length, frame_stride,
-                        num_cepstral, num_filters, fft_length, low_frequency,
-                        high_frequency, dc_elimination, window="vorbis")
-    out, n = _features(F.mel_spectrogram, sig_in, cfg, bucket, device)
-    t_true = -(-n // cfg.stream_hop)
-    out = out[..., :t_true]
-    # the reference never writes its last n_pad frames; the start is clamped
-    # at 0, so a clip of at most n_pad frames is all zeros (not the bucket's
-    # computed frames)
-    keep = max(t_true - cfg.stream_n_pad, 0)
-    if keep < t_true:
-        out = torch.cat([out[..., :keep], out.new_zeros(out.shape[:-1] + (t_true - keep,))],
-                        dim=-1)
-    return out
+    with span("api.mel_spectrogram"):
+        sig_in = torch.as_tensor(signal)
+        if sig_in.ndim > 2:
+            raise ValueError("mel_spectrogram supports only 1-D or 2-D input")
+        cfg = _speechpy_cfg(sampling_frequency, frame_length, frame_stride,
+                            num_cepstral, num_filters, fft_length, low_frequency,
+                            high_frequency, dc_elimination, window="vorbis")
+        out, n = _features(F.mel_spectrogram, sig_in, cfg, bucket, device)
+        t_true = -(-n // cfg.stream_hop)
+        out = out[..., :t_true]
+        # the reference never writes its last n_pad frames; the start is clamped
+        # at 0, so a clip of at most n_pad frames is all zeros (not the bucket's
+        # computed frames)
+        keep = max(t_true - cfg.stream_n_pad, 0)
+        if keep < t_true:
+            out = torch.cat([out[..., :keep], out.new_zeros(out.shape[:-1] + (t_true - keep,))],
+                            dim=-1)
+        return out
 
 
 # ------------------------------------------------- post-processing entry points --
@@ -338,16 +356,17 @@ def _librosa(fn, y, cfg: FeatureConfig, bucket: bool, device):
     input between the two edges of the centre pad, then the bucket's zeros."""
     x = torch.as_tensor(y)
     dev = resolve_device(device)
-    if graphs.runs_eagerly(x, dev):
-        sig, cfg, count = _prep_librosa(x, cfg, bucket, dev)
-        return fn(sig, cfg), count
     n = x.shape[-1]
-    count = _stft.librosa_frame_count(n, cfg.fft_points, cfg.frame_step, cfg.center)
     half = cfg.fft_points // 2 if cfg.center else 0
-    # librosa_config pads in "reflect"; raises for n = 0, as pad_signal does
-    where, what = _edge_index(n, half, cfg.pad_mode, dev) if half else (None, None)
     t = n + 2 * half
     b = bucket_length(t) if bucket else t
+    if graphs.runs_eagerly(x, dev):
+        sig, ucfg, count = _prep_librosa(x, cfg, bucket, dev)
+        bucketing.samples.add(_rows(x), t, b)
+        return fn(sig, ucfg), count
+    count = _stft.librosa_frame_count(n, cfg.fft_points, cfg.frame_step, cfg.center)
+    # librosa_config pads in "reflect"; raises for n = 0, as pad_signal does
+    where, what = _edge_index(n, half, cfg.pad_mode, dev) if half else (None, None)
     cfg = _uncentred(cfg)
 
     def fill(static):
@@ -358,6 +377,7 @@ def _librosa(fn, y, cfg: FeatureConfig, bucket: bool, device):
         if b > t:
             static[..., t:].zero_()
 
+    bucketing.samples.add(_rows(x), t, b)
     return graphs.cache.run((fn, cfg), lambda s: fn(s, cfg), x.shape[:-1] + (b,),
                             getattr(torch, cfg.dtype), dev, fill), count
 
@@ -366,9 +386,10 @@ def mel_spectrogram_librosa(y, sr=22050, n_fft=2048, hop_length=512, win_length=
                             n_mels=128, fmin=0.0, fmax=None, power=2.0, center=True,
                             bucket=True, device=None):
     """librosa-compatible mel spectrogram, (..., n_mels, frames)."""
-    cfg = _librosa_cfg(sr, n_fft, hop_length, win_length, n_mels, 20, fmin, fmax, power, center)
-    out, count = _librosa(F.mel_spectrogram_librosa, y, cfg, bucket, device)
-    return out[..., :count]
+    with span("api.mel_spectrogram_librosa"):
+        cfg = _librosa_cfg(sr, n_fft, hop_length, win_length, n_mels, 20, fmin, fmax, power, center)
+        out, count = _librosa(F.mel_spectrogram_librosa, y, cfg, bucket, device)
+        return out[..., :count]
 
 
 def log_mel_spectrogram(y, sr=22050, n_fft=2048, hop_length=512, n_mels=128, fmin=0.0,
@@ -376,14 +397,16 @@ def log_mel_spectrogram(y, sr=22050, n_fft=2048, hop_length=512, n_mels=128, fmi
     """librosa ``power_to_db(melspectrogram)``.  Bucket frames are all-zero
     power, so they can neither raise the top_db reference maximum nor
     survive the final slice."""
-    cfg = _librosa_cfg(sr, n_fft, hop_length, None, n_mels, 20, fmin, fmax, 2.0, center)
-    out, count = _librosa(F.log_mel_spectrogram, y, cfg, bucket, device)
-    return out[..., :count]
+    with span("api.log_mel_spectrogram"):
+        cfg = _librosa_cfg(sr, n_fft, hop_length, None, n_mels, 20, fmin, fmax, 2.0, center)
+        out, count = _librosa(F.log_mel_spectrogram, y, cfg, bucket, device)
+        return out[..., :count]
 
 
 def mfcc_librosa(y, sr=22050, n_mfcc=20, n_fft=2048, hop_length=512, n_mels=128,
                  fmin=0.0, fmax=None, center=True, bucket=True, device=None):
     """librosa-compatible MFCC, (..., n_mfcc, frames)."""
-    cfg = _librosa_cfg(sr, n_fft, hop_length, None, n_mels, n_mfcc, fmin, fmax, 2.0, center)
-    out, count = _librosa(F.mfcc_librosa, y, cfg, bucket, device)
-    return out[..., :count]
+    with span("api.mfcc_librosa"):
+        cfg = _librosa_cfg(sr, n_fft, hop_length, None, n_mels, n_mfcc, fmin, fmax, 2.0, center)
+        out, count = _librosa(F.mfcc_librosa, y, cfg, bucket, device)
+        return out[..., :count]

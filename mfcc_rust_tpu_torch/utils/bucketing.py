@@ -3,11 +3,15 @@
 Lengths are quantized to a small geometric set of buckets, so that a
 service sees few distinct input shapes while padding waste stays bounded
 (~25%).  The same grid as the JAX package, so both bucket a length alike.
+:data:`samples` counts what the ``api`` entry points compute on: the true
+samples and the bucketed ones, so 1 - true / bucketed is the share of the
+work spent on the bucket's zeros.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -26,6 +30,33 @@ def bucket_length(
     k = math.ceil(math.log(n / min_bucket) / math.log(growth))
     b = int(math.ceil(min_bucket * growth**k))
     return ((b + 127) // 128) * 128
+
+
+class SampleCount:
+    """Cumulative samples of the calls counted, each times its rows: the
+    ``true`` length (the input's, or a librosa call's centre-padded one,
+    whose pad the algorithm needs) and the ``bucketed`` length computed."""
+
+    def __init__(self):
+        self.true = 0
+        self.bucketed = 0
+        self._lock = threading.Lock()
+
+    def add(self, rows: int, true: int, bucketed: int) -> None:
+        self._lock.acquire()  # on every call: half the host time of a ``with``
+        try:
+            self.true += rows * true
+            self.bucketed += rows * bucketed
+        finally:
+            self._lock.release()
+
+    def read(self) -> Tuple[int, int]:
+        """(true, bucketed)."""
+        with self._lock:
+            return self.true, self.bucketed
+
+
+samples = SampleCount()
 
 
 def pad_to_bucket(signal: np.ndarray, min_bucket: int = DEFAULT_MIN_BUCKET,

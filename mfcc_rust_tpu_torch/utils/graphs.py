@@ -54,6 +54,11 @@ batch has valid frames, which the key does not fix: the graph writes a
 fixed row capacity and ``trim`` cuts its outputs to the batch's rows before
 the copy-out.
 
+Spans (:func:`.profiling.span`): ``graphs.run`` around a call, and inside
+it ``graphs.capture`` (a first call: fill, warm-up and recording) or
+``graphs.fill``, ``graphs.replay`` and ``graphs.copy_out``; they record
+only while :func:`.profiling.spans` is open or a profiler runs.
+
 Launch counts: each kernel wrapper counts its launches (``.launches``).  A
 capture runs the wrappers but launches nothing, so its counts are taken
 back and kept with the graph; each replay adds them, as many as the device
@@ -72,6 +77,7 @@ from typing import Callable
 import torch
 
 from ..constants import _capturing, _tracing, holding
+from .profiling import recording, span
 
 MAXSIZE = 16
 
@@ -246,29 +252,31 @@ class GraphCache:
         besides the static input and the state).  ``trim``: the part of the
         outputs this call returns (views of them), for outputs larger than
         the call's result."""
-        full = self.key(key, shape, dtype, device)
-        with _lock:  # one call at a time writes a static input and replays
-            g = self._graphs.get(full)
-            if g is None:
-                static = _empty(shape, dtype, full[3])
-                fill(static)
-                out, g = self._capture(fn, static, keep, tuple(state))
-                self._graphs[full] = g
-                self.captures += 1
-                self.capture_seconds += g.capture_s
-                if len(self._graphs) > self.maxsize:
-                    self._graphs.popitem(last=False)
-                return out if trim is None else trim(out)
-            if len(state) != len(g.state) or any(a is not b for a, b in zip(state, g.state)):
-                raise RuntimeError("a graph's state was rebound: it reads and writes the "
-                                   "tensors it captured, so update them in place")
-            self._graphs.move_to_end(full)
-            out = self._replay(g, fill, trim)
-            for k, n in zip(_kernels(), g.launches):
-                if n:
-                    k.launches += n
-            self.replays += 1
-            return out
+        with span("graphs.run"):
+            full = self.key(key, shape, dtype, device)
+            with _lock:  # one call at a time writes a static input and replays
+                g = self._graphs.get(full)
+                if g is None:
+                    with span("graphs.capture"):
+                        static = _empty(shape, dtype, full[3])
+                        fill(static)
+                        out, g = self._capture(fn, static, keep, tuple(state))
+                    self._graphs[full] = g
+                    self.captures += 1
+                    self.capture_seconds += g.capture_s
+                    if len(self._graphs) > self.maxsize:
+                        self._graphs.popitem(last=False)
+                    return out if trim is None else trim(out)
+                if len(state) != len(g.state) or any(a is not b for a, b in zip(state, g.state)):
+                    raise RuntimeError("a graph's state was rebound: it reads and writes the "
+                                       "tensors it captured, so update them in place")
+                self._graphs.move_to_end(full)
+                out = self._replay(g, fill, trim)
+                for k, n in zip(_kernels(), g.launches):
+                    if n:
+                        k.launches += n
+                self.replays += 1
+                return out
 
     def _replay(self, g: _Graph, fill: Callable[[torch.Tensor], None], trim=None):
         """Fill, replay and copy out (the ``trim`` of the outputs) on the
@@ -276,9 +284,17 @@ class GraphCache:
         view = g.out if trim is None else trim(g.out)
         out = _tree(torch.empty_like, view)
         with self._on_cache_stream(_device_of(g.static)):
-            fill(g.static)
-            g.graph.replay()
-            _copy_tree(out, view)
+            if recording():
+                with span("graphs.fill"):
+                    fill(g.static)
+                with span("graphs.replay"):
+                    g.graph.replay()
+                with span("graphs.copy_out"):
+                    _copy_tree(out, view)
+            else:  # one test a call: three idle spans would cost it ~1.8 µs of host time
+                fill(g.static)
+                g.graph.replay()
+                _copy_tree(out, view)
         return out
 
     @contextlib.contextmanager

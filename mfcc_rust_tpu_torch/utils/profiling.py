@@ -6,8 +6,15 @@
   call kept busy, overlapping calls counted once.  The host clock around
   an asynchronous CUDA call measures its enqueue, so device times come from
   CUDA events (``chip_smoke.py``) or from :func:`trace`.
-* :func:`trace` and :func:`annotate`: a ``torch.profiler`` trace that
-  TensorBoard or ``chrome://tracing`` opens, and named scopes in it.
+* :func:`span` (and :func:`annotate`, the same): a named scope of the
+  program's call path, as a context manager or a decorator.  It costs next
+  to nothing while nothing records; inside :func:`spans` it records its
+  interval on the host clock, nested under the span that encloses it on its
+  thread, all of one outermost call under one id; under a running
+  ``torch.profiler`` (or ``torch.autograd.profiler.emit_nvtx``) it is also
+  a ``record_function`` scope of the trace (an NVTX range).
+* :func:`trace`: a ``torch.profiler`` trace that TensorBoard or
+  ``chrome://tracing`` opens.
 * The work model: :func:`chip_spec` (the card's peaks from NVIDIA's data
   sheets), :func:`work` / :func:`kernel_work` (operations and bytes of one
   call of a feature, counted for the lowering the port dispatches),
@@ -21,10 +28,13 @@
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
 import json
 import math
 import os
 import tempfile
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Optional
@@ -125,10 +135,150 @@ def trace(log_dir: Optional[str] = None):
         yield log_dir
 
 
-def annotate(name: str):
-    """A named scope in the trace, as a context manager or a decorator
-    (``torch.profiler.record_function``)."""
-    return torch.profiler.record_function(name)
+# -------------------------------------------------------------------- spans --
+_MAX_IDLE = 1024  # names whose idle span is kept for reuse
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_recorder: Optional["Recorder"] = None
+_local = threading.local()  # .top: the innermost recorded span open on the thread
+_call_ids = itertools.count(1)
+_idle: dict = {}  # name -> its _Idle span
+
+
+class Recorder:
+    """The spans begun while :func:`spans` was open, on every thread:
+    ``records``, the :class:`Span` objects in the order they began, at
+    most ``limit`` of them; ``dropped`` counts those begun past it."""
+
+    def __init__(self, limit: int):
+        self.limit = limit
+        self.records: list = []
+        self.dropped = 0
+        self._room = iter(range(limit))  # next() on it is one atomic step
+        self._lock = threading.Lock()
+
+    def _drop(self) -> None:
+        with self._lock:
+            self.dropped += 1
+
+
+@contextlib.contextmanager
+def spans(limit: int = 100_000):
+    """Record every span begun inside, on every thread, in the
+    :class:`Recorder` it yields; in memory, nothing is written."""
+    global _recorder
+    rec, saved = Recorder(limit), _recorder
+    _recorder = rec
+    try:
+        yield rec
+    finally:
+        _recorder = saved
+
+
+def recording() -> bool:
+    """Whether a span begun now does anything: :func:`spans` is open or a
+    profiler runs."""
+    return _recorder is not None or _profiler_enabled()
+
+
+class _Scope:
+    """A named span: a context manager, and a decorator whose function
+    runs in ``span(name)`` at every call."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def in_span(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return in_span
+
+
+class _Idle(_Scope):
+    """A span while nothing records: entering and leaving it does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        return False
+
+
+class Span(_Scope):
+    """A span while :func:`spans` is open or a profiler runs, entered once.
+    Entered inside :func:`spans` it is its own record: ``name``; ``call``,
+    the id of the call its outermost span began; ``parent``, the span that
+    enclosed it on its thread when it began (None for the outermost);
+    ``t0_ns`` and ``t1_ns`` on ``time.perf_counter_ns()`` (``t1_ns`` None
+    while it is open); ``thread``, ``threading.get_ident()``.  Under a
+    profiler it is also a ``torch.profiler.record_function`` scope."""
+
+    __slots__ = ("call", "parent", "t0_ns", "t1_ns", "thread", "_scope")
+
+    def __enter__(self):
+        self._scope = self.parent = self.thread = self.t1_ns = None
+        if _profiler_enabled():
+            self._scope = torch.profiler.record_function(self.name)
+            self._scope.__enter__()
+        rec = _recorder
+        if rec is not None:
+            parent = self.parent = getattr(_local, "top", None)
+            if parent is None:
+                self.call, self.thread = next(_call_ids), threading.get_ident()
+            else:
+                self.call, self.thread = parent.call, parent.thread
+            _local.top = self
+            if next(rec._room, None) is None:
+                rec._drop()
+            else:
+                rec.records.append(self)
+            self.t0_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self.thread is not None:  # recorded
+            self.t1_ns = time.perf_counter_ns()
+            _local.top = self.parent
+        if self._scope is not None:
+            self._scope.__exit__(exc_type, exc, tb)
+        return False
+
+    def __iter__(self):
+        """(name, call, parent, t0_ns, t1_ns, thread)."""
+        return iter((self.name, self.call, self.parent, self.t0_ns, self.t1_ns, self.thread))
+
+
+def span(name: str):
+    """The span ``name``: ``with span(name): ...`` or ``@span(name)``.
+
+    While :func:`spans` is open it records a :class:`Span` of its
+    interval; while a ``torch.profiler`` runs it is a
+    ``torch.profiler.record_function`` scope of the trace, on the trace's
+    clock, and under ``torch.autograd.profiler.emit_nvtx`` an NVTX range.
+    Otherwise it is the name's one idle span, which does nothing and
+    allocates nothing."""
+    if _recorder is None and not _profiler_enabled():
+        idle = _idle.get(name)
+        if idle is None:
+            idle = _Idle(name)
+            if len(_idle) < _MAX_IDLE:
+                _idle[name] = idle
+        return idle
+    return Span(name)
+
+
+# the JAX package's ``annotate``: a user's scopes are recorded and traced as
+# the program's own spans
+annotate = span
 
 
 # ---------------------------------------------------------------- chip spec --
