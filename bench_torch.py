@@ -523,9 +523,11 @@ def _from_host(cfg, audio: np.ndarray) -> dict:
     """``api.mfcc`` on a numpy batch, upload included: host clock around each
     synced call, after a warm-up; the median, p10 and p90 of 100 calls
     (``rel_spread`` here is (p90 - p10) / median) and the host time to
-    return from the call (``enqueue_us``; the pageable upload blocks it)."""
+    return from the call (``enqueue_us``; the pageable upload blocks it).
+    The call is one launch of K1 on the upload: it must capture no graph."""
     rate = cfg.sample_rate
     fn = functools.partial(P.mfcc, sampling_frequency=rate)
+    c0 = graphs.cache.captures
     out = fn(audio)
     err = gate_err("mfcc", cfg, audio[:2], out)
     plain = plain_err(fn, audio, out)
@@ -542,13 +544,16 @@ def _from_host(cfg, audio: np.ndarray) -> dict:
         enq.append(t1 - t0)
     launches = _launched(before)
     _check_launches(NEW["from_host"], launches, n_calls, K1)
+    captures = graphs.cache.captures - c0
+    if captures:
+        raise AssertionError(f"{NEW['from_host']}: {captures} graphs captured, expected none")
     p10, p50, p90 = np.percentile(host, [10, 50, 90])
     audio_s = audio.shape[0] * audio.shape[-1] / rate
     rec = _emit(NEW["from_host"], audio_s / p50, (p90 - p10) / p50, _sol(cfg, "mfcc"),
                 enqueue_us=round(1e6 * statistics.median(enq), 2),
                 host_ms=round(1e3 * p50, 4), host_ms_p90=round(1e3 * p90, 4),
                 host_ms_p10=round(1e3 * p10, 4), kernel=K1, launches=launches,
-                calls=n_calls, shape=list(audio.shape),
+                captures=captures, calls=n_calls, shape=list(audio.shape),
                 **_gate_fields(err, "mfcc", plain=plain))
     _raise_on_gate(rec)
     return rec

@@ -76,7 +76,8 @@ launch count set to 0, failing unless the path's kernel launched:
   ``compiled_phase``): every ``api`` feature entry point and every
   pipeline class and ``FeatureExtractor`` at 48 x 10 s, 16 kHz, or 32 x
   10 s, 22,050 Hz, each call with the counts zeroed just before: one
-  capture, then replays; launches a call equal to the eager call's;
+  capture, then replays (``api.mfcc``, one launch of K1 in place, neither);
+  launches a call equal to the eager call's;
   replays within 1e-6 of eager, and on the K1/K2 paths within 1e-4 of the
   plain kernels and within the float64 oracles; host µs to enqueue and
   device ms a call, eager and replayed; capture ms; the bytes the graphs
@@ -1799,13 +1800,17 @@ def cli_phase(np, torch, P, k1, k2, tmp: Path) -> dict:
 def profiling_phase(np, torch, P, k1, k2, tmp: Path, measured: dict) -> dict:
     """``utils.profiling`` on the card: one ``api.mfcc`` at the speechpy
     headline inside ``trace`` and ``annotate("mfcc")``, the counts zeroed
-    just before (K1 must launch once); the trace written must name the
-    annotation and K1's kernel (``mfcc_fft_kernel``).  Prints
+    just before (K1 must launch once, in place: no capture before or
+    inside); the trace written must name the annotation, the ``api.direct``
+    span and K1's kernel (``mfcc_fft_kernel``).  Prints
     ``chip_spec()`` and ``speed_of_light`` of the two headlines, with the
     kernels' measured audio-s/s (``measured``) as a share of it."""
     from mfcc_rust_tpu_torch.utils import profiling as prof
 
+    from mfcc_rust_tpu_torch.utils import graphs
+
     audio = np.random.default_rng(7).normal(0.0, 0.1, (BATCH, SECONDS * RATE)).astype(np.float32)
+    c0 = graphs.cache.captures
     P.mfcc(audio, RATE)
     torch.cuda.synchronize()
     k1.mfcc_fused.launches = k2.ct_mel.launches = 0
@@ -1814,21 +1819,24 @@ def profiling_phase(np, torch, P, k1, k2, tmp: Path, measured: dict) -> dict:
             P.mfcc(audio, RATE)
             torch.cuda.synchronize()
     launches = (k1.mfcc_fused.launches, k2.ct_mel.launches)
+    captures = graphs.cache.captures - c0
     files = sorted(Path(log_dir).rglob("*.json"))
     text = "".join(f.read_text() for f in files)
     events = [e for f in files for e in json.loads(f.read_text()).get("traceEvents", [])]
     named = [e for e in events if e.get("name") == "mfcc"]
+    direct = [e for e in events if e.get("name") == "api.direct"]
     kernels = [e for e in events if "mfcc_fft_kernel" in str(e.get("name", ""))]
     k1_us = sum(float(e.get("dur", 0.0)) for e in kernels)
     spec = prof.chip_spec()
-    rec = {"launches": list(launches), "trace_files": [f.name for f in files],
-           "trace_bytes": len(text), "annotation_events": len(named),
+    rec = {"launches": list(launches), "captures": captures,
+           "trace_files": [f.name for f in files], "trace_bytes": len(text),
+           "annotation_events": len(named), "direct_span_events": len(direct),
            "k1_kernel_events": len(kernels), "k1_kernel_us": k1_us, "chip_spec": spec,
            "speed_of_light": {}}
     log(f"profiling: trace of api.mfcc({BATCH} x {SECONDS * RATE}) in {log_dir}: "
-        f"{len(files)} file(s), {len(text) / 1e6:.3f} MB; events named 'mfcc': {len(named)}; "
-        f"mfcc_fft_kernel events: {len(kernels)}, {k1_us:.1f} us on the device; launches "
-        f"(K1, K2) {launches}")
+        f"{len(files)} file(s), {len(text) / 1e6:.3f} MB; events named 'mfcc': {len(named)}, "
+        f"'api.direct': {len(direct)}; mfcc_fft_kernel events: {len(kernels)}, {k1_us:.1f} us "
+        f"on the device; launches (K1, K2) {launches}; captures {captures}")
     log(f"chip_spec(): {spec}")
     for label, cfg, feature in (("speechpy", P.speechpy_config(RATE), "mfcc"),
                                 ("librosa", P.librosa_config(L_RATE), "mel_spectrogram_librosa")):
@@ -1841,9 +1849,10 @@ def profiling_phase(np, torch, P, k1, k2, tmp: Path, measured: dict) -> dict:
             f"{sol['bandwidth_bound_audio_s_per_s']:.1f}, bound "
             f"{sol['speed_of_light_audio_s_per_s']:.1f} audio-s/s; the kernel's measured "
             f"{measured[label]:.1f} audio-s/s is {share:.4f} of it")
-    if launches != (1, 0) or not named or not kernels:
-        raise AssertionError(f"profiling phase: launches {launches}, 'mfcc' events "
-                             f"{len(named)}, mfcc_fft_kernel events {len(kernels)}")
+    if launches != (1, 0) or captures or not named or not direct or not kernels:
+        raise AssertionError(f"profiling phase: launches {launches}, captures {captures}, "
+                             f"'mfcc' events {len(named)}, 'api.direct' events {len(direct)}, "
+                             f"mfcc_fft_kernel events {len(kernels)}")
     return rec
 
 
@@ -2124,6 +2133,8 @@ def entry_phase(np, torch, PF, k1, k2) -> dict:
 
 # ------------------------------------------------------------ compiled --
 COMPILED_TOL = 1e-6  # a replay against the eager call, max|Δ|/max|ref|
+# the paths that launch K1 once on the caller's signal (api._k1_alone): no graph
+DIRECT_PATHS = ("api.mfcc",)
 PROFILE_CALLS, PROFILE_CHUNK = 1000, 8
 PROFILE_SPIN = 40_000_000  # ~20 ms of device spin ahead of each chunk of calls
 LOOP_CALLS = 100  # calls of a path back to back, synced once: the wall time a call
@@ -2161,9 +2172,11 @@ def _compare(got, ref) -> tuple:
 
 
 def compiled_paths(P, bench):
-    """Every entry point that replays a CUDA graph, at the two full-width
-    shapes: (name, function of a device batch, family, (K1, K2) launches of
-    one call, oracle of one row or None, the oracle's rule).  The speechpy
+    """Every entry point of the compiled-call layer (those of
+    :data:`DIRECT_PATHS` launch K1 in place, the others replay a CUDA
+    graph), at the two full-width shapes: (name, function of a device
+    batch, family, (K1, K2) launches of one call, oracle of one row or
+    None, the oracle's rule).  The speechpy
     family takes 48 x 10 s at 16 kHz (the headline), the librosa family 32 x
     10 s at 22,050 Hz (2048/512/128): the nine ``api`` sites, then
     ``Pipeline.forward`` of each pipeline class and ``FeatureExtractor``."""
@@ -2263,8 +2276,9 @@ def compiled_phase(np, torch, P, k1, k2) -> dict:
     N(0, 0.1) batches of its family, each step with the counts zeroed just
     before: one eager call (``graphs.disabled()``), the first graphed call
     (it must capture once) and replayed calls (each must replay and capture
-    nothing); the eager call, the first call and a replay must each launch
-    the path's (K1, K2).  A replay must sit within :data:`COMPILED_TOL` of
+    nothing); a path of :data:`DIRECT_PATHS` must capture and replay
+    nothing at all; the eager call, the first call and a replay must each
+    launch the path's (K1, K2).  A replay must sit within :data:`COMPILED_TOL` of
     the eager call on two batches (and says whether it was bitwise); on the
     K1/K2 paths it must sit within 1e-4 of the same call with the kernels'
     plain versions (``bench_torch._plain_twins``) and, on two rows, within
@@ -2315,10 +2329,12 @@ def compiled_phase(np, torch, P, k1, k2) -> dict:
         out_1, r["launches_first"] = counted(fn, xs[0])
         r["first_call_ms"] = 1e3 * (time.perf_counter() - t0)
         r["captures"] = graphs.cache.captures - c0
-        g = next(reversed(graphs.cache._graphs.values()))
-        r["capture_ms"] = 1e3 * g.capture_s
-        r["graph_bytes"] = g.pool_bytes() + g.static.numel() * g.static.element_size()
-        r["replay_us"] = host_us(torch, g.graph.replay)  # the graph launch alone
+        direct = name in DIRECT_PATHS
+        if not direct:
+            g = next(reversed(graphs.cache._graphs.values()))
+            r["capture_ms"] = 1e3 * g.capture_s
+            r["graph_bytes"] = g.pool_bytes() + g.static.numel() * g.static.element_size()
+            r["replay_us"] = host_us(torch, g.graph.replay)  # the graph launch alone
         out_r, r["launches_replay"] = counted(fn, xs[0])
         r["replays"] = graphs.cache.replays - p0
         r["rel_eager"], r["bitwise"] = _compare(out_r, out_e)
@@ -2327,7 +2343,7 @@ def compiled_phase(np, torch, P, k1, k2) -> dict:
             ref1 = fn(xs[1])
         r["rel_eager_2"], r["bitwise_2"] = _compare(fn(xs[1]), ref1)
         r["finite"] = all(bool(torch.isfinite(t).all()) for t in _leaves(out_r))
-        bad = (r["captures"] != 1 or r["replays"] != 1
+        bad = ((r["captures"], r["replays"]) != ((0, 0) if direct else (1, 1))
                or not r["launches_eager"] == r["launches_first"] == r["launches_replay"] == want
                or max(r["rel_eager"], r["rel_first"], r["rel_eager_2"]) > COMPILED_TOL
                or not r["finite"])
@@ -2361,16 +2377,18 @@ def compiled_phase(np, torch, P, k1, k2) -> dict:
             f"device ms eager {r['device_ms_eager']} replayed {r['device_ms_replayed']}; "
             f"loop ms a call ({LOOP_CALLS} calls) eager {r['loop_ms_eager']} replayed "
             f"{r['loop_ms_replayed']}; "
-            f"first call {r['first_call_ms']:.1f} ms, capture {r['capture_ms']:.1f} ms; one "
-            f"graph launch {r['replay_us']:.2f} us (median of 500); graph holds "
-            f"{r['graph_bytes']} B")
+            f"first call {r['first_call_ms']:.1f} ms, "
+            + ("no graph (K1 in place)" if direct else
+               f"capture {r['capture_ms']:.1f} ms; one graph launch {r['replay_us']:.2f} us "
+               f"(median of 500); graph holds {r['graph_bytes']} B"))
         if bad:
             fails.append(f"{name}: {r}")
 
-    # api.mfcc from a numpy batch: the upload goes straight into the static input
+    # api.mfcc from a numpy batch: uploaded, then K1 in place on the upload
     audio = host["speechpy"][0]
-    from_host = {"eager": [], "replayed": []}
-    for mode in ("eager", "replayed", "replayed", "eager"):
+    from_host = {"eager": [], "direct": []}
+    c0 = graphs.cache.captures
+    for mode in ("eager", "direct", "direct", "eager"):
         fn = eager(lambda a: P.mfcc(a, RATE)) if mode == "eager" else (lambda a: P.mfcc(a, RATE))
         fn(audio)
         torch.cuda.synchronize()
@@ -2381,9 +2399,12 @@ def compiled_phase(np, torch, P, k1, k2) -> dict:
             from_host[mode].append(1e3 * (time.perf_counter() - t0))
     rec["from_host_ms"] = {k: statistics.median(v) for k, v in from_host.items()}
     rec["from_host_ms_all"] = from_host
+    rec["from_host_captures"] = graphs.cache.captures - c0
     log(f"compiled api.mfcc from a numpy {tuple(audio.shape)} batch, host ms a synced call "
-        f"(median of 20): eager {rec['from_host_ms']['eager']:.3f}, replayed "
-        f"{rec['from_host_ms']['replayed']:.3f}")
+        f"(median of 20): eager {rec['from_host_ms']['eager']:.3f}, direct "
+        f"{rec['from_host_ms']['direct']:.3f}; captures {rec['from_host_captures']}")
+    if rec["from_host_captures"]:
+        fails.append(f"api.mfcc from numpy captured {rec['from_host_captures']} graphs")
 
     # where the host's time goes: the librosa and extract lines of bench_torch
     prof = {}

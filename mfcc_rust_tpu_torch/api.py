@@ -22,12 +22,21 @@ eagerly on the CPU and for an input that requires a gradient
 (:func:`.utils.graphs.runs_eagerly`).  Each runs in its span ``api.<name>``
 (:func:`.utils.profiling.span`) and counts its true and bucketed samples
 (:data:`.utils.bucketing.samples`).
+
+A call that is one kernel launch needs no graph: ``mfcc`` whose lowering
+is K1 alone (:func:`_k1_alone`) launches K1 once on the caller's stream,
+reading the caller's signal where it lies at its true length, into a fresh
+result of exactly the frames the call returns (:func:`_in_place`, span
+``api.direct``); ``bucket`` changes nothing there, as no frame it would
+add was ever returned.  :data:`paths` counts the speechpy-family calls by
+the path each took.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import threading
 
 import torch
 import torch.nn.functional as tF
@@ -41,6 +50,7 @@ from .ops import normalize as _normalize
 from .ops import resample as _resample
 from .ops import spectrum as _spectrum
 from .ops import stft as _stft
+from .ops.cuda import speechpy_mfcc as _k1
 from .utils import bucketing, graphs
 from .utils.bucketing import bucket_length
 from .utils.device import resolve_device
@@ -110,6 +120,35 @@ def _rows(x: torch.Tensor) -> int:
     return x.numel() // n if n else math.prod(x.shape[:-1])
 
 
+class PathCount:
+    """Cumulative calls of the speechpy-family entry points (those through
+    :func:`_features` or :func:`_in_place`) by the path each took:
+    ``direct`` (one launch of K1 on the caller's signal), ``graphed``
+    (through :data:`.utils.graphs.cache`) and ``eager``.  The librosa entry
+    points are not counted."""
+
+    DIRECT, GRAPHED, EAGER = range(3)
+
+    def __init__(self):
+        self.counts = [0, 0, 0]
+        self._lock = threading.Lock()
+
+    def add(self, path: int) -> None:
+        self._lock.acquire()  # as ``SampleCount.add``: half the host time of a ``with``
+        try:
+            self.counts[path] += 1
+        finally:
+            self._lock.release()
+
+    def read(self) -> dict:
+        """{"direct": …, "graphed": …, "eager": …}."""
+        with self._lock:
+            return dict(zip(("direct", "graphed", "eager"), self.counts))
+
+
+paths = PathCount()
+
+
 def _features(fn, signal, cfg: FeatureConfig, bucket: bool, device, key=None):
     """(``fn(bucketed signal, cfg)``, true length): eagerly on
     :func:`_prep`'s signal where :func:`.utils.graphs.runs_eagerly`, else
@@ -122,6 +161,7 @@ def _features(fn, signal, cfg: FeatureConfig, bucket: bool, device, key=None):
     if graphs.runs_eagerly(x, dev):
         sig, n = _prep(x, cfg, bucket, dev)
         bucketing.samples.add(_rows(x), n, b)
+        paths.add(PathCount.EAGER)
         return fn(sig, cfg), n
 
     def fill(static):
@@ -130,8 +170,37 @@ def _features(fn, signal, cfg: FeatureConfig, bucket: bool, device, key=None):
             static[..., n:].zero_()
 
     bucketing.samples.add(_rows(x), n, b)
+    paths.add(PathCount.GRAPHED)
     return graphs.cache.run((fn if key is None else key, cfg), lambda s: fn(s, cfg),
                             x.shape[:-1] + (b,), getattr(torch, cfg.dtype), dev, fill), n
+
+
+def _k1_alone(cfg: FeatureConfig, x: torch.Tensor, dev: torch.device) -> bool:
+    """Whether an MFCC of ``x`` computing on ``dev`` is one launch of K1 and
+    nothing else: its lowering is the fused kernel
+    (:func:`.features.speechpy_lowering`), with no preemphasis, on a call
+    that would otherwise replay a graph (:func:`.utils.graphs.runs_eagerly`
+    false: no gradient recorded, no trace or enclosing capture, not inside
+    :func:`.utils.graphs.disabled`), of at least one sample (K1's wrapper
+    cannot lay out rows of none)."""
+    return (F.speechpy_lowering(cfg, "mfcc", dev.type, getattr(torch, cfg.dtype)) == "k1"
+            and not cfg.preemphasis_cof and x.shape[-1] > 0
+            and not graphs.runs_eagerly(x, dev))
+
+
+def _in_place(x: torch.Tensor, cfg: FeatureConfig, dev: torch.device) -> torch.Tensor:
+    """The MFCC of ``x`` where :func:`_k1_alone`: K1 launched once on the
+    caller's current stream, reading the signal where it lies (moved to
+    ``dev`` and float32 only if it is not there already) at its true length
+    n, no bucket and no static input, into a fresh (..., (n - fl) // hop, C)
+    result: exactly the frames the call returns, each read from samples
+    below n."""
+    with span("api.direct"):
+        sig = x.to(device=dev, dtype=torch.float32)
+        n = sig.shape[-1]
+        bucketing.samples.add(_rows(sig), n, n)
+        paths.add(PathCount.DIRECT)
+        return _k1.mfcc_fused(sig, cfg)
 
 
 def _frames_nopad(cfg: FeatureConfig, true_len: int) -> int:
@@ -150,7 +219,10 @@ def mfcc(signal, sampling_frequency, frame_length=0.020, frame_stride=0.01,
         cfg = _speechpy_cfg(sampling_frequency, frame_length, frame_stride,
                             num_cepstral, num_filters, fft_length, low_frequency,
                             high_frequency, dc_elimination, precision, dtype)
-        out, n = _features(F.mfcc, signal, cfg, bucket, device)
+        x, dev = torch.as_tensor(signal), resolve_device(device)
+        if _k1_alone(cfg, x, dev):
+            return _in_place(x, cfg, dev)
+        out, n = _features(F.mfcc, x, cfg, bucket, dev)
         return out[..., : _frames_nopad(cfg, n), :]
 
 

@@ -617,7 +617,9 @@ def test_examples_launch_the_kernels_on_card(cuda_device, name):
 # package jits, and each pipeline, on a CUDA input that needs no gradient
 # captures one graph and replays it; a replay is held to the eager call
 # (graphs.disabled()) at 1e-6 of max|ref| (both run the same kernels on the
-# same values; the replay is expected bitwise).
+# same values; the replay is expected bitwise).  The calls of DIRECT are one
+# launch of K1 (api._k1_alone): they launch it on the caller's signal and
+# capture and replay nothing.
 SP, LB = P.speechpy_config(16000), P.librosa_config(22050)
 # (name, a function making the callable, (K1, K2) launches a call)
 GRAPHED = [
@@ -639,6 +641,7 @@ GRAPHED = [
     ("LibrosaMFCCPipeline", lambda: P.LibrosaMFCCPipeline(LB), (0, 1)),
     ("FeatureExtractor", lambda: P.FeatureExtractor(SP), (1, 0)),
 ]
+DIRECT = {"api.mfcc"}
 
 
 @pytest.fixture
@@ -683,8 +686,9 @@ def test_entry_points_replay_a_graph_equal_to_eager_on_card(graph_cache, name, m
         counts.append(tuple(a - b for a, b in zip(_launches(), before)))
         assert eager_launches == counts[-1] == want, (name, i, eager_launches, counts[-1])
         # the first call captures, every later one replays: never eagerly
+        # (a direct call neither)
         assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == \
-            ((1, 0) if i == 0 else (0, 1)), name
+            ((0, 0) if name in DIRECT else (1, 0) if i == 0 else (0, 1)), name
         for a, b in zip(_leaves(got), _leaves(eager)):
             assert a.is_cuda and a.shape == b.shape
             assert rel(a, b) <= 1e-6, (name, i, rel(a, b))
@@ -712,8 +716,8 @@ def test_bucket_tail_and_centre_pad_rewritten_per_call_on_card(graph_cache):
             with graphs.disabled():
                 ref = fn(x)
             assert rel(got, ref) <= 1e-6, n
-    # one bucket each: one capture, two replays
-    assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == (4, 8)
+    # one bucket each: one capture, two replays; none for api.mfcc (in place)
+    assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == (3, 6)
 
 
 @pytest.mark.cuda
@@ -728,9 +732,10 @@ def test_launches_are_counted_per_replay_on_card(graph_cache):
         P.mel_spectrogram_librosa(x, 16000, n_fft=512, hop_length=160)
     torch.cuda.synchronize()
     assert tuple(a - b for a, b in zip(_launches(), before)) == (3, 3)
-    assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == (2, 4)
+    # api.mfcc launches K1 in place: no graph of it
+    assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == (1, 2)
     g = list(graphs.cache._graphs.values())
-    assert sorted(e.launches for e in g) == [(0, 1), (1, 0)]
+    assert sorted(e.launches for e in g) == [(0, 1)]
 
 
 @pytest.mark.cuda
@@ -754,13 +759,17 @@ def test_a_failed_capture_raises_on_card(graph_cache):
         cache.run(("sync",), lambda s: s * float(s.sum()), (4,), torch.float32,
                   torch.device("cuda"), lambda s: s.fill_(1.0))
     assert len(cache) == 0 and cache.captures == 0
-    # the layer goes on afterwards
+    # the layer goes on afterwards (api.mfcc launches K1 in place: no replay)
     r0 = graphs.cache.replays
     x = torch.zeros((2, 16000), device="cuda")
     out = P.mfcc(x, 16000)
     out2 = P.mfcc(x + 0.1, 16000)
     torch.cuda.synchronize()
-    assert graphs.cache.replays == r0 + 1 and bool(torch.isfinite(out2).all()) and out.is_cuda
+    assert graphs.cache.replays == r0 and bool(torch.isfinite(out2).all()) and out.is_cuda
+    P.ssc(x, 16000)
+    out3 = P.ssc(x + 0.1, 16000)
+    torch.cuda.synchronize()
+    assert graphs.cache.replays == r0 + 1 and bool(torch.isfinite(out3).all())
 
 
 @pytest.mark.cuda
@@ -842,7 +851,8 @@ def test_replays_survive_the_tensor_caches_dropping_their_constants_on_card(grap
     torch.cuda.synchronize()
     for fn, ref in zip(calls, refs):
         assert rel(fn(x), ref) <= 1e-6
-    assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == (0, len(calls))
+    # every call but api.mfcc (K1 in place, no graph) replays
+    assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == (0, len(calls) - 1)
     del junk
 
 
@@ -874,6 +884,65 @@ def test_calls_on_two_streams_each_get_their_own_result_on_card(graph_cache):
         for out, ref in zip(outs, refs):
             assert rel(out, ref) <= 1e-6
     assert graphs.cache.replays - r0 == 10
+
+
+# api.mfcc whose lowering is K1 alone: K1 launched once on the caller's
+# signal at its true length, no graph; the answer is the eager (bucketed)
+# call's within 1e-6 of max|ref| (the kept frames read the same samples:
+# expected bitwise), at lengths on a bucket's edge, one short of a hop and
+# between buckets, device-resident or from numpy, 2-D and 3-D.
+DIRECT_CALLS = [(n, dims, src) for n in (160_000, 15_999, 13_001)
+                for dims in ((4,), (2, 2)) for src in ("device", "numpy")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dims,src", DIRECT_CALLS,
+                         ids=[f"{n} {len(d) + 1}-D {s}" for n, d, s in DIRECT_CALLS])
+def test_mfcc_of_one_k1_launch_runs_in_place_on_card(graph_cache, n, dims, src):
+    graphs = graph_cache
+    rng = np.random.default_rng(n)
+    host = rng.normal(0, 0.1, dims + (n,)).astype(np.float32)
+    x = torch.from_numpy(host).cuda() if src == "device" else host
+    with graphs.disabled():
+        ref = P.mfcc(x, 16000)
+    frames = PA._frames_nopad(PA._speechpy_cfg(16000), n)
+    for bucket in (True, False, True):
+        c0, r0, before = graphs.cache.captures, graphs.cache.replays, _launches()
+        got = P.mfcc(x, 16000, bucket=bucket)
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(_launches(), before)) == (1, 0)
+        assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == (0, 0)
+        assert got.is_cuda and tuple(got.shape) == dims + (frames, 13)
+        assert rel(got, ref) <= 1e-6, (bucket, rel(got, ref))
+    assert len(graphs.cache) == 0
+
+
+@pytest.mark.cuda
+def test_mfcc_in_place_on_two_streams_each_get_their_own_result_on_card(graph_cache):
+    """Two streams call ``api.mfcc`` at once, each behind a device spin of
+    the same length: K1 runs on each caller's stream into its own result."""
+    graphs = graph_cache
+    rng = np.random.default_rng(47)
+    xs = [torch.from_numpy(rng.normal(0, 0.1, (16, 160000)).astype(np.float32)).cuda()
+          for _ in range(2)]
+    with graphs.disabled():
+        refs = [P.mfcc(x, 16000) for x in xs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    before, c0 = _launches(), graphs.cache.captures
+    for _ in range(5):
+        for s in streams:
+            with torch.cuda.stream(s):
+                torch.cuda._sleep(20_000_000)
+        outs = []
+        for s, x in zip(streams, xs):
+            with torch.cuda.stream(s):
+                outs.append(P.mfcc(x, 16000))
+        torch.cuda.synchronize()
+        for out, ref in zip(outs, refs):
+            assert rel(out, ref) <= 1e-6
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (10, 0)
+    assert graphs.cache.captures == c0 and len(graphs.cache) == 0
 
 
 @pytest.mark.cuda

@@ -27,15 +27,17 @@ import torch
 import mfcc_rust_tpu as m
 import mfcc_rust_tpu.api as japi
 import mfcc_rust_tpu.models as jm
+from tests.golden import speechpy_ref
 
 import mfcc_rust_tpu_torch as P
+from mfcc_rust_tpu_torch import api as PA
 from mfcc_rust_tpu_torch import constants as pc
 from mfcc_rust_tpu_torch import features as PF
 from mfcc_rust_tpu_torch import transforms as T
 from mfcc_rust_tpu_torch.models import pipelines as PP
 from mfcc_rust_tpu_torch.ops.cuda import ct_mel as k2
 from mfcc_rust_tpu_torch.ops.cuda import speechpy_mfcc as k1
-from mfcc_rust_tpu_torch.utils import graphs
+from mfcc_rust_tpu_torch.utils import bucketing, graphs
 from mfcc_rust_tpu_torch.utils.bucketing import bucket_length
 
 CUDA0 = torch.device("cuda", 0)
@@ -582,3 +584,98 @@ def test_feature_extractor_and_transforms_through_the_layer(replayed):
                        japi.mel_spectrogram_librosa(x, 16000, n_fft=512, hop_length=160,
                                                     n_mels=40))
     assert (replayed.captures, replayed.replays) == (3, 3)
+
+
+# ---------------------------------------------- one launch of K1, no graph --
+# ``api.mfcc`` whose lowering is K1 alone launches it on the caller's signal
+# at its true length, through no graph.  Here the lowering reads as for a
+# CUDA float32 tensor (``k1_lowering``), so the MFCC's lowering is "k1" and
+# ``mfcc_fused`` runs its plain version on the CPU tensor.
+
+
+@pytest.fixture
+def k1_lowering(monkeypatch):
+    """``features.speechpy_lowering`` as it reads on a CUDA device, and
+    fresh path and pad counters."""
+    real = PF.speechpy_lowering
+    monkeypatch.setattr(PF, "speechpy_lowering",
+                        lambda cfg, feature="mfcc", device_type="cuda",
+                        dtype=torch.float32: real(cfg, feature, "cuda", dtype))
+    monkeypatch.setattr(PA, "paths", PA.PathCount())
+    monkeypatch.setattr(bucketing, "samples", bucketing.SampleCount())
+    return monkeypatch
+
+
+def _base(n):
+    """A (6, n) seeded batch."""
+    return np.random.default_rng(n).normal(0, 0.1, (6, n)).astype(np.float32)
+
+
+# the input's shape from the (6, n) batch
+DIMS = {"1-D": (lambda a: a[0]), "2-D": (lambda a: a[:2]),
+        "3-D": (lambda a: a.reshape((2, 3) + a.shape[1:]))}
+
+
+def _oracle(x):
+    """The float64 speechpy oracle's MFCC of each row of ``x``."""
+    rows = x.reshape(-1, x.shape[-1]).astype(np.float64)
+    out = np.stack([np.asarray(speechpy_ref.mfcc(r, 16000)).reshape(-1, 13) for r in rows])
+    return out.reshape(x.shape[:-1] + out.shape[1:])
+
+
+@pytest.mark.parametrize("bucket", [True, False], ids=["bucket", "no-bucket"])
+@pytest.mark.parametrize("dims", list(DIMS))
+@pytest.mark.parametrize("n", [16000, 15999, 13001, 300])
+def test_mfcc_of_one_k1_launch_runs_in_place_through_no_graph(replayed, k1_lowering, n,
+                                                              dims, bucket):
+    """No capture, no replay, no bucket: one ``direct`` call and n true and
+    bucketed samples a row, a call.  The answer is the eager (bucketed)
+    call's, bit for bit, within 1e-5 of the float64 oracle, and within 1e-5
+    of JAX's ``api.mfcc`` unless JAX's float32 answer lies further from the
+    oracle (on a frame whose DC term nearly cancels, JAX sums it in float32
+    where K1 and its plain version sum it in float64)."""
+    x = DIMS[dims](_base(n))
+    rows = x.size // n
+    for call in range(1, 3):
+        got = P.mfcc(torch.from_numpy(x), 16000, bucket=bucket, device="cpu")
+        assert got.dtype == torch.float32
+        assert tuple(got.shape) == x.shape[:-1] + (PA._frames_nopad(PA._speechpy_cfg(16000),
+                                                                    n), 13)
+        assert (replayed.captures, replayed.replays, len(replayed)) == (0, 0, 0)
+        assert PA.paths.read() == {"direct": call, "graphed": 0, "eager": 0}
+        assert bucketing.samples.read() == (call * rows * n, call * rows * n)
+    with graphs.disabled():
+        assert torch.equal(got, P.mfcc(torch.from_numpy(x), 16000, bucket=bucket, device="cpu"))
+    oracle, ref = _oracle(x), np.asarray(japi.mfcc(x, 16000, bucket=bucket))
+    assert rel(got, oracle) <= 1e-5
+    assert rel(got, ref) <= 1e-5 or rel(ref, oracle) > rel(got, oracle)
+
+
+# (case, entry point, the path it takes): each as before this path existed
+NOT_DIRECT = [
+    ("pallas off", "mfcc", "graphed"),
+    ("needs a gradient", "mfcc", "eager"),
+    ("graphs disabled", "mfcc", "eager"),
+    ("empty signal", "mfcc", "graphed"),
+    ("mfe", "mfe", "graphed"),
+    ("ssc", "ssc", "graphed"),
+]
+
+
+@pytest.mark.parametrize("case,name,path", NOT_DIRECT, ids=[c[0] for c in NOT_DIRECT])
+def test_calls_not_one_k1_launch_keep_their_path(replayed, k1_lowering, case, name, path):
+    n = 0 if case == "empty signal" else 15000
+    x = torch.from_numpy(np.random.default_rng(12).normal(0, 0.1, (2, n)).astype(np.float32))
+    if case == "pallas off":
+        real = PA._speechpy_cfg
+        k1_lowering.setattr(PA, "_speechpy_cfg",
+                            lambda *a, **k: real(*a, **k).replace(pallas="off"))
+    inp = x.clone().requires_grad_(True) if case == "needs a gradient" else x
+    with graphs.disabled() if case == "graphs disabled" else contextlib.nullcontext():
+        got = getattr(P, name)(inp, 16000, device="cpu")
+    assert PA.paths.read() == {"direct": 0, "graphed": 0, "eager": 0, path: 1}
+    assert (replayed.captures, replayed.replays) == ((1, 0) if path == "graphed" else (0, 0))
+    assert bucketing.samples.read() == (2 * n, 2 * bucket_length(n))
+    ref = getattr(japi, name)(x.numpy(), 16000)
+    got, ref = (got[0], ref[0]) if name == "mfe" else (got, ref)
+    assert rel(got.detach(), ref) <= 1e-5

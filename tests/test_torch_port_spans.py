@@ -20,7 +20,7 @@ import mfcc_rust_tpu_torch as P
 from mfcc_rust_tpu_torch.utils import bucketing
 from mfcc_rust_tpu_torch.utils import profiling as prof
 from mfcc_rust_tpu_torch.utils.bucketing import bucket_length
-from tests.test_torch_port_graphs import replayed  # noqa: F401 - the fixture
+from tests.test_torch_port_graphs import k1_lowering, replayed  # noqa: F401 - fixtures
 
 REPLAYED = ("graphs.fill", "graphs.replay", "graphs.copy_out")
 
@@ -80,6 +80,19 @@ def test_a_first_call_records_its_capture_and_no_replay(replayed):
     names = [r.name for r in rec.records]
     assert names == ["api.mfcc", "graphs.run", "graphs.capture"]
     assert rec.records[2].parent is rec.records[1] and replayed.captures == 1
+
+
+def test_a_call_of_one_k1_launch_records_its_direct_span_and_no_graph(replayed,
+                                                                      k1_lowering):
+    x = _signal(2, 15000)
+    with prof.spans() as rec:
+        for _ in range(2):
+            _call("mfcc", (16000,), {}, x)
+    assert [(r.name, r.parent.name if r.parent else None) for r in rec.records] == \
+        [("api.mfcc", None), ("api.direct", "api.mfcc")] * 2
+    assert len({r.call for r in rec.records}) == 2 and replayed.captures == 0
+    root, direct = rec.records[:2]
+    assert root.t0_ns <= direct.t0_ns <= direct.t1_ns <= root.t1_ns
 
 
 @pytest.mark.parametrize("name,args,kw,n", CALLS, ids=[c[0] for c in CALLS])
@@ -306,3 +319,21 @@ def test_pad_counter_counts_replayed_and_unbucketed_calls(replayed, monkeypatch)
                      + bucket_length(9000))
     assert bucketing.samples.read() == (want_true, want_bucketed)
     assert replayed.replays == 2
+
+
+def test_path_counter_counts_every_call_across_threads():
+    from mfcc_rust_tpu_torch.api import PathCount
+
+    count = PathCount()
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda p=i % 3: [count.add(p) for _ in range(2000)])
+                   for i in range(9)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(switch)
+    assert count.read() == {"direct": 6000, "graphed": 6000, "eager": 6000}
