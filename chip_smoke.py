@@ -15,8 +15,8 @@ launch count set to 0, failing unless the path's kernel launched:
 * speechpy suite: ``resample`` of B=48 x 10 s at 44.1 kHz to 16 kHz, one
   ``extract`` of all five speechpy heads, the vorbis ``mel_spectrogram``,
   then ``cmvnw``, ``cmvn``, ``delta``, ``delta_librosa`` and the derivative
-  cube.  These paths have no kernel (their products run on cuBLAS) and must
-  launch none; ``FeatureExtractor`` and the ``transforms`` modules then
+  cube.  These paths run their products on cuBLAS and must launch neither
+  K1 nor K2; ``FeatureExtractor`` and the ``transforms`` modules then
   must launch K1 or K2, each with the counts zeroed just before;
 * streaming: six 60 s sessions of ``models.StreamingFeatures`` and
   ``models.StreamingExtractor`` (``streaming_phase``), each run eagerly
@@ -72,6 +72,12 @@ launch count set to 0, failing unless the path's kernel launched:
   catch the suite's plain products run in TF32 (``tf32_control``); the
   kernels' launches over the lines go to the kernels line as
   ``launches_bench``;
+* edge sums: the kernel ``speechpy_edges`` (X_0 and X_{N/2} of each
+  speechpy frame in float64, on the chunk-GEMM path of ``mfe``, ``lmfe``,
+  ``ssc`` and ``extract``; ``edges_phase``) against its plain version on
+  the suite cell's (64, 177,664) bucket, its launches read from replayed
+  ``extract`` calls at (64, 160,000) with the count zeroed just before,
+  timed against the plain version; its own entry in the kernels line;
 * compiled: the CUDA-graph replay layer (``utils/graphs.py``,
   ``compiled_phase``): every ``api`` feature entry point and every
   pipeline class and ``FeatureExtractor`` at 48 x 10 s, 16 kHz, or 32 x
@@ -464,9 +470,9 @@ def suite_phase(np, torch, P, k1, k2, flush) -> dict:
     at full width.  Resample (48, 441,000) to 16 kHz, one ``extract`` of all
     five heads, the vorbis mel spectrogram, then sliding CMVN, CMVN and
     deltas on the MFCCs; each held to the port's separate calls and to the
-    float64 oracles.  These paths have no kernel of their own (their
-    products run on cuBLAS): they are driven with both launch counts at 0
-    and must leave them there.  Then ``FeatureExtractor`` and the
+    float64 oracles.  These paths run their products on cuBLAS (the edge
+    sums of ``extract`` are ``edges_phase``'s): they are driven with K1's
+    and K2's launch counts at 0 and must leave them there.  Then ``FeatureExtractor`` and the
     ``transforms`` modules, each with the counts zeroed just before, must
     launch K1 or K2.  Returns the record (times in ms, CUDA events)."""
     import torch.nn.functional as tF
@@ -623,6 +629,86 @@ def suite_phase(np, torch, P, k1, k2, flush) -> dict:
 
 
 STREAM_SECONDS = 60
+
+
+EDGE_ROWS, EDGE_BUCKET = 64, 177_664  # the suite cell's batch and its bucket
+
+
+def edges_phase(np, torch, P, PF, flush, chip) -> dict:
+    """The speechpy edge sums (``ops/cuda/speechpy_edges.cu``: X_0 and
+    X_{N/2} of each frame, summed in float64, written into the chunk-GEMM
+    product of ``mfe`` / ``lmfe`` / ``ssc`` / ``extract``).  The wrapper
+    against its plain version (``features._exact_edges_plain``) on
+    (64, 177,664) card tensors, the suite cell's bucket: its three columns
+    within one float32 rounding of the plain ones (each rounds a float64
+    sum once), every other column untouched.  Its launches are read from
+    ``api.extract`` of the four heads at (64, 160,000), replayed from the
+    call's CUDA graph, with the count set to 0 just before: one a replay.
+    Kernel and plain version timed with CUDA events after an L2 flush;
+    ``bound_ms`` from the work of one call at this shape (a product and
+    two adds a sample of each frame; the input read once, three floats a
+    frame written).  Returns the kernels line's entry."""
+    from mfcc_rust_tpu_torch.ops.cuda import speechpy_edges as ke
+    from mfcc_rust_tpu_torch.utils import profiling as prof
+
+    dev = torch.device("cuda")
+    cfg = P.speechpy_config(RATE)
+    fl, hop = cfg.frame_size, cfg.frame_step
+    rng = np.random.default_rng(18)
+    x = torch.from_numpy(rng.normal(0.0, 0.1, (EDGE_ROWS, EDGE_BUCKET)).astype(np.float32)).to(dev)
+    n = (EDGE_BUCKET - fl) // hop
+    c = PF._speechpy_tensors(cfg, dev, torch.float32)
+    ch, y = PF._chunk_gemm(x, c["wall"], n, hop)
+    want = PF._exact_edges_plain(ch, y.clone(), cfg, n)
+    before = ke.edge_sums.launches
+    got = ke.edge_sums(x, y.clone(), cfg, n)
+    torch.cuda.synchronize()
+    assert ke.edge_sums.launches == before + 1, "edge_sums did not count its launch"
+    k = PF.constant_bundle(cfg)["fbank_kmax"]
+    cols = [0, 2 * k, 2 * k + 1]
+    d = (got[..., cols].double() - want[..., cols].double()).abs()
+    ulp = want[..., cols].double().abs() * 2.0 ** -23
+    assert bool((d <= ulp).all()), ("edge sums off the plain float64 sums", d.max().item())
+    rest = [j for j in range(y.shape[-1]) if j not in cols]
+    assert torch.equal(got[..., rest], y[..., rest]), "edge_sums wrote outside its columns"
+    abs_err = d.max().item()
+    rel, _ = rel_err(got[..., cols], want[..., cols])
+    log(f"edge sums at ({EDGE_ROWS}, {EDGE_BUCKET}), {n} frames: vs plain float64 sums "
+        f"max |d| {abs_err:.3e} (rel {rel:.3e}; each within one float32 rounding)")
+
+    heads = ("mfe", "lmfe", "ssc", "mfcc")
+    xt = x[:, :RATE * SECONDS].contiguous()
+    first = P.extract(xt, RATE, which=heads)  # the capture (or a replay of a held graph)
+    ke.edge_sums.launches = 0
+    replays = 3
+    for _ in range(replays):
+        out = P.extract(xt, RATE, which=heads)
+    torch.cuda.synchronize()
+    launches = ke.edge_sums.launches
+    assert launches == replays, ("replayed extract: edge_sums launches", launches, replays)
+    for h in heads:
+        a, b = (out[h][0], first[h][0]) if h == "mfe" else (out[h], first[h])
+        assert rel_err(a, b)[0] <= REPLAY_TOL, f"replayed extract's {h} off its first call"
+    log(f"api.extract {heads} at {tuple(xt.shape)} replayed {replays} times: edge_sums launches "
+        f"{launches}")
+
+    runs = {"kernel": lambda: ke.edge_sums(x, y, cfg, n),
+            "plain": lambda: PF._exact_edges_plain(ch, y, cfg, n)}
+    times = {name: [] for name in runs}
+    for order in (("plain", "kernel"), ("kernel", "plain")):
+        for name in order:
+            times[name] += cuda_ms(torch, runs[name], 10, flush)
+    med = {name: statistics.median(v) for name, v in times.items()}
+    frames = EDGE_ROWS * n
+    flops, nbytes = 3 * fl * frames, 4 * EDGE_ROWS * EDGE_BUCKET + 4 * 3 * frames
+    bound_s, bound_by = prof.bound_seconds(flops, nbytes, chip)
+    log(f"edge sums: kernel {med['kernel']:.4f} ms, plain {med['plain']:.4f} ms, bound "
+        f"{1e3 * bound_s:.4f} ms ({bound_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
+    return {"name": ke.KERNEL, "route": "cuda",
+            "source": "mfcc_rust_tpu_torch/ops/cuda/speechpy_edges.cu", "replaces": None,
+            "launches": launches, "max_abs_err": abs_err, "ms": med["kernel"],
+            "plain_ms": med["plain"], "bound_ms": 1e3 * bound_s, "bound_by": bound_by,
+            "times_ms": times}
 
 
 def feed_session(torch, sess, chunks, finalize: bool = False):
@@ -2733,6 +2819,7 @@ def main() -> int:
 
     k2_entry, record["librosa"] = librosa_phase(np, torch, P, k1, k2, flush, chip)
     record["suite"] = suite_phase(np, torch, P, k1, k2, flush)
+    edge_entry = edges_phase(np, torch, P, PF, flush, chip)
     record["streaming"] = streaming_phase(np, torch, P, k1, k2)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp_name:
         tmp = Path(tmp_name)
@@ -2764,7 +2851,8 @@ def main() -> int:
             launches_entry=record["entry"]["launches_entry"][1],
             launches_examples=record["entry"]["launches_examples"][1],
             launches_compiled=record["compiled"]["launches"][1],
-            launches_streaming=record["streaming"]["launches"][1])]
+            launches_streaming=record["streaming"]["launches"][1]),
+        {key: v for key, v in edge_entry.items() if key != "times_ms"}]
     record.update({
         "main_path": {"shape": [BATCH, t_true], "bucket": t_main, "launches": launches,
                       "first_call_s": first_s, "api_ms": api_s * 1e3, "api_ms_all": [h * 1e3 for h in host]},

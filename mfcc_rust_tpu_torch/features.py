@@ -12,7 +12,9 @@ same product.  On a CUDA float32 tensor ``mfcc`` runs the fused kernel
 (``ops/cuda/speechpy_mfcc``) and ``mel_spectrogram_librosa`` the CT mel
 kernel (``ops/cuda/ct_mel``); everywhere else they run the plain paths,
 which the kernels are held against.  ``ssc``, ``extract`` and
-``mel_spectrogram`` have no kernel: their products run on cuBLAS.
+``mel_spectrogram`` have no kernel: their products run on cuBLAS, and on the
+speechpy chunk-GEMM path a small kernel (``ops/cuda/speechpy_edges``) writes
+each frame's DC and Nyquist terms, summed in float64, into the product.
 
 ``consts`` (optional) is a dict of the chunk-GEMM constant tensors
 (:func:`_speechpy_tensors`); the pipelines pass their buffers through it.
@@ -27,8 +29,8 @@ import torch
 import torch.nn.functional as tF
 
 from .config import FeatureConfig, fp32_matmul
-from .constants import (bundle_tensor, chunk_gemm_wall, constant_bundle, tensor_cache,
-                        vorbis_chunk_wall)
+from .constants import (_tracing, bundle_tensor, chunk_gemm_wall, constant_bundle,
+                        tensor_cache, vorbis_chunk_wall)
 from .ops import framing as _framing
 from .ops import stft as _stft
 from .ops.dct import dct2_ortho
@@ -76,6 +78,58 @@ def _chunk_gemm(signal: torch.Tensor, wall: torch.Tensor, n_frames: int, hop: in
         part = torch.matmul(ch[..., s : s + n_frames, :], wall[s * hop : (s + 1) * hop])
         y = part if y is None else y + part
     return ch, y
+
+
+@tensor_cache(maxsize=64)
+def _edge_weights(cfg: FeatureConfig, device: torch.device) -> torch.Tensor:
+    """(2, fl) float64: the wall's window column (X_0) and its alternating
+    column (X_{N/2}), one row each."""
+    wd = chunk_gemm_wall(cfg, True)
+    k = wd["kmax"]
+    return torch.as_tensor(np.ascontiguousarray(wd["wall"][:, 2 * k:2 * k + 2].T),
+                           dtype=torch.float64, device=device)
+
+
+def _exact_edges(x: torch.Tensor, ch: torch.Tensor, y: torch.Tensor, cfg: FeatureConfig,
+                 n_frames: int) -> torch.Tensor:
+    """``y`` (:func:`_chunk_gemm` of the signal ``x``, cut into the chunks
+    ``ch``, against the wall with its Parseval columns) with X_0 (column 0
+    and the window column 2*kmax) and X_{N/2} (column 2*kmax + 1) of each
+    frame summed in float64, written in place.  X_0 is real and cancels, and
+    the first speechpy filter weighs the DC bin alone, so on the rare frame
+    where it nearly vanishes a float32 product's rounding reaches that band's
+    log (and the MFCC through the DCT); the fused kernel sums both in float64
+    alike.  A CUDA float32 product takes the kernel
+    (``ops/cuda/speechpy_edges``) unless ``cfg.pallas == "off"``, a gradient
+    is recorded or a trace runs; everything else :func:`_exact_edges_plain`."""
+    if (y.is_cuda and x.dtype == y.dtype == torch.float32 and cfg.pallas != "off"
+            and y.is_contiguous() and not _tracing()
+            and not (torch.is_grad_enabled() and (x.requires_grad or y.requires_grad))):
+        from .ops.cuda.speechpy_edges import edge_sums
+
+        return edge_sums(x, y, cfg, n_frames)
+    return _exact_edges_plain(ch, y, cfg, n_frames)
+
+
+def _exact_edges_plain(ch: torch.Tensor, y: torch.Tensor, cfg: FeatureConfig,
+                       n_frames: int) -> torch.Tensor:
+    """:func:`_exact_edges` in plain PyTorch: the frames of the chunks in
+    float64 against the window and its alternating column."""
+    w = _edge_weights(cfg, ch.device)
+    frames = ch.flatten(-2).double().unfold(-1, w.shape[1], ch.shape[-1])
+    e = (frames[..., :n_frames, :] @ w.T).to(y.dtype)
+    k = constant_bundle(cfg)["fbank_kmax"]
+    y[..., 0] = e[..., 0]
+    y[..., 2 * k:2 * k + 2] = e
+    return y
+
+
+def _speechpy_product(x: torch.Tensor, c: dict, cfg: FeatureConfig, n_frames: int):
+    """(chunks, product) of the speechpy heads: :func:`_chunk_gemm` of ``x``
+    against ``c["wall"]``, its DC and Nyquist terms exact
+    (:func:`_exact_edges`)."""
+    ch, y = _chunk_gemm(x, c["wall"], n_frames, cfg.frame_step)
+    return ch, _exact_edges(x, ch, y, cfg, n_frames)
 
 
 def _stacked_fb(fbank: np.ndarray, kmax: int, width: int, scale: float = 1.0) -> np.ndarray:
@@ -203,7 +257,7 @@ def _chunked_mel_energy(
         return (empty, e, empty) if ssc else (empty, e)
 
     c = _consts(cfg, signal, consts)
-    ch, y = _chunk_gemm(signal, c["wall"], n_frames, hop)
+    ch, y = _speechpy_product(signal, c, cfg, n_frames)
     energies = _frame_energies(ch, y, c, cfg, n_frames) if want_energy else None
     if ssc:
         num, den = _ssc_head(y, c, cfg)
@@ -649,7 +703,7 @@ def extract(signal: torch.Tensor, cfg: FeatureConfig, which: Tuple[str, ...] = (
                "ssc": empty2, "mfe": (empty2, empty1), "energy": empty1}
         return {k: v for k, v in out.items() if k in want}
     c = _consts(cfg, x, consts)
-    ch, y = _chunk_gemm(x, c["wall"], n_frames, cfg.frame_step)
+    ch, y = _speechpy_product(x, c, cfg, n_frames)
     return _extract_heads(ch, y, c, cfg, want, n_frames, need_energy)
 
 

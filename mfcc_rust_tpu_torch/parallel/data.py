@@ -167,7 +167,7 @@ def _local_multi(signals: torch.Tensor, lengths: torch.Tensor, cfg: FeatureConfi
         if cfg.preemphasis_cof:
             full = _framing.preemphasis(full, 1, cfg.preemphasis_cof)
         c = F._speechpy_tensors(cfg, full.device, full.dtype)
-        ch, y = F._chunk_gemm(full, c["wall"], n_local, hop)
+        ch, y = F._speechpy_product(full, c, cfg, n_local)
         out = F._extract_heads(ch, y, c, cfg, want, n_local, need_energy)
     else:
         power = halo.sharded_power_spectrum(signals, cfg, mesh)

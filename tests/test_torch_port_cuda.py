@@ -69,12 +69,9 @@ def test_kernel_matches_plain_on_card(cuda_device, name, kw, shape):
     assert pk.mfcc_fused.launches == before + (1 if out.shape[-2] else 0)
     xp = xd if not cfg.preemphasis_cof else PF._framing.preemphasis(xd, 1, cfg.preemphasis_cof)
     assert rel(pk.mfcc_fused(xp, cfg), pk.mfcc_fused_plain(xp, cfg)) <= 1e-4, name
-    if name == "headline":
-        # the chunk-GEMM path takes the DC bin from a float32 product: among
-        # 53k random frames some X_0 nearly cancels, and that path then sits
-        # 2e-4 to 6e-4 off a float64 computation (PERF.md), where the kernel
-        # and its plain version sum X_0 in float64
-        return
+    # the chunk-GEMM path sums X_0 in float64 too (features._exact_edges), so
+    # it is held at the headline's 53k random frames, some of whose X_0
+    # nearly cancel, as well
     assert rel(out, PF.mfcc(xd, cfg.replace(pallas="off"))) <= 1e-4, name
     assert rel(out, PF.mfcc(x, cfg.replace(pallas="off"))) <= 1e-4, name
 
@@ -95,6 +92,87 @@ def test_wrapper_refuses_float64_on_card(cuda_device):
     with pytest.raises(TypeError):
         pk.mfcc_fused(torch.zeros(4000, dtype=torch.float64, device=cuda_device),
                       P.speechpy_config(16000))
+
+
+# (name, speechpy_config kwargs, input shape): the edge kernel's cases
+EDGES = [
+    ("default 20/10", {}, (2, 8000)),
+    ("25/10 r=3", {"frame_length": 0.025}, (2, 8000)),
+    ("hann", {"window": "hann"}, (2, 8000)),
+    ("batched 3-D", {}, (2, 2, 4000)),
+    ("T no multiple of hop", {}, (3, 8001)),
+    ("suite cell", {}, (64, 177664)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw,shape", EDGES, ids=[c[0] for c in EDGES])
+def test_edge_kernel_matches_plain_on_card(cuda_device, name, kw, shape):
+    """The chunk-GEMM product with X_0 and X_{N/2} from the edge kernel
+    against the same from the plain float64 sums: the three columns equal to
+    float32 rounding of a float64 sum (both round one float64 sum once), every
+    other column bit for bit."""
+    from mfcc_rust_tpu_torch.ops.cuda import speechpy_edges as ek
+
+    cfg = P.speechpy_config(16000, **kw)
+    x = torch.from_numpy(np.random.default_rng(16).normal(0, 0.1, shape).astype(np.float32))
+    x = x.to(cuda_device)
+    n = (shape[-1] - cfg.frame_size) // cfg.frame_step
+    c = PF._speechpy_tensors(cfg, x.device, x.dtype)
+    ch, y = PF._chunk_gemm(x, c["wall"], n, cfg.frame_step)
+    want = PF._exact_edges_plain(ch, y.clone(), cfg, n)
+    before = ek.edge_sums.launches
+    got = PF._exact_edges(x, ch, y.clone(), cfg, n)
+    torch.cuda.synchronize()
+    assert ek.edge_sums.launches == before + 1
+    k = PF.constant_bundle(cfg)["fbank_kmax"]
+    cols = [0, 2 * k, 2 * k + 1]
+    torch.testing.assert_close(got[..., cols], want[..., cols], rtol=2 ** -23, atol=1e-12)
+    rest = [j for j in range(y.shape[-1]) if j not in cols]
+    assert torch.equal(got[..., rest], y[..., rest]), name
+
+
+@pytest.mark.cuda
+def test_extract_takes_the_edge_kernel_unless_asked_not_to_on_card(cuda_device):
+    from mfcc_rust_tpu_torch.ops.cuda import speechpy_edges as ek
+
+    cfg = P.speechpy_config(16000)
+    x = torch.from_numpy(np.random.default_rng(17).normal(0, 0.1, (4, 16000)).astype(np.float32))
+    heads = ("mfe", "lmfe", "ssc", "mfcc")
+    before = ek.edge_sums.launches
+    got = PF.extract(x.to(cuda_device), cfg, heads)
+    assert ek.edge_sums.launches == before + 1
+    plain = PF.extract(x.to(cuda_device), cfg.replace(pallas="off"), heads)
+    cpu = PF.extract(x, cfg, heads)
+    assert ek.edge_sums.launches == before + 1
+    # 1e-5, and 3e-5 for the logs, as tests/test_torch_port_extract.py holds
+    # two float32 programs that sum in different orders
+    for ref in (plain, cpu):
+        assert rel(got["mfe"][0], ref["mfe"][0]) <= 1e-5 and rel(got["mfe"][1], ref["mfe"][1]) <= 1e-5
+        assert rel(got["ssc"], ref["ssc"]) <= 1e-5
+        assert rel(got["lmfe"], ref["lmfe"]) <= 3e-5 and rel(got["mfcc"], ref["mfcc"]) <= 3e-5
+    a = x.to(cuda_device).requires_grad_(True)  # a gradient takes the plain sums
+    PF.extract(a, cfg, ("mfcc",))["mfcc"].sum().backward()
+    assert ek.edge_sums.launches == before + 1 and torch.isfinite(a.grad).all()
+
+
+@pytest.mark.cuda
+def test_replayed_extract_counts_the_edge_kernel_on_card(cuda_device):
+    """``api.extract`` replays its CUDA graph after the first call, and each
+    replay counts the edge kernel's launch, as the graph layer counts K1's
+    and K2's."""
+    from mfcc_rust_tpu_torch.ops.cuda import speechpy_edges as ek
+
+    x = torch.from_numpy(np.random.default_rng(19).normal(0, 0.1, (4, 16000)).astype(np.float32))
+    x = x.to(cuda_device)
+    heads = ("mfe", "lmfe", "ssc", "mfcc")
+    first = P.extract(x, 16000, which=heads)
+    ek.edge_sums.launches = 0
+    for _ in range(3):
+        out = P.extract(x, 16000, which=heads)
+    torch.cuda.synchronize()
+    assert ek.edge_sums.launches == 3
+    assert rel(out["lmfe"], first["lmfe"]) <= 1e-6 and rel(out["mfcc"], first["mfcc"]) <= 1e-6
 
 
 # (name, librosa_config args, kwargs, input shape)
@@ -725,17 +803,22 @@ def test_launches_are_counted_per_replay_on_card(graph_cache):
     graphs = graph_cache
     x = torch.from_numpy(np.random.default_rng(42).normal(0, 0.1, (4, 16000))
                          .astype(np.float32)).cuda()
+    from mfcc_rust_tpu_torch.ops.cuda import speechpy_edges as ek
+
     c0, r0 = graphs.cache.captures, graphs.cache.replays
-    before = _launches()
+    before, edges = _launches(), ek.edge_sums.launches
     for _ in range(3):
         P.mfcc(x, 16000)
         P.mel_spectrogram_librosa(x, 16000, n_fft=512, hop_length=160)
+        P.extract(x, 16000, which=("lmfe",))
     torch.cuda.synchronize()
     assert tuple(a - b for a, b in zip(_launches(), before)) == (3, 3)
+    assert ek.edge_sums.launches - edges == 3
     # api.mfcc launches K1 in place: no graph of it
-    assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == (1, 2)
+    assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == (2, 4)
     g = list(graphs.cache._graphs.values())
-    assert sorted(e.launches for e in g) == [(0, 1)]
+    # (K1, K2, the edge sums) a replay
+    assert sorted(e.launches for e in g) == [(0, 0, 1), (0, 1, 0)]
 
 
 @pytest.mark.cuda
