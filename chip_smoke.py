@@ -82,7 +82,8 @@ launch count set to 0, failing unless the path's kernel launched:
   ``compiled_phase``): every ``api`` feature entry point and every
   pipeline class and ``FeatureExtractor`` at 48 x 10 s, 16 kHz, or 32 x
   10 s, 22,050 Hz, each call with the counts zeroed just before: one
-  capture, then replays (``api.mfcc``, one launch of K1 in place, neither);
+  capture, then replays (``api.mfcc``, one launch of K1 in place, and
+  ``api.mel_spectrogram_librosa``, the centre pad and K2 in place, neither);
   launches a call equal to the eager call's;
   replays within 1e-6 of eager, and on the K1/K2 paths within 1e-4 of the
   plain kernels and within the float64 oracles; host µs to enqueue and
@@ -2220,7 +2221,7 @@ def entry_phase(np, torch, PF, k1, k2) -> dict:
 # ------------------------------------------------------------ compiled --
 COMPILED_TOL = 1e-6  # a replay against the eager call, max|Δ|/max|ref|
 # the paths that launch K1 once on the caller's signal (api._k1_alone): no graph
-DIRECT_PATHS = ("api.mfcc",)
+DIRECT_PATHS = ("api.mfcc", "api.mel_spectrogram_librosa")
 PROFILE_CALLS, PROFILE_CHUNK = 1000, 8
 PROFILE_SPIN = 40_000_000  # ~20 ms of device spin ahead of each chunk of calls
 LOOP_CALLS = 100  # calls of a path back to back, synced once: the wall time a call
@@ -2259,8 +2260,8 @@ def _compare(got, ref) -> tuple:
 
 def compiled_paths(P, bench):
     """Every entry point of the compiled-call layer (those of
-    :data:`DIRECT_PATHS` launch K1 in place, the others replay a CUDA
-    graph), at the two full-width shapes: (name, function of a device
+    :data:`DIRECT_PATHS` launch K1, or the centre pad and K2, in place, the
+    others replay a CUDA graph), at the two full-width shapes: (name, function of a device
     batch, family, (K1, K2) launches of one call, oracle of one row or
     None, the oracle's rule).  The speechpy
     family takes 48 x 10 s at 16 kHz (the headline), the librosa family 32 x
@@ -2464,7 +2465,7 @@ def compiled_phase(np, torch, P, k1, k2) -> dict:
             f"loop ms a call ({LOOP_CALLS} calls) eager {r['loop_ms_eager']} replayed "
             f"{r['loop_ms_replayed']}; "
             f"first call {r['first_call_ms']:.1f} ms, "
-            + ("no graph (K1 in place)" if direct else
+            + ("no graph (in place)" if direct else
                f"capture {r['capture_ms']:.1f} ms; one graph launch {r['replay_us']:.2f} us "
                f"(median of 500); graph holds {r['graph_bytes']} B"))
         if bad:
@@ -2501,7 +2502,7 @@ def compiled_phase(np, torch, P, k1, k2) -> dict:
               for _ in range(2)]
         api_fn(xs[0])  # capture first
         variants = {"features eager (the bench line)": bench._call(feature, cfg),
-                    "api eager": eager(api_fn), "api replayed": api_fn}
+                    "api eager": eager(api_fn), "api (graph or in place)": api_fn}
         prof[line] = {}
         for label, fn in variants.items():
             p = enqueue_profile(torch, fn, xs)

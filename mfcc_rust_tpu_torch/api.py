@@ -28,8 +28,10 @@ is K1 alone (:func:`_k1_alone`) launches K1 once on the caller's stream,
 reading the caller's signal where it lies at its true length, into a fresh
 result of exactly the frames the call returns (:func:`_in_place`, span
 ``api.direct``); ``bucket`` changes nothing there, as no frame it would
-add was ever returned.  :data:`paths` counts the speechpy-family calls by
-the path each took.
+add was ever returned.  ``mel_spectrogram_librosa`` whose lowering is K2
+alone (:func:`_k2_alone`) does the same with K2 behind one launch of the
+centre pad at the true length (:func:`_librosa_in_place`, the same span).
+:data:`paths` counts the calls of both families by the path each took.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from .ops import normalize as _normalize
 from .ops import resample as _resample
 from .ops import spectrum as _spectrum
 from .ops import stft as _stft
+from .ops.cuda import ct_mel as _k2
 from .ops.cuda import speechpy_mfcc as _k1
 from .utils import bucketing, graphs
 from .utils.bucketing import bucket_length
@@ -121,11 +124,12 @@ def _rows(x: torch.Tensor) -> int:
 
 
 class PathCount:
-    """Cumulative calls of the speechpy-family entry points (those through
-    :func:`_features` or :func:`_in_place`) by the path each took:
-    ``direct`` (one launch of K1 on the caller's signal), ``graphed``
-    (through :data:`.utils.graphs.cache`) and ``eager``.  The librosa entry
-    points are not counted."""
+    """Cumulative calls of the feature entry points of both families (those
+    through :func:`_features`, :func:`_in_place`, :func:`_librosa` or
+    :func:`_librosa_in_place`) by the path each took: ``direct`` (one
+    launch of K1, or the centre pad and one launch of K2, on the caller's
+    signal), ``graphed`` (through :data:`.utils.graphs.cache`) and
+    ``eager``."""
 
     DIRECT, GRAPHED, EAGER = range(3)
 
@@ -435,6 +439,7 @@ def _librosa(fn, y, cfg: FeatureConfig, bucket: bool, device):
     if graphs.runs_eagerly(x, dev):
         sig, ucfg, count = _prep_librosa(x, cfg, bucket, dev)
         bucketing.samples.add(_rows(x), t, b)
+        paths.add(PathCount.EAGER)
         return fn(sig, ucfg), count
     count = _stft.librosa_frame_count(n, cfg.fft_points, cfg.frame_step, cfg.center)
     # librosa_config pads in "reflect"; raises for n = 0, as pad_signal does
@@ -450,17 +455,67 @@ def _librosa(fn, y, cfg: FeatureConfig, bucket: bool, device):
             static[..., t:].zero_()
 
     bucketing.samples.add(_rows(x), t, b)
+    paths.add(PathCount.GRAPHED)
     return graphs.cache.run((fn, cfg), lambda s: fn(s, cfg), x.shape[:-1] + (b,),
                             getattr(torch, cfg.dtype), dev, fill), count
+
+
+@functools.lru_cache(maxsize=64)
+def _librosa_lowering(cfg: FeatureConfig, device_type: str) -> str:
+    """:func:`.features.librosa_lowering` of a float32 call on ``device_type``,
+    cached: a pure function of the frozen config whose kernel checks would
+    otherwise cost every direct call host time of the order of a launch."""
+    return F.librosa_lowering(cfg, device_type, torch.float32)
+
+
+def _k2_alone(cfg: FeatureConfig, x: torch.Tensor, dev: torch.device) -> bool:
+    """Whether a librosa mel spectrogram of ``x`` computing on ``dev`` is the
+    centre pad and one launch of K2: its lowering is the CT mel kernel
+    (:func:`.features.librosa_lowering`), on a call that would otherwise
+    replay a graph (:func:`.utils.graphs.runs_eagerly` false), of more than
+    n_fft // 2 samples when centred (the reflect pad then folds at most
+    once; shorter clips keep :func:`.ops.framing.pad_signal`'s folds), of
+    at least one otherwise."""
+    return (x.shape[-1] > (cfg.fft_points // 2 if cfg.center else 0)
+            and _librosa_lowering(cfg, dev.type) == "k2"
+            and not graphs.runs_eagerly(x, dev))
+
+
+def _librosa_in_place(x: torch.Tensor, cfg: FeatureConfig, dev: torch.device) -> torch.Tensor:
+    """The librosa mel spectrogram of ``x`` where :func:`_k2_alone`, on the
+    caller's current stream: the signal moved to ``dev`` and float32 only if
+    it is not there already, centre-padded at its true length n by one
+    launch (the reflect pad of ``_librosa_cfg``'s configs, the values of
+    :func:`.ops.framing.pad_signal`), then K2 launched once on it, no bucket
+    and no static input, into a fresh result whose (..., n_mels, frames)
+    transpose is returned: exactly the frames the call returns, each read
+    from the signal and its reflection."""
+    with span("api.direct"):
+        sig = x.to(device=dev, dtype=torch.float32)
+        n = sig.shape[-1]
+        rows = _rows(sig)
+        if cfg.center:
+            half = cfg.fft_points // 2
+            sig = tF.pad(sig.reshape(rows, 1, n), (half, half),
+                         mode="reflect").view(sig.shape[:-1] + (n + 2 * half,))
+        bucketing.samples.add(rows, sig.shape[-1], sig.shape[-1])
+        paths.add(PathCount.DIRECT)
+        return _k2.ct_mel(sig, _uncentred(cfg)).transpose(-1, -2)
 
 
 def mel_spectrogram_librosa(y, sr=22050, n_fft=2048, hop_length=512, win_length=None,
                             n_mels=128, fmin=0.0, fmax=None, power=2.0, center=True,
                             bucket=True, device=None):
-    """librosa-compatible mel spectrogram, (..., n_mels, frames)."""
+    """librosa-compatible mel spectrogram, (..., n_mels, frames).  A call that
+    is the centre pad and one launch of K2 (:func:`_k2_alone`) takes
+    :func:`_librosa_in_place`, where ``bucket`` changes nothing: no frame it
+    would add was ever returned."""
     with span("api.mel_spectrogram_librosa"):
         cfg = _librosa_cfg(sr, n_fft, hop_length, win_length, n_mels, 20, fmin, fmax, power, center)
-        out, count = _librosa(F.mel_spectrogram_librosa, y, cfg, bucket, device)
+        x, dev = torch.as_tensor(y), resolve_device(device)
+        if _k2_alone(cfg, x, dev):
+            return _librosa_in_place(x, cfg, dev)
+        out, count = _librosa(F.mel_spectrogram_librosa, x, cfg, bucket, dev)
         return out[..., :count]
 
 

@@ -696,8 +696,9 @@ def test_examples_launch_the_kernels_on_card(cuda_device, name):
 # captures one graph and replays it; a replay is held to the eager call
 # (graphs.disabled()) at 1e-6 of max|ref| (both run the same kernels on the
 # same values; the replay is expected bitwise).  The calls of DIRECT are one
-# launch of K1 (api._k1_alone): they launch it on the caller's signal and
-# capture and replay nothing.
+# launch of K1 (api._k1_alone) or the centre pad and one launch of K2
+# (api._k2_alone): they launch it on the caller's signal and capture and
+# replay nothing.
 SP, LB = P.speechpy_config(16000), P.librosa_config(22050)
 # (name, a function making the callable, (K1, K2) launches a call)
 GRAPHED = [
@@ -719,7 +720,7 @@ GRAPHED = [
     ("LibrosaMFCCPipeline", lambda: P.LibrosaMFCCPipeline(LB), (0, 1)),
     ("FeatureExtractor", lambda: P.FeatureExtractor(SP), (1, 0)),
 ]
-DIRECT = {"api.mfcc"}
+DIRECT = {"api.mfcc", "api.mel_spectrogram_librosa"}
 
 
 @pytest.fixture
@@ -786,6 +787,7 @@ def test_bucket_tail_and_centre_pad_rewritten_per_call_on_card(graph_cache):
     calls = [(lambda x: P.mfcc(x, 16000), (15000, 13000)),
              (lambda x: P.ssc(x, 16000), (15000, 13000)),
              (lambda x: P.mel_spectrogram_librosa(x), (21000, 20000)),
+             (lambda x: P.log_mel_spectrogram(x), (21000, 20000)),
              (lambda x: P.mfcc_librosa(x, center=False), (23000, 21000))]
     for fn, lengths in calls:
         for n in lengths + lengths[:1]:
@@ -794,7 +796,8 @@ def test_bucket_tail_and_centre_pad_rewritten_per_call_on_card(graph_cache):
             with graphs.disabled():
                 ref = fn(x)
             assert rel(got, ref) <= 1e-6, n
-    # one bucket each: one capture, two replays; none for api.mfcc (in place)
+    # one bucket each: one capture, two replays; none for api.mfcc and
+    # api.mel_spectrogram_librosa (in place)
     assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == (3, 6)
 
 
@@ -810,11 +813,12 @@ def test_launches_are_counted_per_replay_on_card(graph_cache):
     for _ in range(3):
         P.mfcc(x, 16000)
         P.mel_spectrogram_librosa(x, 16000, n_fft=512, hop_length=160)
+        P.log_mel_spectrogram(x, 16000, n_fft=512, hop_length=160)
         P.extract(x, 16000, which=("lmfe",))
     torch.cuda.synchronize()
-    assert tuple(a - b for a, b in zip(_launches(), before)) == (3, 3)
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (3, 6)
     assert ek.edge_sums.launches - edges == 3
-    # api.mfcc launches K1 in place: no graph of it
+    # api.mfcc and api.mel_spectrogram_librosa launch in place: no graph of them
     assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == (2, 4)
     g = list(graphs.cache._graphs.values())
     # (K1, K2, the edge sums) a replay
@@ -934,8 +938,9 @@ def test_replays_survive_the_tensor_caches_dropping_their_constants_on_card(grap
     torch.cuda.synchronize()
     for fn, ref in zip(calls, refs):
         assert rel(fn(x), ref) <= 1e-6
-    # every call but api.mfcc (K1 in place, no graph) replays
-    assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == (0, len(calls) - 1)
+    # every call but api.mfcc and api.mel_spectrogram_librosa (in place, no
+    # graph) replays
+    assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == (0, len(calls) - 2)
     del junk
 
 
@@ -1025,6 +1030,74 @@ def test_mfcc_in_place_on_two_streams_each_get_their_own_result_on_card(graph_ca
         for out, ref in zip(outs, refs):
             assert rel(out, ref) <= 1e-6
     assert tuple(a - b for a, b in zip(_launches(), before)) == (10, 0)
+    assert graphs.cache.captures == c0 and len(graphs.cache) == 0
+
+
+# api.mel_spectrogram_librosa whose lowering is K2 alone: the centre pad at
+# the true length, then K2 launched once on the caller's stream, no graph;
+# the answer is the same input's through api._librosa's graph, bit for bit,
+# at both librosa cells' shapes.
+K2_DIRECT = [("2048/512/128", {"sr": 22050}, (32, 220_500)),
+             ("512/160/80", {"sr": 16000, "n_fft": 512, "hop_length": 160, "n_mels": 80},
+              (64, 160_000))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw,shape", K2_DIRECT, ids=[c[0] for c in K2_DIRECT])
+def test_mel_spectrogram_librosa_of_one_k2_launch_runs_in_place_on_card(graph_cache, name, kw,
+                                                                        shape):
+    graphs = graph_cache
+    x = torch.from_numpy(np.random.default_rng(48).normal(0, 0.1, shape)
+                         .astype(np.float32)).cuda()
+    cfg = PA._librosa_cfg(kw["sr"], kw.get("n_fft", 2048), kw.get("hop_length", 512), None,
+                          kw.get("n_mels", 128), 20, 0.0, None, 2.0, True)
+    dev = torch.device("cuda")
+    assert PA._k2_alone(cfg, x, dev)
+    c0, r0 = graphs.cache.captures, graphs.cache.replays
+    for _ in range(2):  # the capture, then a replay: the graph's answer
+        out, count = PA._librosa(PF.mel_spectrogram_librosa, x, cfg, True, dev)
+    graphed = out[..., :count]
+    torch.cuda.synchronize()
+    assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == (1, 1)
+    frames = 1 + shape[1] // cfg.frame_step
+    c0, r0 = graphs.cache.captures, graphs.cache.replays
+    for bucket in (True, False, True):
+        before = _launches()
+        got = P.mel_spectrogram_librosa(x, **kw, bucket=bucket)
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(_launches(), before)) == (0, 1)
+        assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == (0, 0)
+        assert got.is_cuda and tuple(got.shape) == (shape[0], cfg.num_filters, frames)
+        assert torch.equal(got, graphed), (name, bucket, rel(got, graphed))
+
+
+@pytest.mark.cuda
+def test_mel_spectrogram_librosa_in_place_on_two_streams_each_get_their_own_result_on_card(
+        graph_cache):
+    """Two streams call ``api.mel_spectrogram_librosa`` at once, each behind a
+    device spin of the same length: the centre pad and K2 run on each
+    caller's stream into its own result."""
+    graphs = graph_cache
+    rng = np.random.default_rng(49)
+    xs = [torch.from_numpy(rng.normal(0, 0.1, (32, 220_500)).astype(np.float32)).cuda()
+          for _ in range(2)]
+    with graphs.disabled():
+        refs = [P.mel_spectrogram_librosa(x) for x in xs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    before, c0 = _launches(), graphs.cache.captures
+    for _ in range(5):
+        for s in streams:
+            with torch.cuda.stream(s):
+                torch.cuda._sleep(20_000_000)
+        outs = []
+        for s, x in zip(streams, xs):
+            with torch.cuda.stream(s):
+                outs.append(P.mel_spectrogram_librosa(x))
+        torch.cuda.synchronize()
+        for out, ref in zip(outs, refs):
+            assert rel(out, ref) <= 1e-6
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (0, 10)
     assert graphs.cache.captures == c0 and len(graphs.cache) == 0
 
 

@@ -19,6 +19,7 @@ mel and log-mel in float32).  The replay on the card is
 held to the eager call in ``tests/test_torch_port_cuda.py``."""
 
 import contextlib
+import functools
 
 import numpy as np
 import pytest
@@ -683,3 +684,100 @@ def test_calls_not_one_k1_launch_keep_their_path(replayed, k1_lowering, case, na
     ref = getattr(japi, name)(x.numpy(), 16000)
     got, ref = (got[0], ref[0]) if name == "mfe" else (got, ref)
     assert rel(got.detach(), ref) <= 1e-5
+
+
+# ------------------------------------ the centre pad and one launch of K2 --
+# ``api.mel_spectrogram_librosa`` whose lowering is K2 alone pads the
+# caller's signal at its true length and launches K2 on it, through no graph.
+# Here the lowering reads as for a CUDA float32 tensor (``k2_lowering``), so
+# it is "k2" and ``ct_mel`` runs its plain version on the CPU tensor.
+
+
+@pytest.fixture
+def k2_lowering(monkeypatch):
+    """``features.librosa_lowering`` as it reads on a CUDA device (through a
+    fresh cache of ``api``'s), and fresh path and pad counters."""
+    real = PF.librosa_lowering
+    monkeypatch.setattr(PF, "librosa_lowering",
+                        lambda cfg, device_type="cuda", dtype=torch.float32:
+                        real(cfg, "cuda", dtype))
+    monkeypatch.setattr(PA, "_librosa_lowering",
+                        functools.lru_cache(maxsize=64)(PA._librosa_lowering.__wrapped__))
+    monkeypatch.setattr(PA, "paths", PA.PathCount())
+    monkeypatch.setattr(bucketing, "samples", bucketing.SampleCount())
+    return monkeypatch
+
+
+# (id, keywords, a length that fills a hop, one that does not): the two
+# librosa cells' configurations
+K2_CONFIGS = {
+    "2048/512/128": ({"sr": 22050}, 8192, 8000),
+    "512/160/80": ({"sr": 16000, "n_fft": 512, "hop_length": 160, "n_mels": 80}, 8000, 7919),
+}
+
+
+@pytest.mark.parametrize("center", [True, False], ids=["centred", "uncentred"])
+@pytest.mark.parametrize("bucket", [True, False], ids=["bucket", "no-bucket"])
+@pytest.mark.parametrize("dims", list(DIMS))
+@pytest.mark.parametrize("fills", [True, False], ids=["whole-hops", "part-hop"])
+@pytest.mark.parametrize("config", list(K2_CONFIGS))
+def test_mel_spectrogram_librosa_of_one_k2_launch_runs_in_place_through_no_graph(
+        replayed, k2_lowering, config, fills, dims, bucket, center):
+    """No capture, no replay, no bucket: one ``direct`` call and the
+    centre-padded length as its true and bucketed samples a row, a call.  The
+    shape is librosa's frame count; the answer is the eager (bucketed) call's,
+    bit for bit, and JAX's within the librosa tolerance."""
+    kw, whole, part = K2_CONFIGS[config]
+    n = whole if fills else part
+    kw = dict(kw, center=center, bucket=bucket)
+    x = DIMS[dims](_base(n))
+    rows, n_fft = x.size // n, kw.get("n_fft", 2048)
+    t = n + (2 * (n_fft // 2) if center else 0)
+    frames = PA._stft.librosa_frame_count(n, n_fft, kw.get("hop_length", 512), center)
+    for call in range(1, 3):
+        got = P.mel_spectrogram_librosa(torch.from_numpy(x), **kw, device="cpu")
+        assert got.dtype == torch.float32
+        assert tuple(got.shape) == x.shape[:-1] + (kw.get("n_mels", 128), frames)
+        assert (replayed.captures, replayed.replays, len(replayed)) == (0, 0, 0)
+        assert PA.paths.read() == {"direct": call, "graphed": 0, "eager": 0}
+        assert bucketing.samples.read() == (call * rows * t, call * rows * t)
+    with graphs.disabled():
+        assert torch.equal(got, P.mel_spectrogram_librosa(torch.from_numpy(x), **kw,
+                                                          device="cpu"))
+    _close_librosa(got, japi.mel_spectrogram_librosa(x, **kw))
+
+
+# (case, entry point, keywords, length, the path it takes): each as before
+# this path existed
+K2_NOT_DIRECT = [
+    ("pallas off", "mel_spectrogram_librosa", {}, 15000, "graphed"),
+    ("needs a gradient", "mel_spectrogram_librosa", {}, 15000, "eager"),
+    ("graphs disabled", "mel_spectrogram_librosa", {}, 15000, "eager"),
+    ("n = n_fft/2", "mel_spectrogram_librosa", {}, 1024, "graphed"),
+    ("n < n_fft/2", "mel_spectrogram_librosa", {"sr": 16000, "n_fft": 512}, 100, "graphed"),
+    ("log_mel_spectrogram", "log_mel_spectrogram", {}, 15000, "graphed"),
+    ("mfcc_librosa", "mfcc_librosa", {"n_mfcc": 13}, 15000, "graphed"),
+]
+
+
+@pytest.mark.parametrize("case,name,kw,n,path", K2_NOT_DIRECT,
+                         ids=[c[0] for c in K2_NOT_DIRECT])
+def test_librosa_calls_not_one_k2_launch_keep_their_path(replayed, k2_lowering, case, name, kw,
+                                                         n, path):
+    x = torch.from_numpy(np.random.default_rng(13).normal(0, 0.1, (2, n)).astype(np.float32))
+    if case == "pallas off":
+        real = PA._librosa_cfg
+        k2_lowering.setattr(PA, "_librosa_cfg",
+                            lambda *a, **k: real(*a, **k).replace(pallas="off"))
+    inp = x.clone().requires_grad_(True) if case == "needs a gradient" else x
+    with graphs.disabled() if case == "graphs disabled" else contextlib.nullcontext():
+        got = getattr(P, name)(inp, **kw, device="cpu")
+    assert PA.paths.read() == {"direct": 0, "graphed": 0, "eager": 0, path: 1}
+    assert (replayed.captures, replayed.replays) == ((1, 0) if path == "graphed" else (0, 0))
+    t = n + 2 * (kw.get("n_fft", 2048) // 2)
+    assert bucketing.samples.read() == (2 * t, 2 * bucket_length(t))
+    ref = getattr(japi, name)(x.numpy(), **kw)
+    if name == "mfcc_librosa":
+        assert rel(got.detach(), ref) <= 3e-5
+    else:
+        _close_librosa(got.detach(), ref)
