@@ -228,11 +228,19 @@ def librosa_phase(np, torch, P, k1, k2, flush, chip) -> tuple:
     from mfcc_rust_tpu_torch import features as PF
     from mfcc_rust_tpu_torch.config import fp32_matmul
     from mfcc_rust_tpu_torch.constants import constant_bundle
+    from mfcc_rust_tpu_torch.ops.framing import center_pad
     from mfcc_rust_tpu_torch.utils import profiling as prof
     from tests.golden import librosa_ref
 
     dev = torch.device("cuda")
     rec = {}
+
+    def padded(x, c):
+        """(the centre-padded, bucketed batch of ``x`` that ``api``'s graph
+        computes on, its uncentred config)."""
+        write, shape, cu, _ = PA._writer(torch.from_numpy(x), c, True, dev)
+        return write(torch.empty(shape, device=dev)), cu
+
     rng = np.random.default_rng(0)
     t_true = SECONDS * L_RATE
     audio = rng.normal(0.0, 0.1, (L_BATCH, t_true)).astype(np.float32)
@@ -263,7 +271,7 @@ def librosa_phase(np, torch, P, k1, k2, flush, chip) -> tuple:
 
     # -------------------------- K2 against its plain version, main shape --
     cfg = P.librosa_config(L_RATE)
-    x_main, cfg_main, count = PA._prep_librosa(audio, cfg, True, None)
+    (x_main, cfg_main), count = padded(audio, cfg), PA._librosa_frames(cfg, t_true)
     plan = k2.launch_plan(cfg_main, L_BATCH, 1 + (x_main.shape[1] - 2048) // 512)
     log(f"K2 launch plan at {tuple(x_main.shape)}: {plan}")
     assert plan["path"] == 1, "the librosa headline must take K2's register FFT (path 1)"
@@ -368,7 +376,7 @@ def librosa_phase(np, torch, P, k1, k2, flush, chip) -> tuple:
                                   ("512/160/80", P.librosa_config(
                                       16000, n_fft=512, hop_length=160, n_mels=80), 48, 16000)):
         au = rng.normal(0.0, 0.1, (batch, SECONDS * rate)).astype(np.float32)
-        xb, cb, _ = PA._prep_librosa(au, c, True, None)
+        xb, cb = padded(au, c)
         plan_t = k2.launch_plan(cb, batch, 1 + (xb.shape[1] - c.fft_points) // c.frame_step)
         log(f"K2 launch plan, {label} at {tuple(xb.shape)}: {plan_t}")
         _, _, wp, _, km = k2._kernel_constants(cb)
@@ -422,7 +430,7 @@ def librosa_phase(np, torch, P, k1, k2, flush, chip) -> tuple:
     stream = torch.cuda.current_stream().cuda_stream
     for label, c in (("2048/512, path 1", cfg),
                      ("768/192, path 2", P.librosa_config(16000, n_fft=768, n_mels=64))):
-        xh = k2._center(torch.zeros((2, 22050), device=dev), c).contiguous()
+        xh = center_pad(torch.zeros((2, 22050), device=dev), c).contiguous()
         oh = torch.empty((2, 1 + (xh.shape[1] - c.fft_points) // c.frame_step, c.num_filters),
                          device=dev)
         lib2 = k2._lib()
@@ -2220,7 +2228,8 @@ def entry_phase(np, torch, PF, k1, k2) -> dict:
 
 # ------------------------------------------------------------ compiled --
 COMPILED_TOL = 1e-6  # a replay against the eager call, max|Δ|/max|ref|
-# the paths that launch K1 once on the caller's signal (api._k1_alone): no graph
+# the paths that launch one kernel on the caller's signal, K1 (api._k1_alone)
+# or the centre pad and K2 (api._k2_alone): no graph
 DIRECT_PATHS = ("api.mfcc", "api.mel_spectrogram_librosa")
 PROFILE_CALLS, PROFILE_CHUNK = 1000, 8
 PROFILE_SPIN = 40_000_000  # ~20 ms of device spin ahead of each chunk of calls

@@ -13,25 +13,29 @@ keep the input's dtype; the feature entry points compute in float32 unless
 
 The feature entry points (``mfcc``, ``mfe``, ``lmfe``, ``ssc``,
 ``extract``, ``mel_spectrogram`` and the three librosa ones) are where the
-JAX package calls ``_jitted``: on CUDA they replay one CUDA graph per
-(function, config, bucketed shape) from :mod:`.utils.graphs`, the input
-written straight into the graph's static input (uploaded there from numpy,
-the bucket's tail zeroed, the librosa centre pad's edges filled), and
-trim a fresh copy of its output.  Few buckets mean few captures.  They run
-eagerly on the CPU and for an input that requires a gradient
-(:func:`.utils.graphs.runs_eagerly`).  Each runs in its span ``api.<name>``
+JAX package calls ``_jitted``.  One writer (:func:`_writer`) decides how a
+caller's signal becomes the computation's input: cast to the config's
+dtype, the librosa centre pad's edges around it (the pad must see the
+signal's true edge, not the bucket's zeros) and the bucket's zero tail.
+One runner (:func:`_run`) writes that input into the static input of one
+CUDA graph per (function, config, bucketed shape) from
+:mod:`.utils.graphs` and trims a fresh copy of the graph's output; few
+buckets mean few captures.  It writes into a fresh tensor and runs eagerly
+on the CPU and for an input that requires a gradient
+(:func:`.utils.graphs.runs_eagerly`), so the two paths' answers are equal
+bit for bit.  Each entry point runs in its span ``api.<name>``
 (:func:`.utils.profiling.span`) and counts its true and bucketed samples
 (:data:`.utils.bucketing.samples`).
 
 A call that is one kernel launch needs no graph: ``mfcc`` whose lowering
-is K1 alone (:func:`_k1_alone`) launches K1 once on the caller's stream,
-reading the caller's signal where it lies at its true length, into a fresh
-result of exactly the frames the call returns (:func:`_in_place`, span
-``api.direct``); ``bucket`` changes nothing there, as no frame it would
-add was ever returned.  ``mel_spectrogram_librosa`` whose lowering is K2
-alone (:func:`_k2_alone`) does the same with K2 behind one launch of the
-centre pad at the true length (:func:`_librosa_in_place`, the same span).
-:data:`paths` counts the calls of both families by the path each took.
+is K1 alone (:func:`_k1_alone`), and ``mel_spectrogram_librosa`` whose
+lowering is K2 alone (:func:`_k2_alone`), launch the kernel once on the
+caller's stream, reading the caller's signal where it lies at its true
+length (behind one launch of the centre pad, :func:`.ops.framing.center_pad`,
+for K2), into a fresh result of exactly the frames the call returns
+(:func:`_direct`, span ``api.direct``); ``bucket`` changes nothing there,
+as no frame it would add was ever returned.  :data:`paths` counts the calls
+of both families by the path each took.
 """
 
 from __future__ import annotations
@@ -41,7 +45,6 @@ import math
 import threading
 
 import torch
-import torch.nn.functional as tF
 
 from . import features as F
 from .config import FeatureConfig, librosa_config
@@ -106,17 +109,6 @@ def _uncentred(cfg: FeatureConfig) -> FeatureConfig:
     return cfg.replace(center=False)
 
 
-def _prep(signal, cfg: FeatureConfig, bucket: bool, device):
-    sig = torch.as_tensor(signal).to(device=resolve_device(device),
-                                     dtype=getattr(torch, cfg.dtype))
-    n = sig.shape[-1]
-    if bucket:
-        b = bucket_length(n)
-        if b != n:
-            sig = tF.pad(sig, (0, b - n))
-    return sig, n
-
-
 def _rows(x: torch.Tensor) -> int:
     """Rows of a (..., T) signal."""
     n = x.shape[-1]
@@ -125,11 +117,10 @@ def _rows(x: torch.Tensor) -> int:
 
 class PathCount:
     """Cumulative calls of the feature entry points of both families (those
-    through :func:`_features`, :func:`_in_place`, :func:`_librosa` or
-    :func:`_librosa_in_place`) by the path each took: ``direct`` (one
-    launch of K1, or the centre pad and one launch of K2, on the caller's
-    signal), ``graphed`` (through :data:`.utils.graphs.cache`) and
-    ``eager``."""
+    through :func:`_run` or :func:`_direct`) by the path each took:
+    ``direct`` (one launch of K1, or the centre pad and one launch of K2,
+    on the caller's signal), ``graphed`` (through
+    :data:`.utils.graphs.cache`) and ``eager``."""
 
     DIRECT, GRAPHED, EAGER = range(3)
 
@@ -153,30 +144,64 @@ class PathCount:
 paths = PathCount()
 
 
-def _features(fn, signal, cfg: FeatureConfig, bucket: bool, device, key=None):
-    """(``fn(bucketed signal, cfg)``, true length): eagerly on
-    :func:`_prep`'s signal where :func:`.utils.graphs.runs_eagerly`, else
-    through the graph of (``key``, default ``fn``; cfg; bucketed shape), the
-    signal written into its static input and the bucket's tail zeroed."""
-    x = torch.as_tensor(signal)
-    dev = resolve_device(device)
+@tensor_cache(maxsize=64)
+def _edge_index(n: int, half: int, mode: str, device: torch.device):
+    """(where, what): the positions of the centre pad's two edges in the
+    padded signal of n samples, and the samples of the signal that each
+    reads (:func:`.ops.framing.pad_index`; raises for n = 0)."""
+    where = torch.cat([torch.arange(half, device=device),
+                       torch.arange(half + n, n + 2 * half, device=device)])
+    what = torch.cat([_framing.pad_index(-half, 0, n, mode, device),
+                      _framing.pad_index(n, n + half, n, mode, device)])
+    return where, what
+
+
+def _writer(x: torch.Tensor, cfg: FeatureConfig, bucket: bool, dev: torch.device):
+    """How the signal ``x`` (..., n) of a call becomes the computation's
+    input, worked out once: (``write``, the input's shape, the config it is
+    computed under, its true samples t).  ``write(dst)`` fills ``dst`` of
+    that shape and returns it: x cast to dst's dtype at [half, half + n),
+    half = ``cfg.fft_points // 2`` when ``cfg.center`` and 0 otherwise; the
+    centre pad's two edges in ``cfg.pad_mode`` beside it, read from that
+    body (:func:`_edge_index`), to t = n + 2 half; zeros past t to the
+    bucket (t itself with ``bucket`` false).  With the pad written, the
+    config is ``cfg`` uncentred."""
     n = x.shape[-1]
-    b = bucket_length(n) if bucket else n
+    half = cfg.fft_points // 2 if cfg.center else 0
+    t = n + 2 * half
+    b = bucket_length(t) if bucket else t
+    if half:
+        where, what = _edge_index(n, half, cfg.pad_mode, dev)
+        cfg = _uncentred(cfg)
+
+    def write(dst: torch.Tensor) -> torch.Tensor:
+        body = dst[..., half:half + n]
+        body.copy_(x)
+        if half:
+            dst.index_copy_(-1, where, body.index_select(-1, what))
+        if b > t:
+            dst[..., t:].zero_()
+        return dst
+
+    return write, x.shape[:-1] + (b,), cfg, t
+
+
+def _run(fn, signal, cfg: FeatureConfig, bucket: bool, device, key=None):
+    """(``fn(input, config)``, true length n) of :func:`_writer`'s input
+    and config: eagerly on a fresh input where
+    :func:`.utils.graphs.runs_eagerly`, else through the graph of (``key``,
+    default ``fn``; the config; the input's shape), the input written into
+    its static input."""
+    x, dev = torch.as_tensor(signal), resolve_device(device)
+    write, shape, ucfg, t = _writer(x, cfg, bucket, dev)
+    dtype = getattr(torch, cfg.dtype)
+    bucketing.samples.add(_rows(x), t, shape[-1])
     if graphs.runs_eagerly(x, dev):
-        sig, n = _prep(x, cfg, bucket, dev)
-        bucketing.samples.add(_rows(x), n, b)
         paths.add(PathCount.EAGER)
-        return fn(sig, cfg), n
-
-    def fill(static):
-        static[..., :n].copy_(x)
-        if b > n:
-            static[..., n:].zero_()
-
-    bucketing.samples.add(_rows(x), n, b)
+        return fn(write(torch.empty(shape, dtype=dtype, device=dev)), ucfg), x.shape[-1]
     paths.add(PathCount.GRAPHED)
-    return graphs.cache.run((fn if key is None else key, cfg), lambda s: fn(s, cfg),
-                            x.shape[:-1] + (b,), getattr(torch, cfg.dtype), dev, fill), n
+    return graphs.cache.run((fn if key is None else key, ucfg), lambda s: fn(s, ucfg), shape,
+                            dtype, dev, write), x.shape[-1]
 
 
 def _k1_alone(cfg: FeatureConfig, x: torch.Tensor, dev: torch.device) -> bool:
@@ -192,19 +217,19 @@ def _k1_alone(cfg: FeatureConfig, x: torch.Tensor, dev: torch.device) -> bool:
             and not graphs.runs_eagerly(x, dev))
 
 
-def _in_place(x: torch.Tensor, cfg: FeatureConfig, dev: torch.device) -> torch.Tensor:
-    """The MFCC of ``x`` where :func:`_k1_alone`: K1 launched once on the
-    caller's current stream, reading the signal where it lies (moved to
-    ``dev`` and float32 only if it is not there already) at its true length
-    n, no bucket and no static input, into a fresh (..., (n - fl) // hop, C)
-    result: exactly the frames the call returns, each read from samples
-    below n."""
+def _direct(kernel, x: torch.Tensor, cfg: FeatureConfig, dev: torch.device) -> torch.Tensor:
+    """``kernel(signal, config)`` where :func:`_k1_alone` or
+    :func:`_k2_alone`: launched once on the caller's current stream,
+    reading ``x`` where it lies (moved to ``dev`` and float32 only if it is
+    not there already) at its true length n, centre-padded there when
+    ``cfg.center`` (:func:`.ops.framing.center_pad`, one launch), no bucket
+    and no static input, into a fresh result of exactly the frames the call
+    returns, each read from samples below n or their reflection."""
     with span("api.direct"):
-        sig = x.to(device=dev, dtype=torch.float32)
-        n = sig.shape[-1]
-        bucketing.samples.add(_rows(sig), n, n)
+        sig = _framing.center_pad(x.to(device=dev, dtype=torch.float32), cfg)
+        bucketing.samples.add(_rows(sig), sig.shape[-1], sig.shape[-1])
         paths.add(PathCount.DIRECT)
-        return _k1.mfcc_fused(sig, cfg)
+        return kernel(sig, _uncentred(cfg) if cfg.center else cfg)
 
 
 def _frames_nopad(cfg: FeatureConfig, true_len: int) -> int:
@@ -225,8 +250,8 @@ def mfcc(signal, sampling_frequency, frame_length=0.020, frame_stride=0.01,
                             high_frequency, dc_elimination, precision, dtype)
         x, dev = torch.as_tensor(signal), resolve_device(device)
         if _k1_alone(cfg, x, dev):
-            return _in_place(x, cfg, dev)
-        out, n = _features(F.mfcc, x, cfg, bucket, dev)
+            return _direct(_k1.mfcc_fused, x, cfg, dev)
+        out, n = _run(F.mfcc, x, cfg, bucket, dev)
         return out[..., : _frames_nopad(cfg, n), :]
 
 
@@ -237,7 +262,7 @@ def mfe(signal, sampling_frequency, frame_length=0.020, frame_stride=0.01,
     with span("api.mfe"):
         cfg = _speechpy_cfg(sampling_frequency, frame_length, frame_stride,
                             13, num_filters, fft_length, low_frequency, high_frequency)
-        (feats, energies), n = _features(F.mfe, signal, cfg, bucket, device)
+        (feats, energies), n = _run(F.mfe, signal, cfg, bucket, device)
         k = _frames_nopad(cfg, n)
         return feats[..., :k, :], energies[..., :k]
 
@@ -249,7 +274,7 @@ def lmfe(signal, sampling_frequency, frame_length=0.020, frame_stride=0.01,
     with span("api.lmfe"):
         cfg = _speechpy_cfg(sampling_frequency, frame_length, frame_stride,
                             13, num_filters, fft_length, low_frequency, high_frequency)
-        out, n = _features(F.lmfe, signal, cfg, bucket, device)
+        out, n = _run(F.lmfe, signal, cfg, bucket, device)
         return out[..., : _frames_nopad(cfg, n), :]
 
 
@@ -260,7 +285,7 @@ def ssc(signal, sampling_frequency, frame_length=0.020, frame_stride=0.01,
     with span("api.ssc"):
         cfg = _speechpy_cfg(sampling_frequency, frame_length, frame_stride,
                             13, num_filters, fft_length, low_frequency, high_frequency)
-        out, n = _features(F.ssc, signal, cfg, bucket, device)
+        out, n = _run(F.ssc, signal, cfg, bucket, device)
         return out[..., : _frames_nopad(cfg, n), :]
 
 
@@ -278,8 +303,8 @@ def extract(signal, sampling_frequency, which=("mfcc",), frame_length=0.020,
                             num_cepstral, num_filters, fft_length, low_frequency,
                             high_frequency, dc_elimination, precision, dtype)
         which = tuple(which)
-        feats, n = _features(lambda s, c: F.extract(s, c, which), signal, cfg, bucket, device,
-                             key=(F.extract, which))
+        feats, n = _run(lambda s, c: F.extract(s, c, which), signal, cfg, bucket, device,
+                        key=(F.extract, which))
         k = _frames_nopad(cfg, n)
         out = {}
         for name, val in feats.items():
@@ -307,7 +332,7 @@ def mel_spectrogram(signal, sampling_frequency, frame_length=0.020,
         cfg = _speechpy_cfg(sampling_frequency, frame_length, frame_stride,
                             num_cepstral, num_filters, fft_length, low_frequency,
                             high_frequency, dc_elimination, window="vorbis")
-        out, n = _features(F.mel_spectrogram, sig_in, cfg, bucket, device)
+        out, n = _run(F.mel_spectrogram, sig_in, cfg, bucket, device)
         t_true = -(-n // cfg.stream_hop)
         out = out[..., :t_true]
         # the reference never writes its last n_pad frames; the start is clamped
@@ -397,67 +422,9 @@ def resample(signal, orig_sr, target_sr, precision="highest", *, device=None):
 
 
 # -------------------------------------------------------- librosa-style API --
-def _prep_librosa(y, cfg: FeatureConfig, bucket: bool, device):
-    """The centre pad must see the true signal edge, not the bucket zeros,
-    so it comes first, in ``cfg.pad_mode`` on the whole signal; bucketing
-    then zero-pads and framing runs uncentred on the padded signal.
-    Returns (signal, cfg with center=False, true frame count)."""
-    sig, n = _prep(y, cfg, False, device)
-    count = _stft.librosa_frame_count(n, cfg.fft_points, cfg.frame_step, cfg.center)
-    if cfg.center:
-        half = cfg.fft_points // 2
-        sig = _framing.pad_signal(sig, half, half, cfg.pad_mode)
-        cfg = cfg.replace(center=False)
-    sig, _ = _prep(sig, cfg, bucket, sig.device)
-    return sig, cfg, count
-
-
-@tensor_cache(maxsize=64)
-def _edge_index(n: int, half: int, mode: str, device: torch.device):
-    """(where, what): the positions of the centre pad's two edges in the
-    padded signal of n samples, and the samples of the signal that each
-    reads (:func:`.ops.framing.pad_index`)."""
-    where = torch.cat([torch.arange(half, device=device),
-                       torch.arange(half + n, n + 2 * half, device=device)])
-    what = torch.cat([_framing.pad_index(-half, 0, n, mode, device),
-                      _framing.pad_index(n, n + half, n, mode, device)])
-    return where, what
-
-
-def _librosa(fn, y, cfg: FeatureConfig, bucket: bool, device):
-    """(``fn`` of the centre-padded, bucketed signal, true frame count), as
-    :func:`_prep_librosa` pads it: eagerly where
-    :func:`.utils.graphs.runs_eagerly`, else through the graph of (``fn``,
-    the uncentred cfg, bucketed shape), the signal written into its static
-    input between the two edges of the centre pad, then the bucket's zeros."""
-    x = torch.as_tensor(y)
-    dev = resolve_device(device)
-    n = x.shape[-1]
-    half = cfg.fft_points // 2 if cfg.center else 0
-    t = n + 2 * half
-    b = bucket_length(t) if bucket else t
-    if graphs.runs_eagerly(x, dev):
-        sig, ucfg, count = _prep_librosa(x, cfg, bucket, dev)
-        bucketing.samples.add(_rows(x), t, b)
-        paths.add(PathCount.EAGER)
-        return fn(sig, ucfg), count
-    count = _stft.librosa_frame_count(n, cfg.fft_points, cfg.frame_step, cfg.center)
-    # librosa_config pads in "reflect"; raises for n = 0, as pad_signal does
-    where, what = _edge_index(n, half, cfg.pad_mode, dev) if half else (None, None)
-    cfg = _uncentred(cfg)
-
-    def fill(static):
-        body = static[..., half:half + n]
-        body.copy_(x)
-        if half:
-            static.index_copy_(-1, where, body.index_select(-1, what))
-        if b > t:
-            static[..., t:].zero_()
-
-    bucketing.samples.add(_rows(x), t, b)
-    paths.add(PathCount.GRAPHED)
-    return graphs.cache.run((fn, cfg), lambda s: fn(s, cfg), x.shape[:-1] + (b,),
-                            getattr(torch, cfg.dtype), dev, fill), count
+def _librosa_frames(cfg: FeatureConfig, n: int) -> int:
+    """Frames of a librosa-family call on n samples."""
+    return _stft.librosa_frame_count(n, cfg.fft_points, cfg.frame_step, cfg.center)
 
 
 @functools.lru_cache(maxsize=64)
@@ -474,33 +441,16 @@ def _k2_alone(cfg: FeatureConfig, x: torch.Tensor, dev: torch.device) -> bool:
     (:func:`.features.librosa_lowering`), on a call that would otherwise
     replay a graph (:func:`.utils.graphs.runs_eagerly` false), of more than
     n_fft // 2 samples when centred (the reflect pad then folds at most
-    once; shorter clips keep :func:`.ops.framing.pad_signal`'s folds), of
-    at least one otherwise."""
+    once, one launch of :func:`.ops.framing.pad_signal`; shorter clips keep
+    the graph), of at least one otherwise."""
     return (x.shape[-1] > (cfg.fft_points // 2 if cfg.center else 0)
             and _librosa_lowering(cfg, dev.type) == "k2"
             and not graphs.runs_eagerly(x, dev))
 
 
-def _librosa_in_place(x: torch.Tensor, cfg: FeatureConfig, dev: torch.device) -> torch.Tensor:
-    """The librosa mel spectrogram of ``x`` where :func:`_k2_alone`, on the
-    caller's current stream: the signal moved to ``dev`` and float32 only if
-    it is not there already, centre-padded at its true length n by one
-    launch (the reflect pad of ``_librosa_cfg``'s configs, the values of
-    :func:`.ops.framing.pad_signal`), then K2 launched once on it, no bucket
-    and no static input, into a fresh result whose (..., n_mels, frames)
-    transpose is returned: exactly the frames the call returns, each read
-    from the signal and its reflection."""
-    with span("api.direct"):
-        sig = x.to(device=dev, dtype=torch.float32)
-        n = sig.shape[-1]
-        rows = _rows(sig)
-        if cfg.center:
-            half = cfg.fft_points // 2
-            sig = tF.pad(sig.reshape(rows, 1, n), (half, half),
-                         mode="reflect").view(sig.shape[:-1] + (n + 2 * half,))
-        bucketing.samples.add(rows, sig.shape[-1], sig.shape[-1])
-        paths.add(PathCount.DIRECT)
-        return _k2.ct_mel(sig, _uncentred(cfg)).transpose(-1, -2)
+def _k2_mel(sig: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """K2 on a centre-padded signal, (..., n_mels, frames)."""
+    return _k2.ct_mel(sig, cfg).transpose(-1, -2)
 
 
 def mel_spectrogram_librosa(y, sr=22050, n_fft=2048, hop_length=512, win_length=None,
@@ -508,15 +458,15 @@ def mel_spectrogram_librosa(y, sr=22050, n_fft=2048, hop_length=512, win_length=
                             bucket=True, device=None):
     """librosa-compatible mel spectrogram, (..., n_mels, frames).  A call that
     is the centre pad and one launch of K2 (:func:`_k2_alone`) takes
-    :func:`_librosa_in_place`, where ``bucket`` changes nothing: no frame it
-    would add was ever returned."""
+    :func:`_direct`, where ``bucket`` changes nothing: no frame it would
+    add was ever returned."""
     with span("api.mel_spectrogram_librosa"):
         cfg = _librosa_cfg(sr, n_fft, hop_length, win_length, n_mels, 20, fmin, fmax, power, center)
         x, dev = torch.as_tensor(y), resolve_device(device)
         if _k2_alone(cfg, x, dev):
-            return _librosa_in_place(x, cfg, dev)
-        out, count = _librosa(F.mel_spectrogram_librosa, x, cfg, bucket, dev)
-        return out[..., :count]
+            return _direct(_k2_mel, x, cfg, dev)
+        out, n = _run(F.mel_spectrogram_librosa, x, cfg, bucket, dev)
+        return out[..., :_librosa_frames(cfg, n)]
 
 
 def log_mel_spectrogram(y, sr=22050, n_fft=2048, hop_length=512, n_mels=128, fmin=0.0,
@@ -526,8 +476,8 @@ def log_mel_spectrogram(y, sr=22050, n_fft=2048, hop_length=512, n_mels=128, fmi
     survive the final slice."""
     with span("api.log_mel_spectrogram"):
         cfg = _librosa_cfg(sr, n_fft, hop_length, None, n_mels, 20, fmin, fmax, 2.0, center)
-        out, count = _librosa(F.log_mel_spectrogram, y, cfg, bucket, device)
-        return out[..., :count]
+        out, n = _run(F.log_mel_spectrogram, y, cfg, bucket, device)
+        return out[..., :_librosa_frames(cfg, n)]
 
 
 def mfcc_librosa(y, sr=22050, n_mfcc=20, n_fft=2048, hop_length=512, n_mels=128,
@@ -535,5 +485,5 @@ def mfcc_librosa(y, sr=22050, n_mfcc=20, n_fft=2048, hop_length=512, n_mels=128,
     """librosa-compatible MFCC, (..., n_mfcc, frames)."""
     with span("api.mfcc_librosa"):
         cfg = _librosa_cfg(sr, n_fft, hop_length, None, n_mels, n_mfcc, fmin, fmax, 2.0, center)
-        out, count = _librosa(F.mfcc_librosa, y, cfg, bucket, device)
-        return out[..., :count]
+        out, n = _run(F.mfcc_librosa, y, cfg, bucket, device)
+        return out[..., :_librosa_frames(cfg, n)]

@@ -518,11 +518,10 @@ def mel_spectrogram_librosa(signal: torch.Tensor, cfg: FeatureConfig,
     low = librosa_lowering(cfg, signal.device.type, signal.dtype)
     if low == "k2":
         return _MelLibrosaKernel.apply(signal, cfg).transpose(-1, -2)
-    if low == "librosa-ct":
-        return _librosa_ct_mel(signal, cfg, consts)
     if low != "librosa-framed":
-        if cfg.center:
-            signal = _framing.pad_signal(signal, n // 2, n // 2, cfg.pad_mode)
+        signal = _framing.center_pad(signal, cfg)
+        if low == "librosa-ct":
+            return ct_frames_mel(signal, cfg, good_factorization(n), consts).transpose(-1, -2)
         count = 1 + (signal.shape[-1] - n) // hop
         if count > 0:
             c = consts if consts is not None else _librosa_tensors(cfg, signal.device,
@@ -637,17 +636,6 @@ def ct_frames_mel(padded: torch.Tensor, cfg: FeatureConfig, factors: Tuple[int, 
     frames = _framing.frame_signal(padded, n, hop, count) * c["window"]
     frames = frames.reshape(frames.shape[:-1] + (n2, n1))  # sample n = n1 + N1*n2
     return ct_power_project(frames, n, n1, n2, c["proj"], stages=consts)
-
-
-def _librosa_ct_mel(signal: torch.Tensor, cfg: FeatureConfig,
-                    consts: Optional[dict] = None) -> torch.Tensor:
-    """librosa mel spectrogram for large transforms through the CT products,
-    the filterbank permuted onto the CT output plane (no spectrum
-    transpose)."""
-    n = cfg.fft_points
-    if cfg.center:
-        signal = _framing.pad_signal(signal, n // 2, n // 2, cfg.pad_mode)
-    return ct_frames_mel(signal, cfg, good_factorization(n), consts).transpose(-1, -2)
 
 
 def log_mel_spectrogram(signal: torch.Tensor, cfg: FeatureConfig, ref: float = 1.0,

@@ -29,7 +29,7 @@ from ... import features as _F
 from ...config import FeatureConfig
 from ...constants import constant_bundle, tensor_cache
 from ..fft import good_factorization
-from ..framing import pad_signal
+from ..framing import center_pad
 
 KERNEL = "ct_mel"
 
@@ -167,11 +167,6 @@ def _kernel_tensors(cfg: FeatureConfig, device: torch.device) -> dict:
     return {"win": t(win), "tw": t(tw), "wpack": t(wpack), "ranges": t(ranges)}
 
 
-def _center(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
-    n = cfg.fft_points
-    return pad_signal(signal, n // 2, n // 2, cfg.pad_mode) if cfg.center else signal
-
-
 def ct_mel_plain(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
     """The kernel's function in plain PyTorch: (..., T) -> (..., F, M)
     frame-major, F = 1 + (T' - n)//hop over the centre-padded length T' (0
@@ -179,7 +174,7 @@ def ct_mel_plain(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
     ``ct_power_project`` of :mod:`..fft`, factored as the reference factors
     (or 2 x n/2 where it finds no balanced factorization)."""
     n = cfg.fft_points
-    return _F.ct_frames_mel(_center(signal, cfg), cfg, good_factorization(n) or (2, n // 2))
+    return _F.ct_frames_mel(center_pad(signal, cfg), cfg, good_factorization(n) or (2, n // 2))
 
 
 @functools.lru_cache(maxsize=1)
@@ -253,7 +248,7 @@ def ct_mel(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
     if signal.dtype != torch.float32:
         raise TypeError(f"the CT mel kernel takes float32, got {signal.dtype}")
     n, hop, m = cfg.fft_points, cfg.frame_step, cfg.num_filters
-    x = _center(signal, cfg)
+    x = center_pad(signal, cfg)
     lead, t = x.shape[:-1], x.shape[-1]
     x = x.reshape(-1, t).contiguous()
     count = max(1 + (t - n) // hop, 0)

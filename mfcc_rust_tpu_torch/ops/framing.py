@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as tF
 
+from ..config import FeatureConfig
+
 
 def preemphasis(signal: torch.Tensor, shift: int = 1, cof: float = 0.98) -> torch.Tensor:
     """``signal - cof * roll(signal, shift)`` with np.roll wrap-around
@@ -25,18 +27,33 @@ def pad_signal(signal: torch.Tensor, left: int, right: int,
                mode: str = "reflect", dim: int = -1) -> torch.Tensor:
     """``np.pad`` of axis ``dim`` (the last by default) by (left, right) in
     ``mode`` ("constant", "reflect", "symmetric", "edge" or "wrap"), at any
-    length.  A pad as long as the axis or longer reflects again and again,
-    as numpy does (``torch.nn.functional.pad`` raises there), so each output
-    sample is read through a folded index; a 1-sample axis reflects to
-    itself."""
+    length.  A "reflect" pad whose two sides are both shorter than the axis
+    is one ``torch.nn.functional.pad`` launch on a (rows, 1, T) view.  A pad
+    as long as the axis or longer reflects again and again, as numpy does
+    (``torch.nn.functional.pad`` raises there), so each output sample of it,
+    and of the other modes, is read through a folded index
+    (:func:`pad_index`); a 1-sample axis reflects to itself."""
     if left == 0 and right == 0:
         return signal
     if dim not in (-1, signal.ndim - 1):
         return pad_signal(signal.movedim(dim, -1), left, right, mode).movedim(-1, dim)
     if mode == "constant":
         return tF.pad(signal, (left, right))
-    idx = pad_index(-left, signal.shape[-1] + right, signal.shape[-1], mode, signal.device)
-    return signal.index_select(-1, idx)
+    t = signal.shape[-1]
+    if mode == "reflect" and left < t and right < t:
+        return tF.pad(signal.reshape(-1, 1, t), (left, right),
+                      mode="reflect").view(signal.shape[:-1] + (left + t + right,))
+    return signal.index_select(-1, pad_index(-left, t + right, t, mode, signal.device))
+
+
+def center_pad(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """The librosa centre pad of a (..., T) signal: ``cfg.fft_points // 2``
+    samples on each side in ``cfg.pad_mode`` when ``cfg.center``, else
+    ``signal`` itself.  Raises for an empty signal when centred."""
+    if not cfg.center:
+        return signal
+    half = cfg.fft_points // 2
+    return pad_signal(signal, half, half, cfg.pad_mode)
 
 
 def pad_index(start: int, stop: int, t: int, mode: str, device=None) -> torch.Tensor:

@@ -134,8 +134,7 @@ def stft_framed(
     n = cfg.fft_points
     hop = cfg.frame_step
     if framing_style == "librosa":
-        if cfg.center:
-            signal = framing.pad_signal(signal, n // 2, n // 2, cfg.pad_mode)
+        signal = framing.center_pad(signal, cfg)
         count = 1 + (signal.shape[-1] - n) // hop
         frames = framing.frame_signal(signal, n, hop, count)
     elif framing_style in ("speechpy_nopad", "speechpy_pad"):

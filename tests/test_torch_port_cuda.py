@@ -275,7 +275,8 @@ def test_ct_mel_paths_on_card(cuda_device, name, args, kw, shape, path):
     cfg = P.librosa_config(*args, **kw)
     x = np.random.default_rng(19).normal(0, 0.1, shape).astype(np.float32)
     if name.endswith("headline"):  # the main path's bucketed, centre-padded batch
-        xd, cfg, _ = PA._prep_librosa(x, cfg, True, None)
+        write, padded, cfg, _ = PA._writer(torch.from_numpy(x), cfg, True, cuda_device)
+        xd = write(torch.empty(padded, device=cuda_device))
     else:
         xd = torch.from_numpy(x).to(cuda_device)
     t = xd.shape[-1] + (cfg.fft_points if cfg.center else 0)
@@ -1035,7 +1036,7 @@ def test_mfcc_in_place_on_two_streams_each_get_their_own_result_on_card(graph_ca
 
 # api.mel_spectrogram_librosa whose lowering is K2 alone: the centre pad at
 # the true length, then K2 launched once on the caller's stream, no graph;
-# the answer is the same input's through api._librosa's graph, bit for bit,
+# the answer is the same input's through api._run's graph, bit for bit,
 # at both librosa cells' shapes.
 K2_DIRECT = [("2048/512/128", {"sr": 22050}, (32, 220_500)),
              ("512/160/80", {"sr": 16000, "n_fft": 512, "hop_length": 160, "n_mels": 80},
@@ -1055,8 +1056,8 @@ def test_mel_spectrogram_librosa_of_one_k2_launch_runs_in_place_on_card(graph_ca
     assert PA._k2_alone(cfg, x, dev)
     c0, r0 = graphs.cache.captures, graphs.cache.replays
     for _ in range(2):  # the capture, then a replay: the graph's answer
-        out, count = PA._librosa(PF.mel_spectrogram_librosa, x, cfg, True, dev)
-    graphed = out[..., :count]
+        out, n = PA._run(PF.mel_spectrogram_librosa, x, cfg, True, dev)
+    graphed = out[..., :PA._librosa_frames(cfg, n)]
     torch.cuda.synchronize()
     assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == (1, 1)
     frames = 1 + shape[1] // cfg.frame_step

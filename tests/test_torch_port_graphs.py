@@ -497,7 +497,7 @@ def test_entry_points_through_the_layer_match_jax(replayed, name, args, kw, leng
         got = getattr(P, name)(x, *args, **kw, device="cpu")
         assert isinstance(got, torch.Tensor) and got.dtype == torch.float32
         check(got, getattr(japi, name)(x, *args, **kw))
-        # and equal to the eager call, bit for bit
+        # and equal to the eager call (the same writer into a fresh input), bit for bit
         with graphs.disabled():
             assert torch.equal(got, getattr(P, name)(x, *args, **kw, device="cpu"))
     assert (replayed.captures, replayed.replays) == (1, 1)

@@ -108,6 +108,36 @@ def test_pad_signal_along_a_dim_matches_numpy():
             np.testing.assert_array_equal(got.numpy(), ref)
 
 
+# (left, right) around an axis of 9: both sides shorter (one launch of the
+# reflect pad), as long as it, and longer (the folded gather)
+REFLECT_PADS = [(3, 4), (8, 1), (0, 8), (9, 9), (20, 13)]
+REFLECT_SHAPES = [(9,), (3, 9), (2, 3, 9), (0, 9), (2, 0, 9)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", REFLECT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("left,right", REFLECT_PADS, ids=lambda p: str(p))
+def test_pad_signal_reflect_matches_numpy_and_the_folded_gather(left, right, shape, dtype):
+    """Values bitwise ``np.pad``'s; gradients bitwise those of the folded
+    gather through ``pad_index``; ``center_pad`` is this pad when centred
+    and the input itself when not."""
+    t = shape[-1]
+    x = torch.from_numpy(np.random.default_rng(t + left).normal(size=shape).astype(dtype))
+    a, b = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    got = pframing.pad_signal(a, left, right, "reflect")
+    ref = np.pad(x.numpy(), [(0, 0)] * (x.ndim - 1) + [(left, right)], mode="reflect")
+    np.testing.assert_array_equal(got.detach().numpy(), ref)
+    folded = b.index_select(-1, pframing.pad_index(-left, t + right, t, "reflect"))
+    g = torch.from_numpy(np.random.default_rng(5).normal(size=ref.shape).astype(dtype))
+    (got * g).sum().backward()
+    (folded * g).sum().backward()
+    assert torch.equal(a.grad, b.grad)
+    assert pframing.center_pad(x, P.librosa_config(16000).replace(center=False)) is x
+    if left == right:
+        cfg = P.librosa_config(16000, n_fft=2 * left)
+        assert torch.equal(pframing.center_pad(x, cfg), got.detach())
+
+
 # -------------------------------------------------------------------- CMVN --
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("variance", [False, True])
