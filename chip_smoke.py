@@ -78,6 +78,12 @@ launch count set to 0, failing unless the path's kernel launched:
   the suite cell's (64, 177,664) bucket, its launches read from replayed
   ``extract`` calls at (64, 160,000) with the count zeroed just before,
   timed against the plain version; its own entry in the kernels line;
+* speechpy heads: the kernel ``speechpy_heads`` (the mel, SSC, log-mel,
+  MFCC and frame energy of each frame of the chunk-GEMM product in one
+  pass, ``extract``'s heads; ``heads_phase``) against its plain version on
+  the same bucket, its five errors, its time, bound and share of HBM
+  against the plain version's, its launches read from replayed ``extract``
+  calls as the edge sums' are; its own entry in the kernels line;
 * compiled: the CUDA-graph replay layer (``utils/graphs.py``,
   ``compiled_phase``): every ``api`` feature entry point and every
   pipeline class and ``FeatureExtractor`` at 48 x 10 s, 16 kHz, or 32 x
@@ -641,6 +647,28 @@ STREAM_SECONDS = 60
 
 
 EDGE_ROWS, EDGE_BUCKET = 64, 177_664  # the suite cell's batch and its bucket
+HEADS = ("mfe", "lmfe", "ssc", "mfcc")  # the suite cell's heads
+
+
+def replayed_extract_launches(torch, P, x, counter, replays: int = 3) -> int:
+    """The launches that ``counter`` (a kernel's wrapper, its ``.launches``)
+    counts over ``replays`` calls of ``api.extract`` of the suite's heads on
+    the card tensor ``x``, replayed from the CUDA graph of the call before
+    them, the count set to 0 just before: asserted one a replay.  Every
+    replay's heads equal the first call's within ``REPLAY_TOL``."""
+    first = P.extract(x, RATE, which=HEADS)  # the capture (or a replay of a held graph)
+    counter.launches = 0
+    for _ in range(replays):
+        out = P.extract(x, RATE, which=HEADS)
+    torch.cuda.synchronize()
+    launches = counter.launches
+    assert launches == replays, (f"replayed extract: {counter.__name__} launches", launches)
+    for h in HEADS:
+        a, b = (out[h][0], first[h][0]) if h == "mfe" else (out[h], first[h])
+        assert rel_err(a, b)[0] <= REPLAY_TOL, f"replayed extract's {h} off its first call"
+    log(f"api.extract {HEADS} at {tuple(x.shape)} replayed {replays} times: "
+        f"{counter.__name__} launches {launches}")
+    return launches
 
 
 def edges_phase(np, torch, P, PF, flush, chip) -> dict:
@@ -685,21 +713,8 @@ def edges_phase(np, torch, P, PF, flush, chip) -> dict:
     log(f"edge sums at ({EDGE_ROWS}, {EDGE_BUCKET}), {n} frames: vs plain float64 sums "
         f"max |d| {abs_err:.3e} (rel {rel:.3e}; each within one float32 rounding)")
 
-    heads = ("mfe", "lmfe", "ssc", "mfcc")
-    xt = x[:, :RATE * SECONDS].contiguous()
-    first = P.extract(xt, RATE, which=heads)  # the capture (or a replay of a held graph)
-    ke.edge_sums.launches = 0
-    replays = 3
-    for _ in range(replays):
-        out = P.extract(xt, RATE, which=heads)
-    torch.cuda.synchronize()
-    launches = ke.edge_sums.launches
-    assert launches == replays, ("replayed extract: edge_sums launches", launches, replays)
-    for h in heads:
-        a, b = (out[h][0], first[h][0]) if h == "mfe" else (out[h], first[h])
-        assert rel_err(a, b)[0] <= REPLAY_TOL, f"replayed extract's {h} off its first call"
-    log(f"api.extract {heads} at {tuple(xt.shape)} replayed {replays} times: edge_sums launches "
-        f"{launches}")
+    launches = replayed_extract_launches(torch, P, x[:, :RATE * SECONDS].contiguous(),
+                                         ke.edge_sums)
 
     runs = {"kernel": lambda: ke.edge_sums(x, y, cfg, n),
             "plain": lambda: PF._exact_edges_plain(ch, y, cfg, n)}
@@ -2601,6 +2616,85 @@ def bench_phase(np, torch, k1, k2) -> dict:
             "tf32_control": tf32_control(np, torch, bench)}
 
 
+HEADS_TOL = {"mfe": (1e-5, "mixed"), "energy": (1e-5, "mixed"), "lmfe": (3e-5, "rel"),
+             "ssc": (1e-5, "rel"), "mfcc": (3e-5, "rel")}
+
+
+def heads_phase(np, torch, P, PF, flush, chip) -> dict:
+    """The speechpy heads kernel (``ops/cuda/speechpy_heads.cu``: the mel,
+    SSC, log-mel, MFCC and frame energy of each frame of the chunk-GEMM
+    product in one pass; ``features._extract_heads``) against its plain
+    version (``features._extract_heads_plain``) on the suite cell's
+    (64, 177,664) bucket, the last 17,664 samples of each row zero as the
+    bucket gives, of the cell's four heads: each head's error in the cell's
+    own number (``mfe`` and its energies max|Δ|/(|ref| + 0.02 max|ref|), the
+    others max|Δ|/max|ref|), within 1e-5 (the logs 3e-5).  Kernel and plain
+    version timed with CUDA events after an L2 flush and a device spin, 20
+    calls each; the kernel's share of HBM on the bytes one call must move:
+    the product read once, the samples read once, the 134 floats a frame
+    written, and ``bound_ms`` from those bytes and the operations of one
+    call.  Its launches are read from ``api.extract`` of the four heads at
+    (64, 160,000), the suite cell's call, replayed from the call's CUDA
+    graph with the count set to 0 just before: one a replay.  Returns the
+    kernels line's entry."""
+    from mfcc_rust_tpu_torch.ops.cuda import speechpy_heads as kh
+    from mfcc_rust_tpu_torch.utils import profiling as prof
+
+    dev = torch.device("cuda")
+    cfg = P.speechpy_config(RATE)
+    fl, hop = cfg.frame_size, cfg.frame_step
+    rng = np.random.default_rng(22)
+    x = rng.normal(0.0, 0.1, (EDGE_ROWS, EDGE_BUCKET)).astype(np.float32)
+    x[:, RATE * SECONDS:] = 0.0
+    x = torch.from_numpy(x).to(dev)
+    n = (EDGE_BUCKET - fl) // hop
+    c = PF._speechpy_tensors(cfg, dev, torch.float32)
+    ch, y = PF._speechpy_product(x, c, cfg, n)
+    want = set(HEADS)
+    got = kh.heads(ch, y, cfg, want, n, True)
+    ref = PF._extract_heads_plain(ch, y, c, cfg, want, n, True)
+    errs = {}
+    for name in ("mfe", "energy", "lmfe", "ssc", "mfcc"):
+        a, b = ((got["mfe"][0], ref["mfe"][0]) if name == "mfe" else
+                (got["mfe"][1], ref["mfe"][1]) if name == "energy" else (got[name], ref[name]))
+        tol, kind = HEADS_TOL[name]
+        a, b = a.double(), b.double()
+        top = b.abs().max()
+        d = (a - b).abs()
+        errs[name] = (d / (b.abs() + 0.02 * top) if kind == "mixed" else d / top).max().item()
+        assert errs[name] <= tol, (f"speechpy heads: {name} off the plain heads", errs[name], tol)
+    log(f"speechpy heads at ({EDGE_ROWS}, {EDGE_BUCKET}), {n} frames, {sorted(want)}: vs plain "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    launches = replayed_extract_launches(torch, P, x[:, :RATE * SECONDS].contiguous(), kh.heads)
+
+    runs = {"kernel": lambda: kh.heads(ch, y, cfg, want, n, True),
+            "plain": lambda: PF._extract_heads_plain(ch, y, c, cfg, want, n, True)}
+    times = {name: [] for name in runs}
+    for order in (("plain", "kernel"), ("kernel", "plain")):
+        for name in order:
+            times[name] += cuda_ms(torch, runs[name], 10, flush)
+    med = {name: statistics.median(v) for name, v in times.items()}
+    frames = EDGE_ROWS * n
+    m, cc, kmax = cfg.num_filters, cfg.num_cepstral, (y.shape[-1] - 2) // 2
+    nnz = kh._kernel_constants(cfg)[3]
+    out_floats = 3 * m + 1 + cc
+    nbytes = 4 * frames * y.shape[-1] + 4 * EDGE_ROWS * EDGE_BUCKET + 4 * frames * out_floats
+    # a frame: |X_k|^2 and its SSC power (4 a bin), x^2 w^2 summed (3 a
+    # sample), three weighted sums over the bands' bins (6 a weight), the DCT
+    flops = frames * (4 * kmax + 3 * fl + 6 * nnz + 2 * m * cc)
+    bound_s, bound_by = prof.bound_seconds(flops, nbytes, chip)
+    hbm = nbytes / (med["kernel"] * 1e-3) / (chip["hbm_gbs"] * 1e9)
+    log(f"speechpy heads: kernel {1e3 * med['kernel']:.1f} us, plain {1e3 * med['plain']:.1f} us "
+        f"(median of {len(times['kernel'])}); {nbytes / 1e6:.1f} MB a call, "
+        f"{100 * hbm:.1f}% of HBM; bound {1e3 * bound_s:.4f} ms ({bound_by}; "
+        f"{flops / 1e9:.3f} GFLOP)")
+    return {"name": kh.KERNEL, "route": "cuda",
+            "source": "mfcc_rust_tpu_torch/ops/cuda/speechpy_heads.cu", "replaces": None,
+            "launches": launches, "max_err": errs, "ms": med["kernel"],
+            "plain_ms": med["plain"], "bound_ms": 1e3 * bound_s, "bound_by": bound_by,
+            "bytes": nbytes, "hbm_share": hbm, "times_ms": times}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, help="directory for chip_smoke.json")
@@ -2632,9 +2726,11 @@ def main() -> int:
 
     # ---------------------------------------------------------------- build --
     t0 = time.perf_counter()
-    logs = build.build([k1.KERNEL, k2.KERNEL])
+    from mfcc_rust_tpu_torch.ops.cuda import speechpy_heads as kh
+
+    logs = build.build([k1.KERNEL, k2.KERNEL, kh.KERNEL])
     record["build_s"] = time.perf_counter() - t0
-    log(f"build: {k1.KERNEL}, {k2.KERNEL} in {record['build_s']:.3f} s")
+    log(f"build: {k1.KERNEL}, {k2.KERNEL}, {kh.KERNEL} in {record['build_s']:.3f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "entry function")):
@@ -2668,6 +2764,8 @@ def main() -> int:
         for warps in (1, 8):
             a = (mc.fft_points, mc.frame_step, mc.frame_size, km, wp.size, mc.num_filters, warps)
             assert lib.mfcc_fft_smem_bytes(*a) == k1.smem_bytes(*a), ("smem mirror", a)
+    for a in ((260, 210, 40, 13, 320), (516, 456, 40, 13, 320), (262, 500, 128, 40, 400)):
+        assert kh._lib().speechpy_heads_smem_bytes(*a) == kh.smem_bytes(*a), ("heads smem", a)
 
     # ------------------------------------------------------ main path, once --
     rng = np.random.default_rng(0)
@@ -2830,6 +2928,7 @@ def main() -> int:
     k2_entry, record["librosa"] = librosa_phase(np, torch, P, k1, k2, flush, chip)
     record["suite"] = suite_phase(np, torch, P, k1, k2, flush)
     edge_entry = edges_phase(np, torch, P, PF, flush, chip)
+    heads_entry = heads_phase(np, torch, P, PF, flush, chip)
     record["streaming"] = streaming_phase(np, torch, P, k1, k2)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp_name:
         tmp = Path(tmp_name)
@@ -2862,7 +2961,8 @@ def main() -> int:
             launches_examples=record["entry"]["launches_examples"][1],
             launches_compiled=record["compiled"]["launches"][1],
             launches_streaming=record["streaming"]["launches"][1]),
-        {key: v for key, v in edge_entry.items() if key != "times_ms"}]
+        {key: v for key, v in edge_entry.items() if key != "times_ms"},
+        {key: v for key, v in heads_entry.items() if key != "times_ms"}]
     record.update({
         "main_path": {"shape": [BATCH, t_true], "bucket": t_main, "launches": launches,
                       "first_call_s": first_s, "api_ms": api_s * 1e3, "api_ms_all": [h * 1e3 for h in host]},

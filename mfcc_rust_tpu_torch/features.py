@@ -12,9 +12,10 @@ same product.  On a CUDA float32 tensor ``mfcc`` runs the fused kernel
 (``ops/cuda/speechpy_mfcc``) and ``mel_spectrogram_librosa`` the CT mel
 kernel (``ops/cuda/ct_mel``); everywhere else they run the plain paths,
 which the kernels are held against.  ``ssc``, ``extract`` and
-``mel_spectrogram`` have no kernel: their products run on cuBLAS, and on the
-speechpy chunk-GEMM path a small kernel (``ops/cuda/speechpy_edges``) writes
-each frame's DC and Nyquist terms, summed in float64, into the product.
+``mel_spectrogram`` run their wall products on cuBLAS; on the speechpy
+chunk-GEMM path a small kernel (``ops/cuda/speechpy_edges``) writes each
+frame's DC and Nyquist terms, summed in float64, into the product, and
+``extract``'s heads of it are one kernel (``ops/cuda/speechpy_heads``).
 
 ``consts`` (optional) is a dict of the chunk-GEMM constant tensors
 (:func:`_speechpy_tensors`); the pipelines pass their buffers through it.
@@ -90,6 +91,22 @@ def _edge_weights(cfg: FeatureConfig, device: torch.device) -> torch.Tensor:
                            dtype=torch.float64, device=device)
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies on a CUDA device, where the chunk-GEMM path's
+    kernels run."""
+    return t.is_cuda
+
+
+def _kernel_takes(cfg: FeatureConfig, y: torch.Tensor, *inputs: torch.Tensor) -> bool:
+    """Whether the chunk-GEMM path's kernels (the edge sums, the heads) take
+    the product ``y`` and the ``inputs`` it was made from: a contiguous
+    float32 ``y`` on a CUDA device, float32 inputs, ``cfg.pallas != "off"``,
+    no gradient recorded and no trace running."""
+    return (_on_card(y) and cfg.pallas != "off" and y.is_contiguous()
+            and all(t.dtype == torch.float32 for t in (y, *inputs)) and not _tracing()
+            and not (torch.is_grad_enabled() and any(t.requires_grad for t in (y, *inputs))))
+
+
 def _exact_edges(x: torch.Tensor, ch: torch.Tensor, y: torch.Tensor, cfg: FeatureConfig,
                  n_frames: int) -> torch.Tensor:
     """``y`` (:func:`_chunk_gemm` of the signal ``x``, cut into the chunks
@@ -99,12 +116,9 @@ def _exact_edges(x: torch.Tensor, ch: torch.Tensor, y: torch.Tensor, cfg: Featur
     the first speechpy filter weighs the DC bin alone, so on the rare frame
     where it nearly vanishes a float32 product's rounding reaches that band's
     log (and the MFCC through the DCT); the fused kernel sums both in float64
-    alike.  A CUDA float32 product takes the kernel
-    (``ops/cuda/speechpy_edges``) unless ``cfg.pallas == "off"``, a gradient
-    is recorded or a trace runs; everything else :func:`_exact_edges_plain`."""
-    if (y.is_cuda and x.dtype == y.dtype == torch.float32 and cfg.pallas != "off"
-            and y.is_contiguous() and not _tracing()
-            and not (torch.is_grad_enabled() and (x.requires_grad or y.requires_grad))):
+    alike.  Where :func:`_kernel_takes` the product, the kernel
+    (``ops/cuda/speechpy_edges``); everything else :func:`_exact_edges_plain`."""
+    if _kernel_takes(cfg, y, x):
         from .ops.cuda.speechpy_edges import edge_sums
 
         return edge_sums(x, y, cfg, n_frames)
@@ -668,8 +682,9 @@ def extract(signal: torch.Tensor, cfg: FeatureConfig, which: Tuple[str, ...] = (
     ``which`` ⊆ {"mfcc", "lmfe", "mfe", "ssc", "energy"}; returns a dict
     (``"mfe"`` maps to the (features, energies) pair of :func:`mfe`).  The
     chunk-GEMM, the Parseval energies and the log-mel run once and every
-    requested head reads them.  The ``mfcc`` head is the plain chunk-GEMM
-    path on every device: it never launches the fused kernel."""
+    requested head reads them (on a CUDA float32 signal, one launch of the
+    heads kernel: :func:`_extract_heads`).  The ``mfcc`` head is the
+    chunk-GEMM path on every device: it never launches the fused kernel."""
     unknown = set(which) - set(EXTRACT_HEADS)
     if unknown:
         raise ValueError(f"unknown features {sorted(unknown)}; valid: {sorted(EXTRACT_HEADS)}")
@@ -700,7 +715,23 @@ def _extract_heads(ch, y, c: dict, cfg: FeatureConfig, want, n_frames: int,
     """Every requested head of one chunk-GEMM product ``y`` of the chunks
     ``ch`` against ``c["wall"]`` (:func:`_speechpy_tensors`, whose wall
     always holds the Parseval columns): the body of :func:`extract`, and the
-    shard-local step of a data-parallel extraction."""
+    shard-local step of a data-parallel extraction.  Where
+    :func:`_kernel_takes` the product, as it takes the edge sums, and the
+    config fits the kernel (``heads_kernel_supported``), one launch of
+    ``ops/cuda/speechpy_heads`` writes every head; everything else
+    :func:`_extract_heads_plain`."""
+    if _kernel_takes(cfg, y, ch):
+        from .ops.cuda.speechpy_heads import heads, heads_kernel_supported
+
+        if heads_kernel_supported(cfg):
+            return heads(ch, y, cfg, want, n_frames, need_energy)
+    return _extract_heads_plain(ch, y, c, cfg, want, n_frames, need_energy)
+
+
+def _extract_heads_plain(ch, y, c: dict, cfg: FeatureConfig, want, n_frames: int,
+                         need_energy: bool) -> dict:
+    """:func:`_extract_heads` in plain PyTorch: the frame energies, the mel
+    and SSC projections as products, the logs and the DCT."""
     energies = _frame_energies(ch, y, c, cfg, n_frames) if need_energy else None
     mel = _mel_head(y, c, cfg) if want & {"mfcc", "lmfe", "mfe"} else None
     out = _mel_heads(mel, energies, c["dct"], cfg, want)

@@ -176,7 +176,7 @@ def test_cell_is_listed_on_one_chip_with_the_device_paced_rate():
     assert "setup_s" in e2e and len(e2e) == 2
     names = {m["name"] for m in c.per_layer}
     assert {"extract_roofline", "extract.products_us", "extract.elementwise_us",
-            "edge_sums_roofline", "graphs.glue_device_us"} <= names
+            "edge_sums_roofline", "graphs.glue_device_us", "extract.heads_kernel_share"} <= names
     for m in c.per_layer:
         assert m["moves"] in e2e, m["name"]
     for v in c.limits.values():
@@ -253,6 +253,30 @@ def test_the_trace_readers_split_a_calls_device_time():
     assert all(spec.metric(n).read(Ctx) is None
                for n in ("extract_roofline", "extract.products_us", "extract.elementwise_us",
                          "graphs.glue_device_us"))
+
+
+# ------------------------------------------------ the heads kernel's share --
+def test_heads_kernel_share_is_the_heads_launches_over_the_edge_launches(monkeypatch):
+    from mfcc_rust_tpu_torch.ops.cuda import speechpy_edges as ke
+    from mfcc_rust_tpu_torch.ops.cuda import speechpy_heads as kh
+
+    read = spec.metric("extract.heads_kernel_share").read
+    monkeypatch.setattr(ke.edge_sums, "launches", 0)
+    monkeypatch.setattr(kh.heads, "launches", 0)
+    assert read(None) is None  # no product made
+    ke.edge_sums.launches, kh.heads.launches = 8, 6
+    assert read(None) == 0.75
+    kh.heads.launches = 8
+    assert read(None) == 1.0
+
+
+def test_heads_kernel_share_reads_none_from_a_program_without_the_kernel(monkeypatch):
+    from mfcc_rust_tpu_torch.ops.cuda import speechpy_edges as ke
+
+    monkeypatch.setattr(ke.edge_sums, "launches", 5)
+    # as at a commit before the kernel: its module cannot be imported
+    monkeypatch.setitem(sys.modules, "mfcc_rust_tpu_torch.ops.cuda.speechpy_heads", None)
+    assert spec.metric("extract.heads_kernel_share").read(None) is None
 
 
 # ------------------------------------------ the float64 X_0 and X_{N/2} --
