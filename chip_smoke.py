@@ -84,6 +84,14 @@ launch count set to 0, failing unless the path's kernel launched:
   the same bucket, its five errors, its time, bound and share of HBM
   against the plain version's, its launches read from replayed ``extract``
   calls as the edge sums' are; its own entry in the kernels line;
+* whisper: Whisper's log-mel front end (``whisper_phase``) at the Whisper
+  cell's (64, 480,000), 128 mels: K2's launch plan at n_fft 400 (path 2),
+  K2 alone and the finish kernel ``whisper_logmel`` alone, each against its
+  plain version and timed with its share of HBM, the centre pad and the
+  whole ``api.log_mel_spectrogram_whisper`` call timed, its launches (K2
+  once, the finish's two kernels, the direct path) and its errors against
+  the plain path and the float64 reference; the finish's own entry in the
+  kernels line;
 * compiled: the CUDA-graph replay layer (``utils/graphs.py``,
   ``compiled_phase``): every ``api`` feature entry point and every
   pipeline class and ``FeatureExtractor`` at 48 x 10 s, 16 kHz, or 32 x
@@ -2695,6 +2703,115 @@ def heads_phase(np, torch, P, PF, flush, chip) -> dict:
             "bytes": nbytes, "hbm_share": hbm, "times_ms": times}
 
 
+W_ROWS, W_SAMPLES, W_MELS = 64, 480_000, 128  # the Whisper cell's batch of 30-s windows
+W_FINISH_TOL, W_PLAIN_TOL = 2e-6, 5e-4
+
+
+def whisper_phase(np, torch, P, PF, k2, flush, chip) -> dict:
+    """Whisper's log-mel front end (``api.log_mel_spectrogram_whisper``) at
+    the Whisper cell's (64, 480,000), 128 mels, rows of speech of lognormal
+    length with zero tails: K2's launch plan at n_fft 400 (path 2 is
+    asserted), K2 alone on the centre-padded batch and the finish alone
+    (``ops/cuda/whisper_logmel.cu``: the rows' maxima, then the finish) on
+    K2's output, each against its plain version (K2 1e-4 of max|ref|, the
+    finish 2e-6 in Whisper's units) and timed with CUDA events after an L2
+    flush and a device spin, 20 calls each, with its share of HBM on the
+    bytes one call must move (K2: the padded batch in, the (64, 3,001, 128)
+    power out; the finish: that power in, the (64, 128, 3,000) answer out)
+    and ``bound_ms``; the centre pad and the whole API call timed the same
+    way; the API call's launches (K2 once, the finish's two kernels) and its
+    errors against the plain path (``pallas="off"`` on the card, 5e-4) and
+    the float64 reference (``tests/golden/whisper_ref.py``).  Returns the
+    kernels line's entry of the finish and the phase's record."""
+    from mfcc_rust_tpu_torch import api as PA
+    from mfcc_rust_tpu_torch.ops import framing
+    from mfcc_rust_tpu_torch.ops.cuda import whisper_logmel as wl
+    from mfcc_rust_tpu_torch.utils import profiling as prof
+    from tests.golden import whisper_ref
+
+    dev = torch.device("cuda")
+    cfg = PA._whisper_cfg(W_MELS)
+    cu = cfg.replace(center=False)
+    rng = np.random.default_rng(23)
+    x = rng.normal(0.0, 0.1, (W_ROWS, W_SAMPLES)).astype(np.float32)
+    speech = np.clip(rng.lognormal(np.log(6.0), 0.6, W_ROWS), 1.0, 30.0)
+    for r, s in enumerate(speech):
+        x[r, int(s * RATE):] = 0.0
+    x = torch.from_numpy(x).to(dev)
+    xp = framing.center_pad(x, cfg)
+    frames = 1 + W_SAMPLES // cfg.frame_step
+    plan = k2.launch_plan(cu, W_ROWS, frames)
+    log(f"whisper: K2 launch plan at ({W_ROWS}, {xp.shape[-1]}), n_fft 400: {plan}")
+    assert plan["path"] == 2, ("K2 at n_fft 400 must take path 2", plan)
+
+    power = k2.ct_mel(xp, cu)
+    k2_rel, _ = rel_err(power, k2.ct_mel_plain(xp, cu))
+    assert tuple(power.shape) == (W_ROWS, frames, W_MELS) and k2_rel <= REL_TOL, k2_rel
+    got = wl.whisper_logmel(power)
+    fin_err = (got.double() - wl.whisper_logmel_plain(power).double()).abs().max().item()
+    assert tuple(got.shape) == (W_ROWS, W_MELS, frames - 1), tuple(got.shape)
+    assert fin_err <= W_FINISH_TOL, ("whisper finish off its plain twin", fin_err)
+
+    k2.ct_mel.launches = wl.whisper_logmel.launches = 0
+    direct0 = PA.paths.read()["direct"]
+    out = P.log_mel_spectrogram_whisper(x, n_mels=W_MELS)
+    torch.cuda.synchronize()
+    launches = {"k2": k2.ct_mel.launches, "finish": wl.whisper_logmel.launches,
+                "direct": PA.paths.read()["direct"] - direct0}
+    assert launches == {"k2": 1, "finish": 2, "direct": 1}, launches
+    assert out.is_contiguous() and tuple(out.shape) == (W_ROWS, W_MELS, frames - 1)
+    plain = PF.whisper_log_mel(x, cfg.replace(pallas="off"))
+    api_plain = (out.double() - plain.double()).abs().max().item()
+    ref64 = whisper_ref.log_mel_spectrogram(x, W_MELS)
+    api_ref = (out.double() - ref64).abs().max().item()
+    plain_ref = (plain.double() - ref64).abs().max().item()
+    del plain, ref64
+    log(f"whisper at ({W_ROWS}, {W_SAMPLES}), {W_MELS} mels: K2 vs plain rel {k2_rel:.3e}; "
+        f"finish vs plain {fin_err:.3e}; API vs plain path {api_plain:.3e}, vs float64 "
+        f"{api_ref:.3e} (plain path vs float64 {plain_ref:.3e}); launches {launches}")
+    assert api_plain <= W_PLAIN_TOL and api_ref <= W_PLAIN_TOL, (api_plain, api_ref)
+
+    runs = {"pad": lambda: framing.center_pad(x, cfg), "k2": lambda: k2.ct_mel(xp, cu),
+            "finish": lambda: wl.whisper_logmel(power),
+            "finish_plain": lambda: wl.whisper_logmel_plain(power),
+            "api": lambda: P.log_mel_spectrogram_whisper(x, n_mels=W_MELS)}
+    times = {name: [] for name in runs}
+    for order in (tuple(runs), tuple(reversed(tuple(runs)))):
+        for name in order:
+            times[name] += cuda_ms(torch, runs[name], 10, flush)
+    med = {name: statistics.median(v) for name, v in times.items()}
+    nnz = int(np.count_nonzero(whisper_ref.mel_filters(RATE, 400, W_MELS)))
+    n = cfg.fft_points
+    f_all = W_ROWS * frames
+    k2_bytes = 4 * W_ROWS * xp.shape[-1] + 4 * f_all * W_MELS
+    k2_flops = f_all * (n + 2.5 * n * math.log2(n) + 3 * (n // 2 + 1) + 2 * nnz)
+    fin_bytes = 4 * f_all * W_MELS + 4 * W_ROWS * W_MELS * (frames - 1)
+    fin_flops = 6 * W_ROWS * W_MELS * (frames - 1)
+    entries = {}
+    for name, flops, nbytes in (("k2", k2_flops, k2_bytes), ("finish", fin_flops, fin_bytes)):
+        bound_s, bound_by = prof.bound_seconds(flops, nbytes, chip)
+        entries[name] = {"ms": med[name], "bound_ms": 1e3 * bound_s, "bound_by": bound_by,
+                         "bytes": nbytes, "flops": flops,
+                         "hbm_share": nbytes / (med[name] * 1e-3) / (chip["hbm_gbs"] * 1e9),
+                         "roofline_share": 1e3 * bound_s / med[name]}
+    log("whisper times, median of 20 (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in med.items()))
+    for name, e in entries.items():
+        log(f"whisper {name}: {1e3 * e['ms']:.1f} us, {e['bytes'] / 1e6:.1f} MB, "
+            f"{100 * e['hbm_share']:.1f}% of HBM, bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
+            f"{100 * e['roofline_share']:.2f}% of its roofline")
+    entry = {"name": wl.KERNEL, "route": "cuda",
+             "source": "mfcc_rust_tpu_torch/ops/cuda/whisper_logmel.cu", "replaces": None,
+             "launches": launches["finish"], "max_err": fin_err, "ms": med["finish"],
+             "plain_ms": med["finish_plain"], "bound_ms": entries["finish"]["bound_ms"],
+             "bound_by": entries["finish"]["bound_by"], "bytes": fin_bytes,
+             "hbm_share": entries["finish"]["hbm_share"]}
+    record = {"plan": plan, "k2": entries["k2"], "finish": entries["finish"],
+              "median_ms": med, "times_ms": times, "launches": launches,
+              "errors": {"k2_rel": k2_rel, "finish": fin_err, "api_vs_plain": api_plain,
+                         "api_vs_float64": api_ref, "plain_vs_float64": plain_ref}}
+    return entry, record
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, help="directory for chip_smoke.json")
@@ -2727,10 +2844,11 @@ def main() -> int:
     # ---------------------------------------------------------------- build --
     t0 = time.perf_counter()
     from mfcc_rust_tpu_torch.ops.cuda import speechpy_heads as kh
+    from mfcc_rust_tpu_torch.ops.cuda import whisper_logmel as kw
 
-    logs = build.build([k1.KERNEL, k2.KERNEL, kh.KERNEL])
+    logs = build.build([k1.KERNEL, k2.KERNEL, kh.KERNEL, kw.KERNEL])
     record["build_s"] = time.perf_counter() - t0
-    log(f"build: {k1.KERNEL}, {k2.KERNEL}, {kh.KERNEL} in {record['build_s']:.3f} s")
+    log(f"build: {k1.KERNEL}, {k2.KERNEL}, {kh.KERNEL}, {kw.KERNEL} in {record['build_s']:.3f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "entry function")):
@@ -2929,6 +3047,7 @@ def main() -> int:
     record["suite"] = suite_phase(np, torch, P, k1, k2, flush)
     edge_entry = edges_phase(np, torch, P, PF, flush, chip)
     heads_entry = heads_phase(np, torch, P, PF, flush, chip)
+    whisper_entry, record["whisper"] = whisper_phase(np, torch, P, PF, k2, flush, chip)
     record["streaming"] = streaming_phase(np, torch, P, k1, k2)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp_name:
         tmp = Path(tmp_name)
@@ -2962,7 +3081,7 @@ def main() -> int:
             launches_compiled=record["compiled"]["launches"][1],
             launches_streaming=record["streaming"]["launches"][1]),
         {key: v for key, v in edge_entry.items() if key != "times_ms"},
-        {key: v for key, v in heads_entry.items() if key != "times_ms"}]
+        {key: v for key, v in heads_entry.items() if key != "times_ms"}, whisper_entry]
     record.update({
         "main_path": {"shape": [BATCH, t_true], "bucket": t_main, "launches": launches,
                       "first_call_s": first_s, "api_ms": api_s * 1e3, "api_ms_all": [h * 1e3 for h in host]},

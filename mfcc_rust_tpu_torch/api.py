@@ -34,8 +34,10 @@ caller's stream, reading the caller's signal where it lies at its true
 length (behind one launch of the centre pad, :func:`.ops.framing.center_pad`,
 for K2), into a fresh result of exactly the frames the call returns
 (:func:`_direct`, span ``api.direct``); ``bucket`` changes nothing there,
-as no frame it would add was ever returned.  :data:`paths` counts the calls
-of both families by the path each took.
+as no frame it would add was ever returned.  ``log_mel_spectrogram_whisper``
+takes the same path with K2, then the Whisper finish
+(``ops/cuda/whisper_logmel``).  :data:`paths` counts the calls of both
+families by the path each took.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from .ops import spectrum as _spectrum
 from .ops import stft as _stft
 from .ops.cuda import ct_mel as _k2
 from .ops.cuda import speechpy_mfcc as _k1
+from .ops.cuda import whisper_logmel as _wl
 from .utils import bucketing, graphs
 from .utils.bucketing import bucket_length
 from .utils.device import resolve_device
@@ -119,7 +122,7 @@ class PathCount:
     """Cumulative calls of the feature entry points of both families (those
     through :func:`_run` or :func:`_direct`) by the path each took:
     ``direct`` (one launch of K1, or the centre pad and one launch of K2,
-    on the caller's signal), ``graphed`` (through
+    and for Whisper the finish, on the caller's signal), ``graphed`` (through
     :data:`.utils.graphs.cache`) and ``eager``."""
 
     DIRECT, GRAPHED, EAGER = range(3)
@@ -487,3 +490,38 @@ def mfcc_librosa(y, sr=22050, n_mfcc=20, n_fft=2048, hop_length=512, n_mels=128,
         cfg = _librosa_cfg(sr, n_fft, hop_length, None, n_mels, n_mfcc, fmin, fmax, 2.0, center)
         out, n = _run(F.mfcc_librosa, y, cfg, bucket, device)
         return out[..., :_librosa_frames(cfg, n)]
+
+
+# ------------------------------------------------------------ Whisper API --
+@functools.lru_cache(maxsize=8)
+def _whisper_cfg(n_mels: int) -> FeatureConfig:
+    """Whisper's front end: 16 kHz, n_fft 400, hop 160, a periodic hann of
+    400, centred reflect pad, power 2, ``n_mels`` slaney mels (cached)."""
+    return librosa_config(16000, 400, 160, 400, n_mels)
+
+
+def _whisper_k2(sig: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """K2 on a centre-padded signal, then the Whisper finish:
+    (..., n_mels, frames - 1)."""
+    return _wl.whisper_logmel(_k2.ct_mel(sig, cfg))
+
+
+def log_mel_spectrogram_whisper(audio, n_mels=80, padding=0, bucket=True, device=None):
+    """Whisper's log-mel spectrogram (openai/whisper ``log_mel_spectrogram``;
+    the floor 8 decades below each row's own maximum, as transformers'
+    ``WhisperFeatureExtractor`` takes it for a batch): (..., n) float audio
+    at 16 kHz, ``padding`` zeros appended first, -> (..., n_mels, (n +
+    padding) // 160), float32, contiguous.  Where the mel power is the
+    centre pad and one launch of K2 (:func:`_k2_alone`) the call takes
+    :func:`_direct` with the finish kernel after K2; else the mel power
+    through :func:`_run` and :func:`.features.whisper_finish` of its true
+    frames (a bucket's frames must not enter the row's maximum)."""
+    with span("api.log_mel_spectrogram_whisper"):
+        cfg = _whisper_cfg(int(n_mels))
+        x, dev = torch.as_tensor(audio), resolve_device(device)
+        if padding:
+            x = torch.nn.functional.pad(x, (0, int(padding)))
+        if _k2_alone(cfg, x, dev) and _wl.whisper_logmel_supported(cfg):
+            return _direct(_whisper_k2, x, cfg, dev)
+        mel, n = _run(F.mel_spectrogram_librosa, x, cfg, bucket, dev)
+        return F.whisper_finish(mel[..., :_librosa_frames(cfg, n)])

@@ -658,6 +658,28 @@ def log_mel_spectrogram(signal: torch.Tensor, cfg: FeatureConfig, ref: float = 1
     return power_to_db(mel_spectrogram_librosa(signal, cfg), ref=ref, top_db=top_db)
 
 
+def whisper_finish(mel: torch.Tensor) -> torch.Tensor:
+    """Whisper's log-mel of a mel power spectrogram (..., M, F): the last
+    frame dropped, log10 of the power clamped at 1e-10, floored 8 decades
+    below the largest value of each spectrogram (the trailing two axes:
+    each row of a batch its own floor), then (x + 4) / 4; (..., M, F - 1),
+    contiguous.  The plain version of the kernel
+    ``ops/cuda/whisper_logmel.cu``."""
+    log = torch.log10(torch.clamp_min(mel[..., :-1], 1e-10))
+    if log.numel():
+        top = torch.amax(log, dim=(-2, -1), keepdim=True)
+        log = torch.maximum(log, top - 8.0)
+    return ((log + 4.0) / 4.0).contiguous()
+
+
+def whisper_log_mel(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """Whisper's log-mel spectrogram (openai/whisper ``log_mel_spectrogram``
+    on (..., T) signals; the maximum per row): :func:`whisper_finish` of
+    :func:`mel_spectrogram_librosa`, (..., n_mels, T // hop).  Build ``cfg``
+    as ``librosa_config(16000, 400, 160, 400, n_mels)``."""
+    return whisper_finish(mel_spectrogram_librosa(signal, cfg))
+
+
 def mfcc_librosa(signal: torch.Tensor, cfg: FeatureConfig,
                  consts: Optional[dict] = None) -> torch.Tensor:
     """librosa-compatible MFCC: DCT-II (ortho) over the log-mel,

@@ -118,13 +118,15 @@ _wrappers: list = []
 
 def _kernels() -> tuple:
     """The kernel wrappers whose launches a graph counts (K1, K2, the
-    speechpy edge sums, the speechpy heads): the modules' own, whatever a
-    check puts in their place meanwhile (it does so under :func:`disabled`)."""
+    speechpy edge sums, the speechpy heads, the Whisper finish): the
+    modules' own, whatever a check puts in their place meanwhile (it does so
+    under :func:`disabled`)."""
     if not _wrappers:
-        from ..ops.cuda import ct_mel, speechpy_edges, speechpy_heads, speechpy_mfcc
+        from ..ops.cuda import (ct_mel, speechpy_edges, speechpy_heads, speechpy_mfcc,
+                                whisper_logmel)
 
         _wrappers.extend((speechpy_mfcc.mfcc_fused, ct_mel.ct_mel, speechpy_edges.edge_sums,
-                          speechpy_heads.heads))
+                          speechpy_heads.heads, whisper_logmel.whisper_logmel))
     return tuple(_wrappers)
 
 
