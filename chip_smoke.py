@@ -85,13 +85,15 @@ launch count set to 0, failing unless the path's kernel launched:
   against the plain version's, its launches read from replayed ``extract``
   calls as the edge sums' are; its own entry in the kernels line;
 * whisper: Whisper's log-mel front end (``whisper_phase``) at the Whisper
-  cell's (64, 480,000), 128 mels: K2's launch plan at n_fft 400 (path 2),
-  K2 alone and the finish kernel ``whisper_logmel`` alone, each against its
-  plain version and timed with its share of HBM, the centre pad and the
-  whole ``api.log_mel_spectrogram_whisper`` call timed, its launches (K2
-  once, the finish's two kernels, the direct path) and its errors against
-  the plain path and the float64 reference; the finish's own entry in the
-  kernels line;
+  cell's (64, 480,000), 128 mels: K2's launch plan at n_fft 400 (path 3)
+  and its kernel's ptxas lines, K2 alone and the finish kernel
+  ``whisper_logmel`` alone, each against its plain version and timed
+  beside it with its share of HBM, K2 on path 1 at the librosa cells'
+  batches in the same turns, the centre pad and the whole
+  ``api.log_mel_spectrogram_whisper`` call timed, its launches (K2 once on
+  path 3, the finish's two kernels, the direct path) and its errors
+  against the plain path and the float64 reference; the finish's own entry
+  in the kernels line;
 * compiled: the CUDA-graph replay layer (``utils/graphs.py``,
   ``compiled_phase``): every ``api`` feature entry point and every
   pipeline class and ``FeatureExtractor`` at 48 x 10 s, 16 kHz, or 32 x
@@ -2707,22 +2709,38 @@ W_ROWS, W_SAMPLES, W_MELS = 64, 480_000, 128  # the Whisper cell's batch of 30-s
 W_FINISH_TOL, W_PLAIN_TOL = 2e-6, 5e-4
 
 
-def whisper_phase(np, torch, P, PF, k2, flush, chip) -> dict:
+def ptxas_lines(text: str, kernel: str) -> list:
+    """The ``-Xptxas -v`` lines (registers, spills, shared memory) of the
+    entry functions whose name holds ``kernel``, from an nvcc log."""
+    out, inside = [], False
+    for line in text.splitlines():
+        if "entry function" in line or "Function properties for" in line:
+            inside = kernel in line
+        if inside and any(w in line for w in ("registers", "spill", "smem", "stack")):
+            out.append(line.strip())
+    return out
+
+
+def whisper_phase(np, torch, P, PF, k2, flush, chip, k2_log: str = "") -> dict:
     """Whisper's log-mel front end (``api.log_mel_spectrogram_whisper``) at
     the Whisper cell's (64, 480,000), 128 mels, rows of speech of lognormal
-    length with zero tails: K2's launch plan at n_fft 400 (path 2 is
-    asserted), K2 alone on the centre-padded batch and the finish alone
+    length with zero tails: K2's launch plan at n_fft 400 (path 3, the 8 x 25
+    register FFT, is asserted, with the plan mirror's warps and bytes) and
+    the ptxas lines of its kernel ``ct_mel_fft200_kernel`` (from ``k2_log``,
+    K2's nvcc log), K2 alone on the centre-padded batch and the finish alone
     (``ops/cuda/whisper_logmel.cu``: the rows' maxima, then the finish) on
     K2's output, each against its plain version (K2 1e-4 of max|ref|, the
     finish 2e-6 in Whisper's units) and timed with CUDA events after an L2
-    flush and a device spin, 20 calls each, with its share of HBM on the
-    bytes one call must move (K2: the padded batch in, the (64, 3,001, 128)
-    power out; the finish: that power in, the (64, 128, 3,000) answer out)
-    and ``bound_ms``; the centre pad and the whole API call timed the same
-    way; the API call's launches (K2 once, the finish's two kernels) and its
-    errors against the plain path (``pallas="off"`` on the card, 5e-4) and
-    the float64 reference (``tests/golden/whisper_ref.py``).  Returns the
-    kernels line's entry of the finish and the phase's record."""
+    flush and a device spin, 20 calls each, beside their plain versions,
+    with its share of HBM on the bytes one call must move (K2: the padded
+    batch in, the (64, 3,001, 128) power out; the finish: that power in, the
+    (64, 128, 3,000) answer out) and ``bound_ms``; K2 again at the librosa
+    128 and librosa 80 cells' batches (path 1 asserted, timed in the same
+    turns); the centre pad and the whole API call timed the same way; the
+    API call's launches (K2 once, on path 3, the finish's two kernels) and
+    its errors against the plain path (``pallas="off"`` on the card, 5e-4)
+    and the float64 reference (``tests/golden/whisper_ref.py``).  Returns
+    the kernels line's entry of the finish and the phase's record."""
     from mfcc_rust_tpu_torch import api as PA
     from mfcc_rust_tpu_torch.ops import framing
     from mfcc_rust_tpu_torch.ops.cuda import whisper_logmel as wl
@@ -2742,7 +2760,14 @@ def whisper_phase(np, torch, P, PF, k2, flush, chip) -> dict:
     frames = 1 + W_SAMPLES // cfg.frame_step
     plan = k2.launch_plan(cu, W_ROWS, frames)
     log(f"whisper: K2 launch plan at ({W_ROWS}, {xp.shape[-1]}), n_fft 400: {plan}")
-    assert plan["path"] == 2, ("K2 at n_fft 400 must take path 2", plan)
+    _, _, wp, _, km = k2._kernel_constants(cu)
+    a = (cu.fft_points, cu.frame_step, km, wp.size, cu.num_filters)
+    assert plan["path"] == 3, ("K2 at n_fft 400 must take path 3", plan)
+    assert plan["warps"] == k2.fft_warps(*a) and plan["smem_bytes"] == k2.fft_smem_bytes(
+        *a, plan["warps"]), ("path-3 plan mirror", plan)
+    ptxas = ptxas_lines(k2_log, "ct_mel_fft200")
+    for line in ptxas:
+        log(f"whisper: ptxas ct_mel_fft200_kernel: {line}")
 
     power = k2.ct_mel(xp, cu)
     k2_rel, _ = rel_err(power, k2.ct_mel_plain(xp, cu))
@@ -2753,12 +2778,15 @@ def whisper_phase(np, torch, P, PF, k2, flush, chip) -> dict:
     assert fin_err <= W_FINISH_TOL, ("whisper finish off its plain twin", fin_err)
 
     k2.ct_mel.launches = wl.whisper_logmel.launches = 0
-    direct0 = PA.paths.read()["direct"]
+    direct0, paths0 = PA.paths.read()["direct"], k2.path_counts()
     out = P.log_mel_spectrogram_whisper(x, n_mels=W_MELS)
     torch.cuda.synchronize()
+    paths1 = k2.path_counts()
     launches = {"k2": k2.ct_mel.launches, "finish": wl.whisper_logmel.launches,
-                "direct": PA.paths.read()["direct"] - direct0}
-    assert launches == {"k2": 1, "finish": 2, "direct": 1}, launches
+                "direct": PA.paths.read()["direct"] - direct0,
+                "k2_by_path": {p: paths1[p] - paths0[p] for p in paths1}}
+    assert launches == {"k2": 1, "finish": 2, "direct": 1,
+                        "k2_by_path": {1: 0, 2: 0, 3: 1}}, launches
     assert out.is_contiguous() and tuple(out.shape) == (W_ROWS, W_MELS, frames - 1)
     plain = PF.whisper_log_mel(x, cfg.replace(pallas="off"))
     api_plain = (out.double() - plain.double()).abs().max().item()
@@ -2771,10 +2799,29 @@ def whisper_phase(np, torch, P, PF, k2, flush, chip) -> dict:
         f"{api_ref:.3e} (plain path vs float64 {plain_ref:.3e}); launches {launches}")
     assert api_plain <= W_PLAIN_TOL and api_ref <= W_PLAIN_TOL, (api_plain, api_ref)
 
+    # K2 at the librosa cells' batches, path 1, beside path 3
+    librosa = {}
+    for label, c, rows, samples in (
+            ("k2_librosa128", P.librosa_config(22050), 32, 220_500),
+            ("k2_librosa80", P.librosa_config(16000, n_fft=512, hop_length=160, n_mels=80),
+             64, 160_000)):
+        xl = framing.center_pad(torch.from_numpy(rng.normal(0.0, 0.1, (rows, samples))
+                                                 .astype(np.float32)).to(dev), c)
+        cl = c.replace(center=False)
+        before = k2.path_counts()
+        got_l = k2.ct_mel(xl, cl)
+        after = k2.path_counts()
+        assert {p: after[p] - before[p] for p in after} == {1: 1, 2: 0, 3: 0}, label
+        l_rel, _ = rel_err(got_l, k2.ct_mel_plain(xl, cl))
+        assert l_rel <= REL_TOL, (label, l_rel)
+        librosa[label] = (xl, cl, l_rel)
     runs = {"pad": lambda: framing.center_pad(x, cfg), "k2": lambda: k2.ct_mel(xp, cu),
+            "k2_plain": lambda: k2.ct_mel_plain(xp, cu),
             "finish": lambda: wl.whisper_logmel(power),
             "finish_plain": lambda: wl.whisper_logmel_plain(power),
             "api": lambda: P.log_mel_spectrogram_whisper(x, n_mels=W_MELS)}
+    for label, (xl, cl, _) in librosa.items():
+        runs[label] = lambda xl=xl, cl=cl: k2.ct_mel(xl, cl)
     times = {name: [] for name in runs}
     for order in (tuple(runs), tuple(reversed(tuple(runs)))):
         for name in order:
@@ -2795,6 +2842,11 @@ def whisper_phase(np, torch, P, PF, k2, flush, chip) -> dict:
                          "hbm_share": nbytes / (med[name] * 1e-3) / (chip["hbm_gbs"] * 1e9),
                          "roofline_share": 1e3 * bound_s / med[name]}
     log("whisper times, median of 20 (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in med.items()))
+    log(f"whisper: K2 path 3 {1e3 * med['k2']:.1f} us against its plain version "
+        f"{1e3 * med['k2_plain']:.1f} us ({med['k2_plain'] / med['k2']:.1f}x); path 1 at the "
+        f"librosa 128 / 80 cells' batches {1e3 * med['k2_librosa128']:.1f} / "
+        f"{1e3 * med['k2_librosa80']:.1f} us (rel {librosa['k2_librosa128'][2]:.2e} / "
+        f"{librosa['k2_librosa80'][2]:.2e})")
     for name, e in entries.items():
         log(f"whisper {name}: {1e3 * e['ms']:.1f} us, {e['bytes'] / 1e6:.1f} MB, "
             f"{100 * e['hbm_share']:.1f}% of HBM, bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
@@ -2805,10 +2857,11 @@ def whisper_phase(np, torch, P, PF, k2, flush, chip) -> dict:
              "plain_ms": med["finish_plain"], "bound_ms": entries["finish"]["bound_ms"],
              "bound_by": entries["finish"]["bound_by"], "bytes": fin_bytes,
              "hbm_share": entries["finish"]["hbm_share"]}
-    record = {"plan": plan, "k2": entries["k2"], "finish": entries["finish"],
+    record = {"plan": plan, "ptxas": ptxas, "k2": entries["k2"], "finish": entries["finish"],
               "median_ms": med, "times_ms": times, "launches": launches,
               "errors": {"k2_rel": k2_rel, "finish": fin_err, "api_vs_plain": api_plain,
-                         "api_vs_float64": api_ref, "plain_vs_float64": plain_ref}}
+                         "api_vs_float64": api_ref, "plain_vs_float64": plain_ref,
+                         **{f"{k}_rel": v[2] for k, v in librosa.items()}}}
     return entry, record
 
 
@@ -2857,7 +2910,8 @@ def main() -> int:
     lib2 = k2._lib()
     for mc in (P.librosa_config(22050), P.librosa_config(16000, n_fft=512, hop_length=160,
                                                          n_mels=80), P.librosa_config(16000, n_fft=768),
-               P.librosa_config(22050, hop_length=333), P.librosa_config(8000, n_fft=256, n_mels=40)):
+               P.librosa_config(22050, hop_length=333), P.librosa_config(8000, n_fft=256, n_mels=40),
+               P.librosa_config(16000, n_fft=400, hop_length=160, n_mels=128)):
         _, _, wp, _, km = k2._kernel_constants(mc)
         nnz = wp.size
         g = k2.frames_per_block(mc.fft_points, nnz)
@@ -2866,7 +2920,7 @@ def main() -> int:
         for warps in (1, 8):
             a = (mc.fft_points, mc.frame_step, km, nnz, mc.num_filters)
             assert lib2.ct_mel_fft_smem_bytes(*a, warps) == k2.fft_smem_bytes(*a, warps), \
-                ("ct_mel path-1 smem mirror", a, warps)
+                ("ct_mel path-1 / path-3 smem mirror", a, warps)
     for n in range(2, 4098, 2):
         for hop in (n // 4 or 1, 333, 4000):
             a = (n, hop, n // 2 + 1, n + 2, 128)
@@ -3047,7 +3101,8 @@ def main() -> int:
     record["suite"] = suite_phase(np, torch, P, k1, k2, flush)
     edge_entry = edges_phase(np, torch, P, PF, flush, chip)
     heads_entry = heads_phase(np, torch, P, PF, flush, chip)
-    whisper_entry, record["whisper"] = whisper_phase(np, torch, P, PF, k2, flush, chip)
+    whisper_entry, record["whisper"] = whisper_phase(np, torch, P, PF, k2, flush, chip,
+                                                     logs[k2.KERNEL])
     record["streaming"] = streaming_phase(np, torch, P, k1, k2)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp_name:
         tmp = Path(tmp_name)

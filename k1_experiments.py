@@ -24,7 +24,7 @@ K2 (``ct_mel.cu``) at the librosa headline, B = 32 x 277,632 samples, n_fft
 2048, hop 512, 128 mels (path 1, nc = 1024):
 
 * ``path 2``: the path choice returns 2 (v4's Stockham stages, G frames a
-  block);
+  block), at n_fft 400 too (not path 3);
 * ``shared split``: the last radix-32 pass writes Z to the exchange
   buffers and the real split reads Z[k] and Z[nc - k] from there (as
   below nc = 1024), in place of keeping Z in registers and taking the
@@ -38,7 +38,8 @@ K2 (``ct_mel.cu``) at the librosa headline, B = 32 x 277,632 samples, n_fft
 
 Then K2's path rule: the shipped build against ``path 2`` at n_fft 128,
 256, 512, 1024 and 2048 (librosa configs at 8, 16 and 22.05 kHz, 10 s
-clips).
+clips), and at Whisper's 400/160/128 on the Whisper cell's 64 rows of 30 s
+(path 3 against path 2).
 
 Every variant that computes the function is held to the plain version
 (max|Δ|/max|ref| printed; <= 1e-4 asserted for the shipped builds and the
@@ -78,13 +79,14 @@ EDITS["neither"] = EDITS["no FFT"] + EDITS["no epilogue"]
 CHECKED = ("shipped", "path 2", "float32 DC", "fast log", "16 lanes a frame")
 
 K2_PATH1 = "  if (!path1_size(n)) return 0;"  # path1_warps: no warps, so path 2
+K2_PATH3 = "  if (!path3_size(n)) return 0;"  # path3_warps: the same at n = 400
 K2_FFT = "      fft_regs<NC>(a, re, im, A.tw, lt, w1, w8);"
 K2_SPLIT = ("      // real split of bins k = lt + 32 j: Z[k] = a[j], Z[nc - k] by shuffle\n"
             "#pragma unroll\n      for (int j = 0; j < 32; ++j) {")
 K2_SPLIT_END = "      }\n      if (lt == 0 && A.kmax > NC) {"
 K2_MEL = "    if (f < A.F) {"
 K2_EDITS = {
-    "path 2": [(K2_PATH1, "  return 0;")],
+    "path 2": [(K2_PATH1, "  return 0;"), (K2_PATH3, "  return 0;")],
     "shared split": [
         ("    frame = nc == 1024 ? 2 * round4(xpad<1024>(nc)) : 2 * round4(pad8(nc)) + round4(kmax);",
          "    frame = 2 * round4(nc == 1024 ? xpad<1024>(nc) : pad8(nc)) + round4(kmax);"),
@@ -258,14 +260,17 @@ def main() -> int:
         print("K2", json.dumps(record["k2"]["median_ms"]), flush=True)
 
         # ---------------------------------------------- K2's path rule --
-        for label, c, rate, batch in (
-                ("128/32", P.librosa_config(8000, n_fft=128, hop_length=32, n_mels=20), 8000, 48),
-                ("256/64", P.librosa_config(8000, n_fft=256, n_mels=40), 8000, 48),
+        for label, c, rate, batch, secs in (
+                ("128/32", P.librosa_config(8000, n_fft=128, hop_length=32, n_mels=20), 8000, 48,
+                 10),
+                ("256/64", P.librosa_config(8000, n_fft=256, n_mels=40), 8000, 48, 10),
                 ("512/160/80", P.librosa_config(16000, n_fft=512, hop_length=160, n_mels=80),
-                 16000, 48),
-                ("1024/256", P.librosa_config(16000, n_fft=1024, hop_length=256), 16000, 48),
-                ("2048/512", P.librosa_config(22050), 22050, 32)):
-            au = rng.normal(0.0, 0.1, (batch, 10 * rate)).astype(np.float32)
+                 16000, 48, 10),
+                ("1024/256", P.librosa_config(16000, n_fft=1024, hop_length=256), 16000, 48, 10),
+                ("2048/512", P.librosa_config(22050), 22050, 32, 10),
+                ("400/160/128", P.librosa_config(16000, n_fft=400, hop_length=160, n_mels=128),
+                 16000, 64, 30)):
+            au = rng.normal(0.0, 0.1, (batch, secs * rate)).astype(np.float32)
             xr, cr = padded(au, c)
             refr = k2.ct_mel_plain(xr, cr)
             outr, runr = k2_runs(cr, xr, ["shipped", "path 2"])

@@ -17,7 +17,7 @@
 // four frames at hop 512) and 512 B written: ~1.1 GFLOP and ~44 MB a call,
 // so the operation bound (~0.017 ms) sits just above the byte bound.  What
 // the kernel waits on is the shared-memory and L1 data path (exchanges,
-// loads, the mel's reads) and the barriers between FFT steps.  Two paths:
+// loads, the mel's reads) and the barriers between FFT steps.  Three paths:
 //
 // * Path 1, nc a power of two from 64 to 1024 (n 128 ... 2048) whose tile
 //   fits: the register FFT of fft_regs.cuh, one warp a frame (TPF =
@@ -37,6 +37,23 @@
 //   The power of the kmax bins goes to shared memory, then each lane sums
 //   its filters over their packed ranges and writes (B, F, M) frame-major.
 //   The only block barriers are the two per tile around the slab.
+// * Path 3, n = 400 (Whisper's n_fft, nc = 200 = 8 x 25) whose tile fits:
+//   bytes bound it there (at 400/160/128 on 64 rows of 30 s, 2.0 GFLOP
+//   against 221 MB, 66 us).  Path 1's cp.async staging over tiles of
+//   kTileF3 = 32 frames, 8 lanes a frame and 4 frames a warp, so 8 warps
+//   hold a tile.
+//   The FFT is fft200 of fft_regs.cuh: each lane's 25 points through a
+//   5 x 5 DFT in registers with compile-time W_5 and W_25, the twiddles
+//   W_200^{lt k2} from a block table (2 lt k2 < 400: no modulo), then an
+//   8-point DFT across the lanes by three shuffle stages; the real split
+//   takes Z[nc - k] from the partner lane by shuffle and writes the power
+//   of a warp's 4 frames interleaved, so the mel (32 lanes on filters
+//   lane + 32 j) reads each weight once and a bin of the 4 frames as one
+//   float4.  Against path 2 at this size it drops the direct 25-point DFT
+//   stage (a 64-bit remainder, a division and a table read for each of 25
+//   terms of 200 outputs a frame), reads each sample from device memory
+//   once (not ~2.5 times at hop 160) and takes no block barrier inside a
+//   tile.
 // * Path 2, every other even n (768, 1280, 4096, ...), or a tile that does
 //   not fit: G frames a block, each frame's n samples read through the
 //   read-only cache, the Stockham stages of fft_stages.cuh in shared memory
@@ -45,7 +62,7 @@
 //
 // Operations first: the TPU kernel factors n = 128 x 16 to fill the MXU and
 // spends ~1 MFLOP a frame on twiddle-folded GEMMs whose 1.97 MB of constants
-// it keeps in VMEM; both paths here run an FFT (~20x fewer operations) from
+// it keeps in VMEM; every path here runs an FFT (~20x fewer operations) from
 // one n-entry table of roots of unity, and the mel sums only each filter's
 // nonzero bins (2*nnz operations, not 2*M*kmax).
 //
@@ -178,8 +195,44 @@ inline int path1_warps(int n, int hop, int kmax, int nnz, int m) {
   return most_warps([&](int w) { return Layout1(n, hop, kmax, nnz, m, w).total * 4; }, kMaxSmem);
 }
 
+// ------------------------------------------ path 3: n = 400, 8 x 25 points ----
+constexpr int kTileF3 = 32;  // frames of a path-3 tile: 8 warps of 4 frames
+
+inline bool path3_size(int n) { return n == 400; }
+
+// A warp's power spectra: bin k of its frame g at pw4[4 k + g], k < kmax <=
+// 201, so the mel reads a bin of the 4 frames as one float4, and the lanes
+// (k = k2 + 25 k1: 4 k + g = 4 k2 + 4 k1 + g mod 32) write 32 distinct banks.
+constexpr int kPw3 = 4 * 204;
+
+// Shared memory in floats: two slabs of a tile's (kTileF3-1)*hop + n
+// samples, the window, the tables tw1[8 k2 + lt] = W_200^{lt k2} and
+// tw2[8 k2 + lt] = W_n^{k2 + 25 rev3(lt)} (25 x 8 complex values each), the
+// packed weights, the ranges (ints), then each warp's 4 power spectra.
+struct Layout3 {
+  long long slab, win, tw1, tw2, wts, rng, warp, per_warp, total;
+  __host__ __device__ Layout3(int n, int hop, int kmax, int nnz, int m, int warps) {
+    slab = round4((long long)(kTileF3 - 1) * hop + n + 3);
+    win = 2 * slab;
+    tw1 = win + round4(n);
+    tw2 = tw1 + 2 * 25 * 8;
+    wts = tw2 + 2 * 25 * 8;
+    rng = wts + round4(nnz);
+    warp = rng + round4(3LL * m);
+    per_warp = kPw3;
+    total = warp + (long long)warps * per_warp;
+  }
+};
+
+// Path 3's warps a block, as path1_warps; 0 where n is not 400.
+inline int path3_warps(int n, int hop, int kmax, int nnz, int m) {
+  if (!path3_size(n)) return 0;
+  return most_warps([&](int w) { return Layout3(n, hop, kmax, nnz, m, w).total * 4; }, kMaxSmem);
+}
+
 inline int ct_path(int n, int hop, int kmax, int nnz, int m) {
-  return path1_warps(n, hop, kmax, nnz, m) ? 1 : 2;
+  if (path1_warps(n, hop, kmax, nnz, m)) return 1;
+  return path3_warps(n, hop, kmax, nnz, m) ? 3 : 2;
 }
 
 struct Args {
@@ -300,14 +353,132 @@ ct_mel_fft_kernel(const Args A) {
             });
 }
 
+// The frames of a path-3 tile: lanes 8 g .. 8 g + 7 of warp w take frames
+// w*4 + g, then every nw*4 further (kTileF3 is a multiple of nw*4, so every
+// lane of a warp runs as many frames).  Lane lt loads z[lt + 8 q], runs
+// fft200, then splits the bins k = k2 + 25 rev3(lt) by shuffles (Z[k] =
+// a[k2], Z[nc - k] from split_partner200, W_n^k = tw2[8 k2 + lt]) and writes
+// the power of those below kmax to the warp's spectra, pw4[4 k + g].  Then
+// the warp's 32 lanes sum the filters lane + 32 j over all 4 of its frames
+// at once: each weight and range is read once for the 4 frames, a bin of the
+// 4 as one float4, and each store writes 32 consecutive filters of one
+// frame.  Frames past F run on the slab's zeros and are not written.
+__device__ __forceinline__ void tile_path3(const Args& A, const float* slab, const float* win,
+                                           const float2* tw1, const float2* tw2, float* pw4,
+                                           const float* wts, const int* rng, int f0,
+                                           float* out_row, int warp, int lane, int nw) {
+  const int g = lane >> 3;
+  const int lt = lane & 7;
+  // the lane stages' twiddles, 1 on a lower lane: W_8^{lt & 3} and W_4^{lt & 1}
+  const float c = 0.70710678118654752f;
+  const int j8 = (lt & 4) ? (lt & 3) : 0;
+  const float2 w8 = j8 == 0 ? make_float2(1.f, 0.f)
+                  : j8 == 1 ? make_float2(c, c)
+                  : j8 == 2 ? make_float2(0.f, 1.f)
+                            : make_float2(-c, c);
+  const float2 w4 = (lt & 3) == 3 ? make_float2(0.f, 1.f) : make_float2(1.f, 0.f);
+  const int k1 = rev3(lt);
+  const int src0 = rev3(-k1 & 7);
+  const float2* win2 = reinterpret_cast<const float2*>(win);
+  for (int s = warp * 4 + g; s < kTileF3; s += nw * 4) {
+    const float* x = slab + s * A.hop;
+    float2 a[25];
+    if (((uintptr_t)x & 7) == 0) {  // the frame starts on an even offset
+      const float2* x2 = reinterpret_cast<const float2*>(x);
+#pragma unroll
+      for (int q = 0; q < 25; ++q) {
+        const float2 v = x2[lt + 8 * q], w = win2[lt + 8 * q];
+        a[q] = make_float2(v.x * w.x, v.y * w.y);
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 25; ++q) {
+        const int t = lt + 8 * q;
+        const float2 w = win2[t];
+        a[q] = make_float2(x[2 * t] * w.x, x[2 * t + 1] * w.y);
+      }
+    }
+    fft200(a, tw1, lt, w8, w4);
+#pragma unroll
+    for (int k2 = 0; k2 < 25; ++k2) {
+      const float2 zk = a[k2];
+      const float2 zm = split_partner200(a, k2, lt, src0);
+      const float2 e = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
+      const float2 o = make_float2(0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
+      const float2 X = fft::cadd(e, fft::cmulw(o, tw2[8 * k2 + lt]));
+      const int k = k2 + 25 * k1;
+      if (k < A.kmax) pw4[4 * k + g] = fmaf(X.x, X.x, X.y * X.y);
+    }
+    if (lt == 0 && A.kmax > 200) {  // X_{nc} = Re Z[0] - Im Z[0]
+      const float X = a[0].x - a[0].y;
+      pw4[4 * 200 + g] = X * X;
+    }
+    __syncwarp();
+    const int f = f0 + s - g;  // the warp's first frame of this round
+    for (int m = lane; m < A.M; m += 32) {
+      const int lo = rng[3 * m], hi = rng[3 * m + 1];
+      const float* w = wts + rng[3 * m + 2] - lo;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int k = lo; k < hi; ++k) {
+        const float wk = w[k];
+        const float4 p = reinterpret_cast<const float4*>(pw4)[k];
+        acc[0] = fmaf(wk, p.x, acc[0]);
+        acc[1] = fmaf(wk, p.y, acc[1]);
+        acc[2] = fmaf(wk, p.z, acc[2]);
+        acc[3] = fmaf(wk, p.w, acc[3]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (f + i < A.F) out_row[(long long)(f + i) * A.M + m] = acc[i];
+    }
+    __syncwarp();
+  }
+}
+
+// Path 3: the persistent tile loop over tiles of kTileF3 frames, at n = 400.
+__global__ void __launch_bounds__(kMaxWarps * 32, 2) ct_mel_fft200_kernel(const Args A) {
+  extern __shared__ __align__(16) float smem[];
+  const int nw = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const Layout3 lay(A.n, A.hop, A.kmax, A.nnz, A.M, nw);
+  float* win = smem + lay.win;
+  float2* tw1 = reinterpret_cast<float2*>(smem + lay.tw1);
+  float2* tw2 = reinterpret_cast<float2*>(smem + lay.tw2);
+  float* wts = smem + lay.wts;
+  int* rng = reinterpret_cast<int*>(smem + lay.rng);
+  float* pw4 = smem + lay.warp + warp * lay.per_warp;
+  for (int i = threadIdx.x; i < A.n; i += blockDim.x) win[i] = __ldg(A.win + i);
+  for (int i = threadIdx.x; i < 25 * 8; i += blockDim.x) {
+    const int k2 = i >> 3, lt = i & 7;
+    tw1[i] = __ldg(A.tw + 2 * lt * k2);         // W_n^{2 lt k2}, 2 lt k2 <= 336
+    tw2[i] = __ldg(A.tw + k2 + 25 * rev3(lt));  // k2 + 25 k1 <= 199
+  }
+  for (int i = threadIdx.x; i < A.nnz; i += blockDim.x) wts[i] = __ldg(A.wpack + i);
+  for (int i = threadIdx.x; i < 3 * A.M; i += blockDim.x) rng[i] = __ldg(A.ranges + i);
+  tile_loop(smem, lay.slab, A.sig, A.T, A.n_tiles, A.tiles_per_row, kTileF3, A.hop,
+            (kTileF3 - 1) * A.hop + A.n, [&](const float* slab, long long b, int f0) {
+              tile_path3(A, slab, win, tw1, tw2, pw4, wts, rng, f0, A.out + b * A.F * A.M, warp,
+                         lane, nw);
+            });
+}
+
 // ------------------------------------------------------------ host side ----
-// Launch shape.  Path 1: path1_warps warps, a persistent grid of every
-// resident block.  Path 2: 256 threads, G frames a block, one block per G
-// frames.  The occupancy query behind blocks_per_sm runs once per shape
-// (residency in fft_regs.cuh).
+// Launch shape.  Paths 1 and 3: path1_warps (path3_warps) warps, a
+// persistent grid of every resident block.  Path 2: 256 threads, G frames a
+// block, one block per G frames.  The occupancy query behind blocks_per_sm
+// runs once per shape (residency in fft_regs.cuh).
 cudaError_t make_plan(Plan& p, int n, int hop, int kmax, int nnz, int m, int B, int F, int G) {
   p.warps = path1_warps(n, hop, kmax, nnz, m);
-  p.path = p.warps ? 1 : 2;
+  p.path = 1;
+  if (!p.warps) {
+    p.warps = path3_warps(n, hop, kmax, nnz, m);
+    p.path = p.warps ? 3 : 2;
+  }
+  if (p.path == 3) {
+    p.smem = Layout3(n, hop, kmax, nnz, m, p.warps).total * (long long)sizeof(float);
+    return persistent_grid(p, ct_mel_fft200_kernel, (long long)B * ((F + kTileF3 - 1) / kTileF3));
+  }
   if (p.path == 2) {
     p.warps = kThreads / 32;
     p.smem = Layout(n, G, nnz).total * (long long)sizeof(float);
@@ -340,9 +511,11 @@ extern "C" long long ct_mel_smem_bytes(int n, int g, int nnz) {
   return Layout(n, g, nnz).total * (long long)sizeof(float);
 }
 
-// Path 1's shared memory for a block of warps.
+// Path 1's (path 3's at n = 400) shared memory for a block of warps.
 extern "C" long long ct_mel_fft_smem_bytes(int n, int hop, int kmax, int nnz, int m, int warps) {
-  return Layout1(n, hop, kmax, nnz, m, warps).total * (long long)sizeof(float);
+  const long long floats = path3_size(n) ? Layout3(n, hop, kmax, nnz, m, warps).total
+                                         : Layout1(n, hop, kmax, nnz, m, warps).total;
+  return floats * (long long)sizeof(float);
 }
 
 extern "C" int ct_mel_path(int n, int hop, int kmax, int nnz, int m) {
@@ -404,13 +577,18 @@ extern "C" int ct_mel_launch(const float* sig, const float* win, const float* tw
   A.out = out;
   A.T = T;
   A.F = F;
-  A.tiles_per_row = (F + kTileF - 1) / kTileF;
+  const int tile_f = p.path == 3 ? kTileF3 : kTileF;
+  A.tiles_per_row = (F + tile_f - 1) / tile_f;
   A.n_tiles = (long long)B * A.tiles_per_row;
   A.hop = hop;
   A.n = n;
   A.kmax = kmax;
   A.nnz = nnz;
   A.M = M;
+  if (p.path == 3) {
+    ct_mel_fft200_kernel<<<(unsigned)p.grid, p.warps * 32, (size_t)p.smem, st>>>(A);
+    return (int)cudaGetLastError();
+  }
   switch (n / 2) {
     case 64: return (int)launch1<64>(A, p, st);
     case 128: return (int)launch1<128>(A, p, st);

@@ -7,19 +7,31 @@ launch that reads the (centre-padded) signal and writes only the
 (B, F, n_mels) answer, frame-major.  The kernel takes its own
 factorization (see the note in the .cu source): path 1, a warp-per-frame
 register FFT over cp.async-staged tiles (``fft_regs.cuh``), when n/2 is a
-power of two from 64 to 1024 and the tile fits; path 2, the radix-4
-Stockham stages of ``fft_stages.cuh`` with G frames a block, for every
-other even n.
+power of two from 64 to 1024 and the tile fits; path 3, at Whisper's n =
+400 (n/2 = 200 = 8 x 25) where its tile fits, the same tile loop over
+32-frame tiles with 8 lanes a frame: a 25-point DFT in each lane's
+registers (5 x 5, compile-time constants), the W_200 twiddles from a table
+with no modulo, an 8-point DFT across the lanes by shuffles, and the mel of
+a warp's 4 frames at once, in place of path 2's direct 25-point DFT stage
+(a remainder, a division and a table read a term), its ~2.5 reads of each
+sample and its block barriers between stages; bytes bound it there; path
+2, the radix-4 Stockham stages of ``fft_stages.cuh`` with G frames a
+block, for every other even n.
 
 :func:`ct_mel` launches the kernel for a CUDA tensor and runs
 :func:`ct_mel_plain` for a CPU tensor; it never falls back from one to the
-other.  ``ct_mel.launches`` counts kernel launches.
+other.  ``ct_mel.launches`` counts kernel launches, and the module's
+``path_launches[p].launches`` those that took path p (1, 2, 3), kept off
+the wrapper so that a check which swaps the wrapper leaves them in place;
+:func:`path_counts` reads them.  ``utils/graphs.py`` re-adds both per
+replay.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import types
 from typing import Optional, Tuple
 
 import numpy as np
@@ -33,8 +45,8 @@ from ..framing import center_pad
 
 KERNEL = "ct_mel"
 
-# ct_mel.cu: kMaxSmem and path 1's kTileF
-_MAX_SMEM, _TILE_F = 232448, 16
+# ct_mel.cu: kMaxSmem, path 1's kTileF, path 3's kTileF3 and kPw3
+_MAX_SMEM, _TILE_F, _TILE_F3, _PW3 = 232448, 16, 32, 4 * 204
 
 _round4 = lambda x: -(-x // 4) * 4
 
@@ -75,8 +87,16 @@ def fft_smem_bytes(n: int, hop: int, kmax: int, nnz: int, m: int, warps: int) ->
     + n samples, the window, the packed weights and ranges, then per frame
     of each warp the re and im exchange buffers (one float skipped every 32
     points at n/2 = 1024, every 8 below) and the power spectrum (which
-    reuses re at n/2 = 1024); a frame has min(32, n/16) lanes."""
+    reuses re at n/2 = 1024); a frame has min(32, n/16) lanes.  At n = 400,
+    path 3's (``Layout3``): two slabs of (32 - 1) * hop + n samples, the
+    window, two tables of 25 x 8 complex twiddles, the weights and ranges,
+    then each warp's power spectra of its 4 frames, interleaved (bin k of
+    frame g at 4 k + g, k < kmax <= 201: ``kPw3`` = 816 floats)."""
     nc = n // 2
+    if n == 400:
+        slab = _round4((_TILE_F3 - 1) * hop + n + 3)
+        return 4 * (2 * slab + _round4(n) + 2 * 2 * 25 * 8 + _round4(nnz) + _round4(3 * m)
+                    + warps * _PW3)
     slab = _round4((_TILE_F - 1) * hop + n + 3)
     if nc == 1024:
         frame = 2 * _round4(nc + nc // 32)
@@ -87,11 +107,12 @@ def fft_smem_bytes(n: int, hop: int, kmax: int, nnz: int, m: int, warps: int) ->
 
 
 def fft_warps(n: int, hop: int, kmax: int, nnz: int, m: int) -> int:
-    """Path 1's warps a block (``path1_warps`` in the .cu): the most of 8,
-    4, 2, 1 whose block fits; 0 where n/2 is no power of two from 64 to
-    1024 or not even one warp fits, and then the kernel takes path 2."""
+    """Path 1's warps a block (``path1_warps`` in the .cu), or path 3's at n
+    = 400 (``path3_warps``): the most of 8, 4, 2, 1 whose block fits; 0
+    where n/2 is neither a power of two from 64 to 1024 nor 200, or not even
+    one warp fits, and then the kernel takes path 2."""
     nc = n // 2
-    if n % 2 or not 64 <= nc <= 1024 or nc & (nc - 1):
+    if n != 400 and (n % 2 or not 64 <= nc <= 1024 or nc & (nc - 1)):
         return 0
     for w in (8, 4, 2, 1):
         if fft_smem_bytes(n, hop, kmax, nnz, m, w) <= _MAX_SMEM:
@@ -100,11 +121,15 @@ def fft_warps(n: int, hop: int, kmax: int, nnz: int, m: int) -> int:
 
 
 def fft_path(n: int, hop: int, kmax: int, nnz: int, m: int) -> int:
-    """The kernel's path (``ct_path`` in the .cu): 1, the register FFT,
-    where path 1 has warps; else 2, the Stockham stages."""
-    return 1 if fft_warps(n, hop, kmax, nnz, m) else 2
+    """The kernel's path (``ct_path`` in the .cu) where :func:`fft_warps`
+    gives warps: 3, the 8 x 25 register FFT, at n = 400, else 1, the
+    power-of-two register FFT; without warps 2, the Stockham stages."""
+    if not fft_warps(n, hop, kmax, nnz, m):
+        return 2
+    return 3 if n == 400 else 1
 
 
+@functools.lru_cache(maxsize=16)
 def path_for(cfg: FeatureConfig) -> int:
     """The kernel's path for a supported config."""
     _, _, wpack, _, kmax = _kernel_constants(cfg)
@@ -260,7 +285,15 @@ def ct_mel(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
         err = _launch(lib, x, cfg, out, torch.cuda.current_stream().cuda_stream)
     _check(lib, err, "ct_mel_launch")
     ct_mel.launches += 1
+    path_launches[path_for(cfg)].launches += 1
     return out.reshape(lead + out.shape[1:])
 
 
 ct_mel.launches = 0
+# launches by path, each counted as a wrapper's ``.launches`` is
+path_launches = {p: types.SimpleNamespace(launches=0) for p in (1, 2, 3)}
+
+
+def path_counts() -> dict:
+    """K2's launches by path: {1: .., 2: .., 3: ..}."""
+    return {p: c.launches for p, c in path_launches.items()}

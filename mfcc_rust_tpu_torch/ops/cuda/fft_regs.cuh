@@ -19,6 +19,10 @@
 //
 // Twiddles elsewhere come from one n = 2 nc entry table tw[j] = (cos, sin)
 // (2 pi j / n), standing for W_n^j = cos - i sin, through the read-only cache.
+//
+// fft200 transforms nc = 200 (K2 at n 400), 8 lanes a frame: a 25-point
+// DFT in each lane's registers, then an 8-point DFT across the lanes by
+// shuffles (its note is below).
 
 #pragma once
 
@@ -233,6 +237,119 @@ __device__ __forceinline__ void fft_regs(float2 (&a)[P1<NC>::P], float* re, floa
     }
     __syncwarp();
   }
+}
+
+// ------------------------------------------- nc = 200: 8 lanes x 25 points ----
+// fft200 transforms nc = 200 = 8 * 25 points (K2 at n 400) as a four-step
+// FFT, 8 lanes a frame, 4 frames a warp.  Lane lt holds z[lt + 8 q] in
+// a[q], q < 25.  With k = k2 + 25 k1, Z[k] = sum_lt W_8^{lt k1} W_200^{lt
+// k2} sum_q z[lt + 8 q] W_25^{q k2}:
+// 1. each lane's 25-point DFT in registers, as 5 x 5 (dft25: W_5 and W_25
+//    are compile-time constants);
+// 2. a[k2] *= W_200^{lt k2}, from the block's table tw1[8 k2 + lt];
+// 3. for every k2 the 8-point DFT across the frame's lanes: three radix-2
+//    stages by shuffle (dft8_lanes), no block or warp barrier.
+// Afterwards lane lt holds Z[k2 + 25 rev3(lt)] in a[k2].  Every butterfly
+// runs on all 8 lanes at once, and no index needs a modulo.
+
+__host__ __device__ constexpr int rev3(int x) { return ((x & 1) << 2) | (x & 2) | (x >> 2); }
+
+// W_25^j = (cos, sin)(2 pi j / 25) for a j known at compile time, j <= 16
+__device__ __forceinline__ float2 w25(int j) {
+  constexpr float c[17] = {1.0f, 0.968583167f, 0.876306653f, 0.72896862f, 0.535826802f,
+                           0.309017003f, 0.0627905205f, -0.187381312f, -0.425779283f,
+                           -0.637423992f, -0.809017003f, -0.92977649f, -0.992114723f,
+                           -0.992114723f, -0.92977649f, -0.809017003f, -0.637423992f};
+  constexpr float s[17] = {0.0f, 0.24868989f, 0.481753677f, 0.684547126f, 0.844327927f,
+                           0.95105654f, 0.998026729f, 0.982287228f, 0.904827058f,
+                           0.770513237f, 0.587785244f, 0.368124545f, 0.125333235f,
+                           -0.125333235f, -0.368124545f, -0.587785244f, -0.770513237f};
+  return make_float2(c[j], s[j]);
+}
+
+// in-place 5-point DFT, natural order in and out: with t1 = x1 + x4,
+// t2 = x2 + x3, t3 = x1 - x4, t4 = x2 - x3,
+// X1,4 = x0 + c1 t1 + c2 t2 -+ i (s1 t3 + s2 t4) and
+// X2,3 = x0 + c2 t1 + c1 t2 -+ i (s2 t3 - s1 t4)
+__device__ __forceinline__ void dft5(float2& x0, float2& x1, float2& x2, float2& x3, float2& x4) {
+  constexpr float c1 = 0.309017003f, c2 = -0.809017003f, s1 = 0.95105654f, s2 = 0.587785244f;
+  const float2 t1 = fft::cadd(x1, x4), t2 = fft::cadd(x2, x3);
+  const float2 t3 = fft::csub(x1, x4), t4 = fft::csub(x2, x3);
+  const float2 m1 = make_float2(fmaf(c2, t2.x, fmaf(c1, t1.x, x0.x)),
+                                fmaf(c2, t2.y, fmaf(c1, t1.y, x0.y)));
+  const float2 m2 = make_float2(fmaf(c1, t2.x, fmaf(c2, t1.x, x0.x)),
+                                fmaf(c1, t2.y, fmaf(c2, t1.y, x0.y)));
+  const float2 u1 = make_float2(fmaf(s1, t3.x, s2 * t4.x), fmaf(s1, t3.y, s2 * t4.y));
+  const float2 u2 = make_float2(fmaf(s2, t3.x, -s1 * t4.x), fmaf(s2, t3.y, -s1 * t4.y));
+  x0 = make_float2(x0.x + t1.x + t2.x, x0.y + t1.y + t2.y);
+  x1 = make_float2(m1.x + u1.y, m1.y - u1.x);  // m1 - i u1
+  x4 = make_float2(m1.x - u1.y, m1.y + u1.x);  // m1 + i u1
+  x2 = make_float2(m2.x + u2.y, m2.y - u2.x);
+  x3 = make_float2(m2.x - u2.y, m2.y + u2.x);
+}
+
+// in-place 25-point DFT, natural order in and out: q = q2 + 5 q1 and
+// k = k1 + 5 k2, five 5-point DFTs over q1, the twiddles W_25^{q2 k1}, then
+// five over q2
+__device__ __forceinline__ void dft25(float2 (&a)[25]) {
+#pragma unroll
+  for (int q2 = 0; q2 < 5; ++q2) dft5(a[q2], a[q2 + 5], a[q2 + 10], a[q2 + 15], a[q2 + 20]);
+#pragma unroll
+  for (int q2 = 1; q2 < 5; ++q2)
+#pragma unroll
+    for (int k1 = 1; k1 < 5; ++k1) a[q2 + 5 * k1] = fft::cmulw(a[q2 + 5 * k1], w25(q2 * k1));
+  float2 y[25];
+#pragma unroll
+  for (int k1 = 0; k1 < 5; ++k1) {
+    float2 v[5] = {a[5 * k1], a[5 * k1 + 1], a[5 * k1 + 2], a[5 * k1 + 3], a[5 * k1 + 4]};
+    dft5(v[0], v[1], v[2], v[3], v[4]);
+#pragma unroll
+    for (int k2 = 0; k2 < 5; ++k2) y[k1 + 5 * k2] = v[k2];
+  }
+#pragma unroll
+  for (int k = 0; k < 25; ++k) a[k] = y[k];
+}
+
+// The 8-point DFT over the frame's 8 lanes for each of the 25 registers,
+// decimation in frequency: at lane mask 4, 2 and 1 the lower lane keeps
+// a + b and the upper lane (a - b) W, with W = W_8^{lt & 3} (w8) after
+// mask 4 and W_4^{lt & 1} (w4) after mask 2, both 1 on a lower lane.
+// Lane lt ends with the output rev3(lt).
+__device__ __forceinline__ void dft8_lanes(float2 (&a)[25], int lt, float2 w8, float2 w4) {
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    const int mask = 4 >> s;
+    const float sgn = (lt & mask) ? -1.f : 1.f;
+#pragma unroll
+    for (int k = 0; k < 25; ++k) {
+      const float px = __shfl_xor_sync(0xffffffffu, a[k].x, mask);
+      const float py = __shfl_xor_sync(0xffffffffu, a[k].y, mask);
+      const float2 v = make_float2(fmaf(sgn, a[k].x, px), fmaf(sgn, a[k].y, py));
+      a[k] = s == 2 ? v : fft::cmulw(v, s == 0 ? w8 : w4);
+    }
+  }
+}
+
+// nc = 200 as above; tw1[8 k2 + lt] = W_200^{lt k2}.  Lane lt ends with
+// Z[k2 + 25 rev3(lt)] in a[k2].
+__device__ __forceinline__ void fft200(float2 (&a)[25], const float2* tw1, int lt, float2 w8,
+                                       float2 w4) {
+  dft25(a);
+#pragma unroll
+  for (int k2 = 1; k2 < 25; ++k2) a[k2] = fft::cmulw(a[k2], tw1[8 * k2 + lt]);
+  dft8_lanes(a, lt, w8, w4);
+}
+
+// Z[nc - k] for k = k2 + 25 rev3(lt) after fft200 (k2 known at compile
+// time), by one shuffle a component: for k2 > 0 it sits in lane lt ^ 7 at
+// register 25 - k2, for k2 = 0 in lane src0 = rev3(-rev3(lt) & 7) at
+// register 0 (Z[0] itself on lane 0).
+__device__ __forceinline__ float2 split_partner200(const float2 (&a)[25], int k2, int lt, int src0) {
+  if (k2 == 0)
+    return make_float2(__shfl_sync(0xffffffffu, a[0].x, src0, 8),
+                       __shfl_sync(0xffffffffu, a[0].y, src0, 8));
+  return make_float2(__shfl_xor_sync(0xffffffffu, a[25 - k2].x, 7),
+                     __shfl_xor_sync(0xffffffffu, a[25 - k2].y, 7));
 }
 
 // ------------------------------------------------------------- cp.async ----

@@ -59,10 +59,10 @@ it ``graphs.capture`` (a first call: fill, warm-up and recording) or
 ``graphs.fill``, ``graphs.replay`` and ``graphs.copy_out``; they record
 only while :func:`.profiling.spans` is open or a profiler runs.
 
-Launch counts: each kernel wrapper counts its launches (``.launches``).  A
-capture runs the wrappers but launches nothing, so its counts are taken
-back and kept with the graph; each replay adds them, as many as the device
-performs.
+Launch counts: each kernel wrapper counts its launches (``.launches``), and
+K2 its launches by path too.  A capture runs the wrappers but launches
+nothing, so its counts are taken back and kept with the graph; each replay
+adds them, as many as the device performs.
 """
 
 from __future__ import annotations
@@ -118,15 +118,17 @@ _wrappers: list = []
 
 def _kernels() -> tuple:
     """The kernel wrappers whose launches a graph counts (K1, K2, the
-    speechpy edge sums, the speechpy heads, the Whisper finish): the
-    modules' own, whatever a check puts in their place meanwhile (it does so
-    under :func:`disabled`)."""
+    speechpy edge sums, the speechpy heads, the Whisper finish), then K2's
+    launches by path (``ct_mel``'s ``path_launches``, 1, 2, 3): the modules' own,
+    whatever a check puts in their place meanwhile (it does so under
+    :func:`disabled`)."""
     if not _wrappers:
         from ..ops.cuda import (ct_mel, speechpy_edges, speechpy_heads, speechpy_mfcc,
                                 whisper_logmel)
 
         _wrappers.extend((speechpy_mfcc.mfcc_fused, ct_mel.ct_mel, speechpy_edges.edge_sums,
-                          speechpy_heads.heads, whisper_logmel.whisper_logmel))
+                          speechpy_heads.heads, whisper_logmel.whisper_logmel,
+                          *ct_mel.path_launches.values()))
     return tuple(_wrappers)
 
 

@@ -318,8 +318,9 @@ def bound_seconds(flops: float, nbytes: float, spec: Optional[dict] = None) -> t
 
 # ------------------------------------------------------- kernel work counts --
 # operations of fft_regs.cuh's dft<R>: the halves, the W_R^k products that
-# are not 1 or -i (6 each), the butterflies (4 each)
-DFT_OPS = {2: 4.0, 4: 16.0, 8: 56.0, 16: 180.0, 32: 508.0}
+# are not 1 or -i (6 each), the butterflies (4 each); of its dft5: 20 adds,
+# 12 multiply-adds and 4 products
+DFT_OPS = {2: 4.0, 4: 16.0, 5: 48.0, 8: 56.0, 16: 180.0, 32: 508.0}
 
 
 def k2_work_stockham(cfg: FeatureConfig, batch: int, t: int) -> tuple:
@@ -356,17 +357,26 @@ def k2_work(cfg: FeatureConfig, batch: int, t: int) -> tuple:
     (every input after the first pass times its twiddle; at nc = 1024 the 31
     products a lane that make the last pass's twiddles, and W_n^k of the
     split as a product of two), the real split and power of the kmax bins,
-    and the projection over each filter's nonzero bins.  Bytes as path 2's.
-    A design's count is not the least the function needs: :func:`work`'s
-    ``least_flops`` takes the least of this and the Stockham count."""
+    and the projection over each filter's nonzero bins; path 3 the window,
+    on each of 8 lanes ten 5-point DFTs, 16 W_25 and 24 W_200 twiddles and
+    three lane stages over 25 points (two multiply-adds, then a twiddle but
+    after the last), the split, power and projection as path 1's.  Bytes as
+    path 2's.  A design's count is not the least the function needs:
+    :func:`work`'s ``least_flops`` takes the least of this and the
+    Stockham count."""
     from ..ops.cuda import ct_mel as k2
 
-    if k2.path_for(cfg) == 2:
+    path = k2.path_for(cfg)
+    if path == 2:
         return k2_work_stockham(cfg, batch, t)
     n, hop = cfg.fft_points, cfg.frame_step
     nc = n // 2
     _, _, wpack, _, kmax = k2._kernel_constants(cfg)
     frames = batch * max(1 + (t - n) // hop, 0)
+    if path == 3:
+        lane = 10 * DFT_OPS[5] + 6.0 * (16 + 24) + 25 * (4.0 + 6.0 + 4.0 + 6.0 + 4.0)
+        per_frame = n + 8 * lane + 19.0 * kmax + 2.0 * wpack.size
+        return frames * per_frame, k2_work_stockham(cfg, batch, t)[1]
     radices = (32, 32) if nc == 1024 else (8, 8) + ((nc // 64,) if nc > 64 else ())
     per_frame, ns = float(n), 1
     for radix in radices:

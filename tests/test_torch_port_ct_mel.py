@@ -93,6 +93,7 @@ SUPPORT = [
     ("1280/320", dict(sample_rate=16000, n_fft=1280)),
     ("4096/1024", dict(sample_rate=44100, n_fft=4096)),
     ("384/128, no TPU factorization", dict(sample_rate=16000, n_fft=384, hop_length=128)),
+    ("400/160/128 Whisper", dict(sample_rate=16000, n_fft=400, hop_length=160, n_mels=128)),
     ("power 1", dict(sample_rate=22050, power=1.0)),
 ]
 
@@ -111,8 +112,9 @@ def test_support_covers_the_tpu_kernel(name, kw):
         assert 1 <= g <= 8 and pk.smem_bytes(pcfg.fft_points, g, nnz) <= 232448
         args = (pcfg.fft_points, pcfg.frame_step, kmax, nnz, pcfg.num_filters)
         nc = pcfg.fft_points // 2
-        assert pk.path_for(pcfg) == (1 if nc in (64, 128, 256, 512, 1024) else 2), name
-        if pk.path_for(pcfg) == 1:
+        want = 1 if nc in (64, 128, 256, 512, 1024) else 3 if nc == 200 else 2
+        assert pk.path_for(pcfg) == want, name
+        if want in (1, 3):
             w = pk.fft_warps(*args)
             assert w == 8 and pk.fft_smem_bytes(*args, w) <= 232448, name
     assert pk.ct_mel_supported(pcfg) == (pcfg.power == 2.0)

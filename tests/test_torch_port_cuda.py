@@ -252,7 +252,8 @@ def test_ct_mel_wrapper_refuses_float64_on_card(cuda_device):
 
 # (name, librosa_config args, kwargs, input shape, the kernel's path):
 # path 1 (register FFT, n/2 a power of two to 1024) at the librosa headline
-# and the sizes and hops around it, path 2 (Stockham stages) elsewhere
+# and the sizes and hops around it, path 3 (the 8 x 25 register FFT) at
+# Whisper's n_fft 400, path 2 (Stockham stages) elsewhere
 K2_PATHS = [
     ("2048/512 headline", (22050,), {}, (32, 220500), 1),
     ("1024/256", (16000,), dict(n_fft=1024, hop_length=256), (2, 16000), 1),
@@ -260,6 +261,9 @@ K2_PATHS = [
     ("256/64", (8000,), dict(n_fft=256, n_mels=40), (2, 8000), 1),
     ("2048/100", (22050,), dict(hop_length=100), (2, 16000), 1),
     ("2048/333 odd hop", (22050,), dict(hop_length=333), (2, 16001), 1),
+    ("400/160/128 Whisper", (16000,), dict(n_fft=400, hop_length=160, n_mels=128),
+     (3, 16000), 3),
+    ("400/161 odd hop", (16000,), dict(n_fft=400, hop_length=161, n_mels=80), (2, 16001), 3),
     ("768/192", (16000,), dict(n_fft=768, n_mels=64), (2, 16000), 2),
     ("1280/320", (16000,), dict(n_fft=1280), (2, 16000), 2),
     ("4096/1024", (44100,), dict(n_fft=4096), (2, 30000), 2),
@@ -284,10 +288,12 @@ def test_ct_mel_paths_on_card(cuda_device, name, args, kw, shape, path):
     assert ck.path_for(cfg) == path, name
     plan = ck.launch_plan(cfg, int(np.prod(xd.shape[:-1])), frames)
     assert plan["path"] == path and plan["grid"] >= 1, (name, plan)
-    before = ck.ct_mel.launches
+    before, paths = ck.ct_mel.launches, ck.path_counts()
     out = ck.ct_mel(xd, cfg)
     torch.cuda.synchronize()
     assert ck.ct_mel.launches == before + 1, name
+    after = ck.path_counts()
+    assert {p: after[p] - paths[p] for p in after} == {p: int(p == path) for p in after}, name
     assert out.shape == xd.shape[:-1] + (frames, cfg.num_filters)
     assert rel(out, ck.ct_mel_plain(xd, cfg)) <= 1e-4, name
 
@@ -822,8 +828,10 @@ def test_launches_are_counted_per_replay_on_card(graph_cache):
     # api.mfcc and api.mel_spectrogram_librosa launch in place: no graph of them
     assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == (2, 4)
     g = list(graphs.cache._graphs.values())
-    # (K1, K2, the edge sums, the heads, the Whisper finish) a replay
-    assert sorted(e.launches for e in g) == [(0, 0, 1, 1, 0), (0, 1, 0, 0, 0)]
+    # (K1, K2, the edge sums, the heads, the Whisper finish, then K2 by path
+    # 1, 2, 3) a replay
+    assert sorted(e.launches for e in g) == [(0, 0, 1, 1, 0, 0, 0, 0),
+                                             (0, 1, 0, 0, 0, 1, 0, 0)]
 
 
 @pytest.mark.cuda

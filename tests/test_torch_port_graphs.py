@@ -339,28 +339,34 @@ def test_tensor_cache_is_safe_across_threads():
 def test_launches_count_per_replay_and_captures_count_none(replayed):
     """A capture's counts are taken back and added per replay: the first
     call counts its warm-up's launch, each later call its replay's: K1's,
-    K2's, the speechpy edge sums', the speechpy heads' and the Whisper
-    finish's counters alike."""
+    K2's (and K2's by path), the speechpy edge sums', the speechpy heads'
+    and the Whisper finish's counters alike."""
     def fn(s):
         k1.mfcc_fused.launches += 1  # as the wrapper counts a launch
         ke.edge_sums.launches += 2
         kh.heads.launches += 3
         kw.whisper_logmel.launches += 2
+        k2.ct_mel.launches += 1
+        k2.path_launches[3].launches += 1
         return s * 2.0
 
     k1.mfcc_fused.launches = k2.ct_mel.launches = ke.edge_sums.launches = kh.heads.launches = 0
     kw.whisper_logmel.launches = 0
+    for c in k2.path_launches.values():
+        c.launches = 0
     x = torch.ones(4)
     for calls in (1, 2, 3):
         out = _run(("double",), fn, x)
         assert torch.equal(out, torch.full((4,), 2.0))
         assert (k1.mfcc_fused.launches, k2.ct_mel.launches, ke.edge_sums.launches,
-                kh.heads.launches, kw.whisper_logmel.launches) == (calls, 0, 2 * calls,
+                kh.heads.launches, kw.whisper_logmel.launches) == (calls, calls, 2 * calls,
                                                                    3 * calls, 2 * calls)
+        assert k2.path_counts() == {1: 0, 2: 0, 3: calls}
     (g,) = replayed._graphs.values()
-    assert g.launches == (1, 0, 2, 3, 2) and g.graph.replays == 2
-    k1.mfcc_fused.launches = ke.edge_sums.launches = kh.heads.launches = 0
+    assert g.launches == (1, 1, 2, 3, 2, 0, 0, 1) and g.graph.replays == 2
+    k1.mfcc_fused.launches = k2.ct_mel.launches = ke.edge_sums.launches = kh.heads.launches = 0
     kw.whisper_logmel.launches = 0
+    k2.path_launches[3].launches = 0
 
 
 def test_a_failed_capture_raises_and_keeps_nothing(replayed):

@@ -10,7 +10,13 @@ split, the staging of a tile and the even/odd frame starts) against
 ``np.fft``, and a float64 emulation of path 1's whole function against the
 plain version ``ct_mel_plain`` at max|Δ|/max|ref| <= 1e-5 (float32 plain
 code against float64), next to the JAX Pallas kernel ``ct_mel_pallas`` in
-interpret mode (as ``tests/test_pallas.py`` runs it) at 1e-5."""
+interpret mode (as ``tests/test_pallas.py`` runs it) at 1e-5.  Path 3 (n =
+400, nc = 200 = 8 x 25, ``fft200`` of ``fft_regs.cuh``) likewise: its
+lanes' points, the 5 x 5 DFT with the kernel's float32 constants, the
+W_200 table indices, the three shuffle stages across 8 lanes, the split's
+partner lane and register, the banks of the power buffers, its plan at
+Whisper's hop and its whole function against ``ct_mel_plain`` (the JAX
+kernel takes no n_fft 400)."""
 
 import dataclasses
 
@@ -49,25 +55,28 @@ def rel(a, ref):
 
 def test_path_and_plan_for_every_even_fft_size():
     """Path 1 exactly when n/2 is a power of two from 64 to 1024 (and the
-    tile fits), with eight warps a block at the librosa hops; path 2 for
-    every other even n, with G frames a block; a hop too long for path 1's
-    tile sends n to path 2."""
+    tile fits), with eight warps a block at the librosa hops; path 3 exactly
+    at n = 400 (its tile fits), eight warps too; path 2 for every other even
+    n, with G frames a block; a hop too long for path 1's or path 3's tile
+    sends n to path 2."""
     seen = set()
     for n in range(64, 4097, 2):
         nc, kmax, m_ = n // 2, n // 2 + 1, 128
         nnz, hop = 2 * kmax, max(n // 4, 1)
         path = pk.fft_path(n, hop, kmax, nnz, m_)
-        want = 1 if nc in (64, 128, 256, 512, 1024) else 2
+        want = 1 if nc in (64, 128, 256, 512, 1024) else 3 if n == 400 else 2
         assert path == want, n
-        if path == 1:
+        if path in (1, 3):
             assert pk.fft_warps(n, hop, kmax, nnz, m_) == 8, n
             assert pk.fft_smem_bytes(n, hop, kmax, nnz, m_, 8) <= 232448, n
         else:
+            assert pk.fft_warps(n, hop, kmax, nnz, m_) == 0, n
             g = pk.frames_per_block(n, nnz)
             assert 1 <= g <= 8 and pk.smem_bytes(n, g, nnz) <= 232448, n
         seen.add(path)
-    assert seen == {1, 2}
+    assert seen == {1, 2, 3}
     assert pk.fft_path(2048, 8000, 1025, 2050, 128) == 2  # a slab of 122 k floats
+    assert pk.fft_path(400, 2000, 201, 402, 128) == 2  # a path-3 slab of 62 k floats
     # the librosa headline: one block of eight warps, 163,248 bytes
     cfg = P.librosa_config(22050)
     _, _, wpack, _, kmax = pk._kernel_constants(cfg)
@@ -309,3 +318,163 @@ def test_path1_form_matches_plain_and_jax_kernel(name, kw, shape, with_jax):
         assert jk.pallas_ct_supported(jcfg), name
         ref = np.asarray(jk.ct_mel_pallas(jnp.asarray(x), jcfg, interpret=True))
         assert rel(form, ref) <= 1e-5, name
+
+
+# ------------------------------------------------- path 3: nc = 200 = 8 x 25 --
+_F32 = lambda v: float(np.float32(v))
+
+
+def _w25(j):
+    """w25 of fft_regs.cuh as the complex value W_25^j (float32 constants)."""
+    return complex(_F32(np.cos(2 * np.pi * j / 25)), -_F32(np.sin(2 * np.pi * j / 25)))
+
+
+def _dft5(x):
+    """dft5 of fft_regs.cuh over the last axis (t1 = x1 + x4, t2 = x2 + x3,
+    t3 = x1 - x4, t4 = x2 - x3 and its float32 c1, c2, s1, s2)."""
+    c1, c2 = _F32(np.cos(2 * np.pi / 5)), _F32(np.cos(4 * np.pi / 5))
+    s1, s2 = _F32(np.sin(2 * np.pi / 5)), _F32(np.sin(4 * np.pi / 5))
+    x0, x1, x2, x3, x4 = (x[..., i] for i in range(5))
+    t1, t2, t3, t4 = x1 + x4, x2 + x3, x1 - x4, x2 - x3
+    m1, m2 = x0 + c1 * t1 + c2 * t2, x0 + c2 * t1 + c1 * t2
+    u1, u2 = s1 * t3 + s2 * t4, s2 * t3 - s1 * t4
+    return np.stack([x0 + t1 + t2, m1 - 1j * u1, m2 - 1j * u2, m2 + 1j * u2, m1 + 1j * u1],
+                    axis=-1)
+
+
+def _dft25(a):
+    """dft25: q = q2 + 5 q1, the DFTs over q1, W_25^{q2 k1}, the DFTs over
+    q2; out in natural order k = k1 + 5 k2."""
+    b = _dft5(a.reshape(a.shape[:-1] + (5, 5)).swapaxes(-1, -2))  # [..., q2, k1]
+    b = b * np.array([[_w25(q2 * k1) for k1 in range(5)] for q2 in range(5)])
+    y = _dft5(b.swapaxes(-1, -2))  # [..., k1, k2]
+    return y.swapaxes(-1, -2).reshape(a.shape)  # index k1 + 5 k2
+
+
+def _rev3(x):
+    return ((x & 1) << 2) | (x & 2) | (x >> 2)
+
+
+def _lane_twiddles():
+    """w8 and w4 of tile_path3 for lanes 0..7: W_8^{lt & 3} on lanes with
+    bit 2, W_4^{lt & 1} on lanes with bit 1, else 1."""
+    lt = np.arange(8)
+    w8 = np.where(lt & 4, np.exp(-2j * np.pi * (lt & 3) / 8), 1)
+    w4 = np.where(lt & 2, np.exp(-2j * np.pi * (lt & 1) / 4), 1)
+    return w8, w4
+
+
+def _fft200(z):
+    """fft200 of fft_regs.cuh on z (..., 200): lane lt holds z[lt + 8 q] in
+    a[q]; dft25, the twiddles tw1[8 k2 + lt] = tw[2 lt k2], then dft8_lanes:
+    at masks 4, 2, 1 each lane takes its partner's register (lane ^ mask),
+    the lower lane keeps a + p, the upper p - a, times its stage twiddle.
+    Returns a (..., lane, k2)."""
+    n = 400
+    tw = np.exp(-2j * np.pi * np.arange(n) / n)
+    lt = np.arange(8)
+    a = _dft25(z[..., lt[:, None] + 8 * np.arange(25)[None, :]])
+    idx = 2 * lt[:, None] * np.arange(25)[None, :]
+    assert idx.max() < n  # no modulo
+    a = a * tw[idx]
+    w8, w4 = _lane_twiddles()
+    for mask, w in ((4, w8), (2, w4), (1, np.ones(8))):
+        p = a[..., lt ^ mask, :]
+        upper = (lt & mask)[:, None] != 0
+        a = np.where(upper, p - a, a + p) * w[:, None]
+    return a
+
+
+def test_path3_fft_index_algebra_matches_numpy():
+    """Lane lt holds the points lt + 8 q, each lane's 5 x 5 DFT is its
+    25-point DFT, and after the W_200 twiddles and the lane stages lane lt
+    holds Z[k2 + 25 rev3(lt)] in a[k2]: every bin once."""
+    rng = np.random.default_rng(200)
+    z = rng.normal(size=(3, 200)) + 1j * rng.normal(size=(3, 200))
+    want = np.fft.fft(z, axis=-1)
+    v = z[..., :25]
+    np.testing.assert_allclose(_dft25(v), np.fft.fft(v, axis=-1), atol=1e-6 * np.abs(v).sum())
+    a = _fft200(z)
+    k = np.arange(25)[None, :] + 25 * np.array([_rev3(i) for i in range(8)])[:, None]
+    assert sorted(k.ravel()) == list(range(200))
+    np.testing.assert_allclose(a, want[..., k], rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+def test_path3_split_partner_tables_and_banks():
+    """For k = k2 + 25 rev3(lt), Z[(200 - k) % 200] sits in lane lt ^ 7 at
+    register 25 - k2 (k2 > 0) or in lane rev3(-rev3(lt) & 7) at register 0;
+    tw2[8 k2 + lt] = W_400^k with k < 200; and the power writes of a warp
+    (bin k of frame g at 4 k + g, lanes at k = k2 + 25 rev3(lt)) hit 32
+    distinct banks for every k2, the 4 x 201 bins of n = 400 fitting kPw3."""
+    rng = np.random.default_rng(201)
+    z = rng.normal(size=200) + 1j * rng.normal(size=200)
+    zf = np.fft.fft(z)
+    a = _fft200(z)
+    tol = 1e-6 * np.abs(zf).max()
+    tw = np.exp(-2j * np.pi * np.arange(400) / 400)
+    for lt in range(8):
+        k1 = _rev3(lt)
+        for k2 in range(25):
+            kk = k2 + 25 * k1
+            src, reg = (lt ^ 7, 25 - k2) if k2 else (_rev3(-k1 & 7), 0)
+            np.testing.assert_allclose(a[src, reg], zf[(200 - kk) % 200], atol=tol)
+            assert kk < 200 and abs(tw[kk] - np.exp(-2j * np.pi * kk / 400)) < 1e-12
+    assert pk._PW3 >= 4 * 201 and pk._PW3 % 4 == 0
+    for k2 in range(25):
+        banks = {(4 * (k2 + 25 * _rev3(lt)) + g) % 32 for g in range(4) for lt in range(8)}
+        assert len(banks) == 32, k2
+
+
+def test_path3_plan_at_whisper_hop():
+    """n = 400 at hop 160 takes path 3 with 8 warps in at most 232,448
+    bytes (two blocks an SM), Layout3's sum; a 32-frame tile gives each warp
+    of 8, 4, 2 or 1 whole rounds of 4 frames, every frame to one lane
+    group."""
+    for m in (80, 128):
+        cfg = P.librosa_config(16000, n_fft=400, hop_length=160, n_mels=m)
+        _, _, wpack, _, kmax = pk._kernel_constants(cfg)
+        args = (400, 160, kmax, wpack.size, m)
+        assert (kmax, pk.path_for(cfg), pk.fft_path(*args), pk.fft_warps(*args)) == (200, 3, 3, 8)
+        slab = -(-(31 * 160 + 400 + 3) // 4) * 4
+        want = 4 * (2 * slab + 400 + 800 + -(-wpack.size // 4) * 4 + -(-3 * m // 4) * 4
+                    + 8 * 816)
+        assert pk.fft_smem_bytes(*args, 8) == want and 2 * want <= 232448, m
+    for nw in (8, 4, 2, 1):
+        seen = [s for w in range(nw) for g in range(4) for s in range(w * 4 + g, 32, nw * 4)]
+        assert sorted(seen) == list(range(32))
+        rounds = {len(range(w * 4 + g, 32, nw * 4)) for w in range(nw) for g in range(4)}
+        assert rounds == {32 // (4 * nw)}
+
+
+def _path3_form(x, cfg):
+    """float64 numpy of path 3's function on x (B, T) uncentred: frames,
+    the window, z = xw[2t] + i xw[2t+1], the mirrored fft200, the split from
+    the lanes' registers with W_400^k, |X|^2 of the kmax bins and each
+    filter's packed range."""
+    n, hop = cfg.fft_points, cfg.frame_step
+    win, tw, wpack, ranges, kmax = pk._kernel_constants(cfg)
+    f = max(1 + (x.shape[-1] - n) // hop, 0)
+    frames = np.stack([x[:, i * hop:i * hop + n] for i in range(f)], axis=1) * win
+    a = _fft200(frames[..., 0::2] + 1j * frames[..., 1::2])
+    z = np.empty(a.shape[:-2] + (200,), complex)
+    for lt in range(8):
+        z[..., np.arange(25) + 25 * _rev3(lt)] = a[..., lt, :]
+    k = np.arange(kmax)
+    zk, zm = z[..., k % 200], np.conj(z[..., (200 - k) % 200])
+    w = tw[:, 0].astype(np.float64) - 1j * tw[:, 1].astype(np.float64)
+    pw = np.abs(0.5 * (zk + zm) - 0.5j * (zk - zm) * w[k]) ** 2
+    if kmax > 200:
+        pw[..., 200] = (z[..., 0].real - z[..., 0].imag) ** 2
+    return np.stack([pw[..., lo:hi] @ wpack[off:off + hi - lo].astype(np.float64)
+                     for lo, hi, off in ranges], axis=-1)
+
+
+@pytest.mark.parametrize("m,shape,hop", [(128, (2, 9000), 160), (80, (1, 7001), 160),
+                                         (128, (1, 5003), 161)],
+                         ids=["400/160/128", "400/160/80", "400/161 odd hop"])
+def test_path3_form_matches_plain(m, shape, hop):
+    cfg = P.librosa_config(16000, n_fft=400, hop_length=hop, n_mels=m).replace(center=False)
+    assert pk.path_for(cfg) == 3
+    x = np.random.default_rng(42).normal(0, 0.1, shape).astype(np.float32)
+    plain = pk.ct_mel_plain(torch.from_numpy(x), cfg).numpy()
+    assert rel(_path3_form(x.astype(np.float64), cfg), plain) <= 1e-5

@@ -200,11 +200,13 @@ def test_the_maximum_is_split_into_parts_of_whole_float4s(kept):
     assert chunk >= min(wl.PART_FLOATS, -(-kept // 4) * 4)
 
 
-def test_whisper_configs_take_k2_path_2_and_the_finish():
+def test_whisper_configs_take_k2_path_3_and_the_finish():
     for n_mels in (80, 128):
         cfg = PA._whisper_cfg(n_mels)
         assert cfg == _cfg(n_mels) and PA._whisper_cfg(n_mels) is cfg
-        assert ck.fft_plan(400) == (25, 1, 1) and ck.path_for(cfg) == 2
+        assert ck.fft_plan(400) == (25, 1, 1) and ck.path_for(cfg) == 3
+        _, _, wpack, _, kmax = ck._kernel_constants(cfg)
+        assert ck.fft_warps(400, 160, kmax, wpack.size, n_mels) == 8
         assert ck.frames_per_block(400, ck._kernel_constants(cfg)[2].size) == 8
         assert wl.whisper_logmel_supported(cfg)
     assert not wl.whisper_logmel_supported(_cfg(80).replace(power=1.0))

@@ -1,6 +1,7 @@
 """Whisper's log-mel front end on the card: the finish kernels
 (``ops/cuda/whisper_logmel.cu``) against their plain twin, K2's plan at
-n_fft 400, and ``api.log_mel_spectrogram_whisper``'s direct path.
+n_fft 400 (path 3, the 8 x 25 register FFT) and K2 there against its plain
+version, and ``api.log_mel_spectrogram_whisper``'s direct path.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports no JAX:
@@ -12,8 +13,12 @@ in max|Δ| of Whisper's output units ((log10 + 4) / 4, |value| <= 2.75
 where the power is at most 1e3): the card's ``log10f`` and the plain
 version's log10 may differ by an ulp or two of the log, and the rest is the
 same float32 arithmetic in the same order.  The API answer against the
-plain path on the CPU: the CPU tests' 5e-4 at 128 mels (the plain path's
-float32 DFT product)."""
+plain path on the CPU and against the float64 reference
+(``tests/golden/whisper_ref.py``): the CPU tests' 5e-4 at 128 mels (the
+plain path's float32 DFT product).  K2 against ``ct_mel_plain``:
+max|Δ|/max|ref| <= 1e-4, the tolerance its path-2 cases have in
+``tests/test_torch_port_cuda.py`` (an FFT against the plain version's
+factored product, both float32)."""
 
 import numpy as np
 import pytest
@@ -24,9 +29,11 @@ from mfcc_rust_tpu_torch import api as PA
 from mfcc_rust_tpu_torch import features as PF
 from mfcc_rust_tpu_torch.ops.cuda import ct_mel as ck
 from mfcc_rust_tpu_torch.ops.cuda import whisper_logmel as wl
+from tests.golden import whisper_ref
 
 KERNEL_TOL = 2e-6
 PLAIN_TOL = 5e-4
+K2_TOL = 1e-4
 
 
 @pytest.fixture
@@ -106,16 +113,53 @@ def test_finish_kernel_keeps_nan_where_the_plain_twin_does_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_k2_takes_path_2_at_n_fft_400_on_card(cuda_device):
+def test_k2_takes_path_3_at_n_fft_400_on_card(cuda_device):
     for n_mels in (80, 128):
         cfg = PA._whisper_cfg(n_mels)
+        _, _, wpack, _, kmax = ck._kernel_constants(cfg)
+        args = (400, 160, kmax, wpack.size, n_mels)
         plan = ck.launch_plan(cfg, 64, 3001)
-        assert plan["path"] == 2, plan
-        assert plan["grid"] > 0 and plan["blocks_per_sm"] > 0, plan
+        assert plan["path"] == 3 and plan["warps"] == ck.fft_warps(*args) == 8, plan
+        assert plan["smem_bytes"] == ck.fft_smem_bytes(*args, 8), plan
+        assert plan["blocks_per_sm"] >= 1 and 1 <= plan["grid"] <= 64 * 94, plan
+
+
+def _rel(a, ref):
+    a, ref = a.detach().double().cpu(), ref.detach().double().cpu()
+    assert a.shape == ref.shape, (a.shape, ref.shape)
+    return (a - ref).abs().max().item() / ref.abs().max().item() if ref.numel() else 0.0
+
+
+# (name, rows, samples, n_mels): the cell's shape, 3 rows, a frame count
+# that is no multiple of the 32-frame tile, a row shorter than one tile,
+# an odd row length, 80 mels
+K2_SHAPES = [("cell 64x480000", 64, 480_000, 128), ("3 rows", 3, 48_000, 128),
+             ("ragged tile", 2, 160 * 45 + 77, 128), ("short row", 1, 160 * 9, 128),
+             ("odd length", 2, 16_001, 80), ("80 mels", 5, 32_000, 80)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,rows,samples,n_mels", K2_SHAPES, ids=[c[0] for c in K2_SHAPES])
+def test_k2_path_3_matches_plain_on_card(cuda_device, name, rows, samples, n_mels):
+    """K2 on path 3 against ``ct_mel_plain`` on the centre-padded rows, every
+    frame of zeros computed: rows of noise that end in zeros, one launch,
+    counted on path 3."""
+    cfg = PA._whisper_cfg(n_mels)
+    x = np.random.default_rng(29).normal(0, 0.1, (rows, samples)).astype(np.float32)
+    x[:, samples // 2:] = 0.0
+    xd = torch.from_numpy(x).to(cuda_device)
+    before, paths = ck.ct_mel.launches, ck.path_counts()
+    got = ck.ct_mel(xd, cfg)
+    torch.cuda.synchronize()
+    assert ck.ct_mel.launches - before == 1
+    after = ck.path_counts()
+    assert {p: after[p] - paths[p] for p in after} == {1: 0, 2: 0, 3: 1}
+    assert tuple(got.shape) == (rows, 1 + samples // 160, n_mels)
+    assert _rel(got, ck.ct_mel_plain(xd, cfg)) <= K2_TOL, name
 
 
 def _launch_counts():
-    return ck.ct_mel.launches, wl.whisper_logmel.launches
+    return ck.ct_mel.launches, wl.whisper_logmel.launches, ck.path_counts()[3]
 
 
 @pytest.mark.cuda
@@ -131,8 +175,8 @@ def test_whisper_call_is_the_pad_k2_and_the_finish_in_place_on_card(graph_cache,
     before = _launch_counts()
     got = P.log_mel_spectrogram_whisper(x, n_mels=n_mels)
     torch.cuda.synchronize()
-    k2, fin = (a - b for a, b in zip(_launch_counts(), before))
-    assert (k2, fin) == (1, 2)
+    k2, fin, path3 = (a - b for a, b in zip(_launch_counts(), before))
+    assert (k2, fin, path3) == (1, 2, 1)
     assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == (0, 0)
     assert PA.paths.read()["direct"] - paths0["direct"] == 1
     assert got.is_cuda and got.is_contiguous() and got.dtype == torch.float32
@@ -143,6 +187,7 @@ def test_whisper_call_is_the_pad_k2_and_the_finish_in_place_on_card(graph_cache,
     rows = [0, 1, 63]
     plain = PF.whisper_log_mel(x[rows].cpu(), cfg)
     assert _err(got[rows], plain) <= PLAIN_TOL
+    assert _err(got[rows], whisper_ref.log_mel_spectrogram(x[rows].cpu(), n_mels)) <= PLAIN_TOL
 
 
 @pytest.mark.cuda
