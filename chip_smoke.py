@@ -94,6 +94,15 @@ launch count set to 0, failing unless the path's kernel launched:
   path 3, the finish's two kernels, the direct path) and its errors
   against the plain path and the float64 reference; the finish's own entry
   in the kernels line;
+* nemo: NeMo FastConformer's log-mel front end (``nemo_phase``) at the NeMo
+  cell's 64 ragged rows (lognormal ~6 s, up to 35 s, the lengths on the
+  card), 128 mels: the prologue kernel, K2 on path 1 at 512/160/128 and the
+  finish kernels alone, each against its plain twin and timed beside it
+  with its share of HBM, the new kernels' ptxas lines, the whole
+  ``api.log_mel_spectrogram_nemo`` call timed under
+  ``set_sync_debug_mode("error")``, its launches (the prologue, K2 once on
+  path 1, the finish's two) and its errors against the plain path and the
+  float64 reference; the NeMo kernels' own entry in the kernels line;
 * compiled: the CUDA-graph replay layer (``utils/graphs.py``,
   ``compiled_phase``): every ``api`` feature entry point and every
   pipeline class and ``FeatureExtractor`` at 48 x 10 s, 16 kHz, or 32 x
@@ -2865,6 +2874,171 @@ def whisper_phase(np, torch, P, PF, k2, flush, chip, k2_log: str = "") -> dict:
     return entry, record
 
 
+N_ROWS, N_MELS = 64, 128  # the NeMo cell's batch of ragged rows
+N_FINISH_TOL, N_PLAIN_TOL = 5e-5, 1e-3
+
+
+def nemo_phase(np, torch, P, PF, k2, flush, chip, nemo_log: str = "") -> dict:
+    """NeMo FastConformer's log-mel front end (``api.log_mel_spectrogram_nemo``)
+    at the NeMo cell's shape: 64 rows of clip(lognormal(ln 6 s, 0.6), 1, 35)
+    s of noise, zeros to the longest row, the lengths on the card, 128 mels.
+    The prologue alone (``nemo_prologue_kernel``, bit for bit against its
+    plain twin, over the whole buffer and, writing the frame counts, over
+    what each row's frames read), K2 alone on its output (path 1 at
+    512/160/128 asserted, against ``ct_mel_plain``, 1e-4 of max|ref|, on
+    every frame and, ragged, ``ct_mel_ragged_kernel``, on each row's own)
+    and the finish alone (``nemo_finish_*``, against its twin, 5e-5), the
+    prologue and K2 timed as the API runs them (ragged), with CUDA events
+    after an L2 flush, 20 calls each, beside its plain version, with its
+    share of HBM on the bytes one call must move (the prologue: the rows'
+    true samples in, each row's samples and pad that its frames read out;
+    K2: those in, the power of the tiles of each row's own frames out; the
+    finish: the power of each row's own frames in, the answer out) and
+    ``bound_ms``, and K2 on every frame as well; the ptxas lines (registers, spills)
+    of the new kernels from ``nemo_log``, their nvcc log; the whole API
+    call timed the same way, its launches (the prologue, K2 once on path 1,
+    the finish's two kernels, the direct path) and its errors against the
+    plain path on the card (``pallas="off"``) and the float64 reference
+    (``tests/golden/nemo_ref.py``) on eight rows, each within
+    ``N_PLAIN_TOL`` (1e-3: ~4x the ~2.6e-4 either reads on the card, half
+    the cell's ``max_abs_err`` limit).  Returns
+    the kernels line's entry of the NeMo kernels and the phase's record."""
+    from mfcc_rust_tpu_torch import api as PA
+    from mfcc_rust_tpu_torch.ops.cuda import nemo_logmel as nl
+    from mfcc_rust_tpu_torch.utils import profiling as prof
+    from tests.golden import librosa_ref, nemo_ref
+
+    dev = torch.device("cuda")
+    cfg = PA._nemo_cfg(N_MELS)
+    cu = cfg.replace(center=False)
+    rng = np.random.default_rng(25)
+    lens_np = np.round(np.clip(rng.lognormal(np.log(6.0), 0.6, N_ROWS), 1.0, 35.0)
+                       * RATE).astype(np.int64)
+    samples = int(lens_np.max())
+    x = rng.normal(0.0, 0.1, (N_ROWS, samples)).astype(np.float32)
+    for r, n in enumerate(lens_np):
+        x[r, n:] = 0.0
+    x = torch.from_numpy(x).to(dev)
+    lens = torch.from_numpy(lens_np).to(dev)
+    frames = 1 + samples // cfg.frame_step
+    ptxas = {k: ptxas_lines(nemo_log, k) for k in
+             ("nemo_prologue", "nemo_finish_stats", "nemo_finish_kernel")}
+    for k, lines in ptxas.items():
+        for line in lines:
+            log(f"nemo: ptxas {k}: {line}")
+
+    xp = nl.nemo_prologue(x, lens, cfg)
+    pro_equal = bool(torch.equal(xp, nl.nemo_prologue_plain(x, lens, cfg)))
+    assert pro_equal, "the NeMo prologue differs from its plain twin"
+    plan = k2.launch_plan(cu, N_ROWS, frames)
+    log(f"nemo: K2 launch plan at ({N_ROWS}, {xp.shape[-1]}), 512/160/128: {plan}")
+    assert plan["path"] == 1, ("K2 at n_fft 512 must take path 1", plan)
+    power = k2.ct_mel(xp, cu)
+    k2_rel, _ = rel_err(power, k2.ct_mel_plain(xp, cu))
+    assert tuple(power.shape) == (N_ROWS, frames, N_MELS) and k2_rel <= REL_TOL, k2_rel
+    got, seq = nl.nemo_finish(power, lens, cfg.frame_step)
+    want, want_seq = nl.nemo_finish_plain(power, lens, cfg.frame_step)
+    fin_err = (got.double() - want.double()).abs().max().item()
+    assert torch.equal(seq, want_seq) and fin_err <= N_FINISH_TOL, ("NeMo finish", fin_err)
+    # ragged, as the API runs them: the frame counts, each row's own frames
+    used = torch.empty_like(lens)
+    xr = nl.nemo_prologue(x, lens, cfg, used)
+    assert torch.equal(used, seq), "the prologue's frame counts"
+    pad = cfg.fft_points
+    assert all(torch.equal(xr[r, : n + pad], xp[r, : n + pad]) for r, n in enumerate(lens_np.tolist()))
+    power_r = k2.ct_mel(xr, cu, used)
+    assert all(torch.equal(power_r[r, :n], power[r, :n]) for r, n in enumerate(seq.tolist())), \
+        "K2's ragged kernel differs from its kernel on every frame"
+    assert torch.equal(nl.nemo_finish(power_r, lens, cfg.frame_step)[0], got)
+
+    P.log_mel_spectrogram_nemo(x, lens, n_mels=N_MELS)
+    torch.cuda.synchronize()
+    k2.ct_mel.launches = nl.nemo_prologue.launches = nl.nemo_finish.launches = 0
+    direct0, paths0 = PA.paths.read()["direct"], k2.path_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, out_seq = P.log_mel_spectrogram_nemo(x, lens, n_mels=N_MELS)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    paths1 = k2.path_counts()
+    launches = {"prologue": nl.nemo_prologue.launches, "k2": k2.ct_mel.launches,
+                "finish": nl.nemo_finish.launches, "direct": PA.paths.read()["direct"] - direct0,
+                "k2_by_path": {p: paths1[p] - paths0[p] for p in paths1}}
+    assert launches == {"prologue": 1, "k2": 1, "finish": 2, "direct": 1,
+                        "k2_by_path": {1: 1, 2: 0, 3: 0}}, launches
+    assert out.is_contiguous() and tuple(out.shape) == (N_ROWS, N_MELS, frames)
+    plain, plain_seq = PF.nemo_log_mel(x, lens, cfg.replace(pallas="off"))
+    api_plain = (out.double() - plain.double()).abs().max().item()
+    rows = list(range(0, N_ROWS, 8))
+    ref64, ref_seq = nemo_ref.log_mel_spectrogram(x[rows].cpu().numpy(), lens_np[rows], N_MELS)
+    api_ref = (out[rows].double().cpu() - ref64).abs().max().item()
+    plain_ref = (plain[rows].double().cpu() - ref64).abs().max().item()
+    assert torch.equal(out_seq, plain_seq) and torch.equal(out_seq[rows].cpu(), ref_seq)
+    del plain, ref64
+    log(f"nemo at ({N_ROWS}, {samples}), {N_MELS} mels, {int(lens_np.sum())} true samples: "
+        f"prologue equal {pro_equal}; K2 vs plain rel {k2_rel:.3e}; finish vs plain "
+        f"{fin_err:.3e}; API vs plain path {api_plain:.3e}, vs float64 {api_ref:.3e} (plain "
+        f"path vs float64 {plain_ref:.3e}); launches {launches}")
+    assert api_plain <= N_PLAIN_TOL and api_ref <= N_PLAIN_TOL, (api_plain, api_ref)
+
+    runs = {"prologue": lambda: nl.nemo_prologue(x, lens, cfg, used),
+            "prologue_plain": lambda: nl.nemo_prologue_plain(x, lens, cfg),
+            "k2": lambda: k2.ct_mel(xr, cu, used), "k2_plain": lambda: k2.ct_mel_plain(xp, cu),
+            "k2_every_frame": lambda: k2.ct_mel(xp, cu),
+            "finish": lambda: nl.nemo_finish(power, lens, cfg.frame_step),
+            "finish_plain": lambda: nl.nemo_finish_plain(power, lens, cfg.frame_step),
+            "api": lambda: P.log_mel_spectrogram_nemo(x, lens, n_mels=N_MELS)}
+    times = {name: [] for name in runs}
+    for order in (tuple(runs), tuple(reversed(tuple(runs)))):
+        for name in order:
+            times[name] += cuda_ms(torch, runs[name], 10, flush)
+    med = {name: statistics.median(v) for name, v in times.items()}
+    true = int(lens_np.sum())
+    needed = int(np.minimum(lens_np // cfg.frame_step + 1, frames).sum())
+    nnz = int(np.count_nonzero(librosa_ref.mel_filters(RATE, 512, N_MELS)))
+    n = cfg.fft_points
+    f_all = N_ROWS * frames
+    per_frame = n + 2.5 * n * math.log2(n) + 3 * (n // 2 + 1) + 2 * nnz
+    tiled = int(np.minimum(-(-(lens_np // cfg.frame_step + 1) // 16) * 16, frames).sum())
+    work = {"prologue": (2 * true, 8 * true + 4 * N_ROWS * n),
+            "k2": (per_frame * tiled, 4 * (true + N_ROWS * n) + 4 * tiled * N_MELS),
+            "finish": (8 * needed * N_MELS, 4 * needed * N_MELS + 4 * f_all * N_MELS)}
+    entries = {}
+    for name, (flops, nbytes) in work.items():
+        bound_s, bound_by = prof.bound_seconds(flops, nbytes, chip)
+        entries[name] = {"ms": med[name], "plain_ms": med[f"{name}_plain"],
+                         "bound_ms": 1e3 * bound_s, "bound_by": bound_by, "bytes": nbytes,
+                         "flops": flops,
+                         "hbm_share": nbytes / (med[name] * 1e-3) / (chip["hbm_gbs"] * 1e9),
+                         "roofline_share": 1e3 * bound_s / med[name]}
+    log("nemo times, median of 20 (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in med.items()))
+    for name, e in entries.items():
+        log(f"nemo {name}: {1e3 * e['ms']:.1f} us (plain {1e3 * e['plain_ms']:.1f} us), "
+            f"{e['bytes'] / 1e6:.1f} MB, {100 * e['hbm_share']:.1f}% of HBM, bound "
+            f"{e['bound_ms']:.4f} ms ({e['bound_by']}), {100 * e['roofline_share']:.2f}% of its "
+            f"roofline")
+    log(f"nemo: K2 on every frame {1e3 * med['k2_every_frame']:.1f} us, on the "
+        f"{tiled} frames of the tiles of each row's own {1e3 * med['k2']:.1f} us")
+    log(f"nemo: the frames the answers need, {needed} of {f_all} ({100 * needed / f_all:.1f}%); "
+        f"API call {1e3 * med['api']:.1f} us, {true / RATE / (med['api'] * 1e-3):.0f} audio-s/s "
+        "of true speech")
+    entry = {"name": nl.KERNEL, "route": "cuda",
+             "source": "mfcc_rust_tpu_torch/ops/cuda/nemo_logmel.cu", "replaces": None,
+             "launches": launches["prologue"] + launches["finish"], "max_err": fin_err,
+             "ms": med["prologue"] + med["finish"],
+             "plain_ms": med["prologue_plain"] + med["finish_plain"],
+             "bound_ms": entries["prologue"]["bound_ms"] + entries["finish"]["bound_ms"],
+             "bound_by": "bytes",
+             "bytes": work["prologue"][1] + work["finish"][1]}
+    record = {"plan": plan, "ptxas": ptxas, "entries": entries, "median_ms": med,
+              "times_ms": times, "launches": launches, "shape": [N_ROWS, samples],
+              "true_samples": true, "needed_frames": needed,
+              "errors": {"k2_rel": k2_rel, "finish": fin_err, "api_vs_plain": api_plain,
+                         "api_vs_float64": api_ref, "plain_vs_float64": plain_ref}}
+    return entry, record
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, help="directory for chip_smoke.json")
@@ -2896,12 +3070,14 @@ def main() -> int:
 
     # ---------------------------------------------------------------- build --
     t0 = time.perf_counter()
+    from mfcc_rust_tpu_torch.ops.cuda import nemo_logmel as kn
     from mfcc_rust_tpu_torch.ops.cuda import speechpy_heads as kh
     from mfcc_rust_tpu_torch.ops.cuda import whisper_logmel as kw
 
-    logs = build.build([k1.KERNEL, k2.KERNEL, kh.KERNEL, kw.KERNEL])
+    logs = build.build([k1.KERNEL, k2.KERNEL, kh.KERNEL, kw.KERNEL, kn.KERNEL])
     record["build_s"] = time.perf_counter() - t0
-    log(f"build: {k1.KERNEL}, {k2.KERNEL}, {kh.KERNEL}, {kw.KERNEL} in {record['build_s']:.3f} s")
+    log(f"build: {k1.KERNEL}, {k2.KERNEL}, {kh.KERNEL}, {kw.KERNEL}, {kn.KERNEL} in "
+        f"{record['build_s']:.3f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "entry function")):
@@ -3103,6 +3279,7 @@ def main() -> int:
     heads_entry = heads_phase(np, torch, P, PF, flush, chip)
     whisper_entry, record["whisper"] = whisper_phase(np, torch, P, PF, k2, flush, chip,
                                                      logs[k2.KERNEL])
+    nemo_entry, record["nemo"] = nemo_phase(np, torch, P, PF, k2, flush, chip, logs[kn.KERNEL])
     record["streaming"] = streaming_phase(np, torch, P, k1, k2)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp_name:
         tmp = Path(tmp_name)
@@ -3136,7 +3313,8 @@ def main() -> int:
             launches_compiled=record["compiled"]["launches"][1],
             launches_streaming=record["streaming"]["launches"][1]),
         {key: v for key, v in edge_entry.items() if key != "times_ms"},
-        {key: v for key, v in heads_entry.items() if key != "times_ms"}, whisper_entry]
+        {key: v for key, v in heads_entry.items() if key != "times_ms"}, whisper_entry,
+        nemo_entry]
     record.update({
         "main_path": {"shape": [BATCH, t_true], "bucket": t_main, "launches": launches,
                       "first_call_s": first_s, "api_ms": api_s * 1e3, "api_ms_all": [h * 1e3 for h in host]},

@@ -26,6 +26,7 @@ from .api import (  # noqa: F401
     extract_derivative_feature,
     lmfe,
     log_mel_spectrogram,
+    log_mel_spectrogram_nemo,
     log_mel_spectrogram_whisper,
     log_power_spectrum,
     mel_spectrogram,

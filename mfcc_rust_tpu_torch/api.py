@@ -36,8 +36,11 @@ for K2), into a fresh result of exactly the frames the call returns
 (:func:`_direct`, span ``api.direct``); ``bucket`` changes nothing there,
 as no frame it would add was ever returned.  ``log_mel_spectrogram_whisper``
 takes the same path with K2, then the Whisper finish
-(``ops/cuda/whisper_logmel``).  :data:`paths` counts the calls of both
-families by the path each took.
+(``ops/cuda/whisper_logmel``), and ``log_mel_spectrogram_nemo`` with NeMo's
+prologue in place of the centre pad, K2, then the NeMo finish
+(``ops/cuda/nemo_logmel``); the NeMo call takes each row's length as data
+and never buckets.  :data:`paths` counts the calls of every family by the
+path each took.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ from .ops import resample as _resample
 from .ops import spectrum as _spectrum
 from .ops import stft as _stft
 from .ops.cuda import ct_mel as _k2
+from .ops.cuda import nemo_logmel as _nl
 from .ops.cuda import speechpy_mfcc as _k1
 from .ops.cuda import whisper_logmel as _wl
 from .utils import bucketing, graphs
@@ -108,6 +112,7 @@ def _librosa_cfg(sr, n_fft, hop_length, win_length, n_mels, n_mfcc, fmin, fmax, 
 
 
 @functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=64)
 def _uncentred(cfg: FeatureConfig) -> FeatureConfig:
     return cfg.replace(center=False)
 
@@ -120,9 +125,10 @@ def _rows(x: torch.Tensor) -> int:
 
 class PathCount:
     """Cumulative calls of the feature entry points of both families (those
-    through :func:`_run` or :func:`_direct`) by the path each took:
-    ``direct`` (one launch of K1, or the centre pad and one launch of K2,
-    and for Whisper the finish, on the caller's signal), ``graphed`` (through
+    through :func:`_run` or :func:`_direct`, and NeMo's) by the path each
+    took: ``direct`` (one launch of K1, or the centre pad and one launch of
+    K2, and for Whisper the finish, or for NeMo its prologue, K2 and its
+    finish, on the caller's signal), ``graphed`` (through
     :data:`.utils.graphs.cache`) and ``eager``."""
 
     DIRECT, GRAPHED, EAGER = range(3)
@@ -220,16 +226,22 @@ def _k1_alone(cfg: FeatureConfig, x: torch.Tensor, dev: torch.device) -> bool:
             and not graphs.runs_eagerly(x, dev))
 
 
-def _direct(kernel, x: torch.Tensor, cfg: FeatureConfig, dev: torch.device) -> torch.Tensor:
+def _direct(kernel, x: torch.Tensor, cfg: FeatureConfig, dev: torch.device,
+            pad=_framing.center_pad):
     """``kernel(signal, config)`` where :func:`_k1_alone` or
-    :func:`_k2_alone`: launched once on the caller's current stream,
-    reading ``x`` where it lies (moved to ``dev`` and float32 only if it is
-    not there already) at its true length n, centre-padded there when
-    ``cfg.center`` (:func:`.ops.framing.center_pad`, one launch), no bucket
-    and no static input, into a fresh result of exactly the frames the call
-    returns, each read from samples below n or their reflection."""
+    :func:`_k2_alone` (or NeMo's :func:`_nemo_direct`): launched once on the
+    caller's current stream, reading ``x`` where it lies (moved to ``dev``
+    and float32 only if it is not there already) at its true length n,
+    padded there by ``pad(signal, config)`` (by default the centre pad when
+    ``cfg.center``, :func:`.ops.framing.center_pad`, one launch; None where
+    the kernel pads, as NeMo's launches do with their prologue), no bucket
+    and no static input, into a fresh result
+    of exactly the frames the call returns, each read from samples below n
+    or their reflection."""
     with span("api.direct"):
-        sig = _framing.center_pad(x.to(device=dev, dtype=torch.float32), cfg)
+        sig = x.to(device=dev, dtype=torch.float32)
+        if pad is not None:
+            sig = pad(sig, cfg)
         bucketing.samples.add(_rows(sig), sig.shape[-1], sig.shape[-1])
         paths.add(PathCount.DIRECT)
         return kernel(sig, _uncentred(cfg) if cfg.center else cfg)
@@ -525,3 +537,74 @@ def log_mel_spectrogram_whisper(audio, n_mels=80, padding=0, bucket=True, device
             return _direct(_whisper_k2, x, cfg, dev)
         mel, n = _run(F.mel_spectrogram_librosa, x, cfg, bucket, dev)
         return F.whisper_finish(mel[..., :_librosa_frames(cfg, n)])
+
+
+# --------------------------------------------------------------- NeMo API --
+@functools.lru_cache(maxsize=8)
+def _nemo_cfg(n_mels: int) -> FeatureConfig:
+    """NeMo FastConformer's front end (``AudioToMelSpectrogramPreprocessor``
+    as nvidia/parakeet-tdt-0.6b-v2 sets it): 16 kHz, n_fft 512, hop 160, a
+    symmetric hann of 400 centred in 512, a centred zero pad, preemphasis
+    0.97, power 2, ``n_mels`` slaney mels (cached)."""
+    return librosa_config(16000, 512, 160, 400, n_mels).replace(
+        window="hann_sym", pad_mode="constant", preemphasis_cof=0.97)
+
+
+def _nemo_lengths(lengths, x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """The rows' sample lengths as int64 on ``dev``, of x's leading shape."""
+    n = torch.as_tensor(lengths, device=dev)
+    if n.dtype != torch.int64:
+        n = n.to(torch.int64)
+    if tuple(n.shape) != tuple(x.shape[:-1]):
+        raise ValueError(f"lengths of shape {tuple(n.shape)} for audio of shape "
+                         f"{tuple(x.shape)}: one length a row")
+    return n
+
+
+def _nemo_direct(cfg: FeatureConfig, x: torch.Tensor, dev: torch.device) -> bool:
+    """Whether a NeMo call on ``x`` computing on ``dev`` is the prologue, one
+    launch of K2 and the finish: the mel power's lowering is the CT mel
+    kernel (:func:`.features.librosa_lowering`), the finish takes the config,
+    and the call would not run eagerly (:func:`.utils.graphs.runs_eagerly`).
+    The zero pad never folds, so every length takes it."""
+    return (_librosa_lowering(cfg, dev.type) == "k2" and _nl.nemo_finish_supported(cfg)
+            and not graphs.runs_eagerly(x, dev))
+
+
+def log_mel_spectrogram_nemo(audio, lengths, n_mels=128, device=None):
+    """NeMo FastConformer's log-mel features (Parakeet-TDT, Canary:
+    ``AudioToMelSpectrogramPreprocessor`` → ``FilterbankFeatures.forward``
+    in eval, ``normalize="per_feature"``) of (..., T) float audio at 16 kHz
+    whose rows hold ``lengths`` (...,) samples (a tensor on any device, a
+    list or numpy) -> (features (..., n_mels, 1 + T // 160) float32
+    contiguous, feature_lengths (...,) int64): preemphasis
+    0.97 within each row's length and zeros past it; a centred zero-padded
+    STFT of 512 points at a hop of 160 with a symmetric hann of 400; |X|²;
+    slaney mels; ln(· + 2^-24); over each row's first len // 160 + 1 frames
+    (0 where len is 0) each mel's mean and unbiased deviation + 1e-5, the
+    normalised values there and zeros past them.
+
+    Where the mel power is one launch of K2 (:func:`_nemo_direct`) the call
+    takes :func:`_direct` with :func:`.ops.cuda.nemo_logmel.nemo_direct`:
+    the prologue kernel in place of the centre pad (it also writes each
+    row's frame count), K2 on the tiles that hold each row's own frames, the
+    finish kernels, all on the caller's stream with no host synchronisation
+    (the lengths are read on the device), so the card's work follows the
+    rows' own frames more than the padding; else (CPU,
+    gradient, trace) the plain path :func:`.features.nemo_log_mel`, eagerly.
+
+    Departures from NeMo: a row of one frame reads zeros where NeMo raises
+    (its masked formula gives zeros there; the check would cost a host
+    synchronisation); the training-time dither is left out (the eval
+    forward); a length past T counts its frames as NeMo does, and its
+    statistics take the frames there are."""
+    with span("api.log_mel_spectrogram_nemo"):
+        cfg = _nemo_cfg(int(n_mels))
+        x, dev = torch.as_tensor(audio), resolve_device(device)
+        n = _nemo_lengths(lengths, x, dev)
+        if _nemo_direct(cfg, x, dev):
+            return _direct(lambda s, c: _nl.nemo_direct(s, n, c), x, cfg, dev, pad=None)
+        t = x.shape[-1] + cfg.fft_points
+        bucketing.samples.add(_rows(x), t, t)
+        paths.add(PathCount.EAGER)
+        return F.nemo_log_mel(x.to(device=dev, dtype=torch.float32), n, cfg)

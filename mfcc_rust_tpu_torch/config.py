@@ -41,7 +41,7 @@ class FeatureConfig:
     high_frequency: Optional[float] = None  # None -> sample_rate / 2
     dc_elimination: bool = True
 
-    window: str = "rect"  # rect | hann | hamming | povey | vorbis
+    window: str = "rect"  # rect | hann | hann_sym | hamming | povey | vorbis
     win_length_samples: Optional[int] = None  # None -> frame size
     frame_length_samples: Optional[int] = None
     frame_stride_samples: Optional[int] = None

@@ -153,6 +153,8 @@ def window_array(name: str, win_length: int, n_fft: Optional[int] = None) -> np.
         w = np.ones(win_length, dtype=np.float64)
     elif name == "hann":
         w = hann_window(win_length)
+    elif name == "hann_sym":  # torch.hann_window(n, periodic=False), NeMo's window
+        w = hann_window(win_length, periodic=False)
     elif name == "hamming":
         w = hamming_window(win_length)
     elif name == "povey":

@@ -16,6 +16,9 @@ which the kernels are held against.  ``ssc``, ``extract`` and
 chunk-GEMM path a small kernel (``ops/cuda/speechpy_edges``) writes each
 frame's DC and Nyquist terms, summed in float64, into the product, and
 ``extract``'s heads of it are one kernel (``ops/cuda/speechpy_heads``).
+The Whisper and NeMo finishes (``whisper_finish``, ``nemo_prologue``,
+``nemo_finish``, ``nemo_log_mel``) are the plain versions of the kernels
+around K2 that ``api`` launches on the card.
 
 ``consts`` (optional) is a dict of the chunk-GEMM constant tensors
 (:func:`_speechpy_tensors`); the pipelines pass their buffers through it.
@@ -678,6 +681,66 @@ def whisper_log_mel(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
     :func:`mel_spectrogram_librosa`, (..., n_mels, T // hop).  Build ``cfg``
     as ``librosa_config(16000, 400, 160, 400, n_mels)``."""
     return whisper_finish(mel_spectrogram_librosa(signal, cfg))
+
+
+NEMO_LOG_GUARD = 2.0 ** -24  # NeMo's log_zero_guard_value ("add")
+NEMO_STD_FLOOR = 1e-5  # normalize_batch's CONSTANT
+
+
+def nemo_feature_lengths(lengths: torch.Tensor, hop: int) -> torch.Tensor:
+    """NeMo's frame counts of rows of ``lengths`` samples: len // hop + 1,
+    0 where len is 0 (a negative length counts as 0); int64."""
+    n = lengths.to(torch.int64).clamp_min(0)
+    return torch.where(n > 0, n // hop + 1, 0)
+
+
+def nemo_prologue(signal: torch.Tensor, lengths: torch.Tensor,
+                  cfg: FeatureConfig) -> torch.Tensor:
+    """NeMo's preemphasis and centre pad of (..., T) rows of ``lengths``
+    (...,) samples: y[0] = x[0], y[t] = x[t] - cof x[t - 1] for t < len,
+    zeros from len on, then ``cfg.fft_points // 2`` zeros on each side;
+    (..., T + fft_points).  The plain version of the kernel
+    ``ops/cuda/nemo_logmel.cu`` (``nemo_prologue_kernel``)."""
+    t = signal.shape[-1]
+    y = torch.cat([signal[..., :1], signal[..., 1:] - cfg.preemphasis_cof * signal[..., :-1]], -1)
+    keep = torch.arange(t, device=signal.device) < lengths.to(torch.int64)[..., None]
+    half = cfg.fft_points // 2
+    return tF.pad(torch.where(keep, y, 0.0), (half, half))
+
+
+def nemo_finish(mel: torch.Tensor, feature_lengths: torch.Tensor) -> torch.Tensor:
+    """NeMo's log and per-feature normalisation of a mel power spectrogram
+    (..., M, F) whose rows hold ``feature_lengths`` (...,) frames: l =
+    ln(p + 2^-24); over each row's first n = min(len, F) frames, each mel's
+    mean and unbiased deviation (0 where n < 2) + 1e-5; (l - mean) / dev
+    there and 0 past n; (..., M, F), contiguous.  The mean and deviation
+    are two passes over the frames' logs less the row's first frame, so a
+    mel that is constant over the row gives 0 exactly, as in float64.  The
+    plain version of the kernels ``ops/cuda/nemo_logmel.cu``
+    (``nemo_finish_*``)."""
+    f = mel.shape[-1]
+    log = torch.log(mel + NEMO_LOG_GUARD)
+    n = feature_lengths.to(torch.int64).clamp(0, f)[..., None, None]
+    valid = torch.arange(f, device=mel.device) < n
+    d = torch.where(valid, log - log[..., :1], 0.0)
+    count = n.to(mel.dtype)
+    mean = d.sum(-1, keepdim=True) / count.clamp_min(1.0)
+    dev = torch.where(valid, d - mean, 0.0)
+    var = torch.where(n > 1, (dev * dev).sum(-1, keepdim=True) / (count - 1.0).clamp_min(1.0), 0.0)
+    return torch.where(valid, dev / (torch.sqrt(var) + NEMO_STD_FLOOR), 0.0).contiguous()
+
+
+def nemo_log_mel(signal: torch.Tensor, lengths: torch.Tensor,
+                 cfg: FeatureConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """NeMo's log-mel front end (``FilterbankFeatures.forward`` in eval,
+    ``normalize="per_feature"``) of (..., T) rows of ``lengths`` (...,)
+    samples: :func:`nemo_prologue`, the mel power of the padded rows
+    (:func:`mel_spectrogram_librosa`, uncentred), :func:`nemo_finish`;
+    ((..., M, 1 + T // hop), the frame counts (..., ) int64).  Build ``cfg``
+    as ``api._nemo_cfg``."""
+    seq = nemo_feature_lengths(lengths, cfg.frame_step)
+    mel = mel_spectrogram_librosa(nemo_prologue(signal, lengths, cfg), cfg.replace(center=False))
+    return nemo_finish(mel, seq), seq
 
 
 def mfcc_librosa(signal: torch.Tensor, cfg: FeatureConfig,

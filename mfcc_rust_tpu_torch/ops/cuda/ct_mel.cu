@@ -37,6 +37,12 @@
 //   The power of the kmax bins goes to shared memory, then each lane sums
 //   its filters over their packed ranges and writes (B, F, M) frame-major.
 //   The only block barriers are the two per tile around the slab.
+//   Ragged rows (a caller's used[b] frames of row b, NeMo's batches padded to
+//   their longest row): ct_mel_ragged_kernel runs the same tiles through
+//   ragged_tile_loop, which keeps only the tiles holding a row's first
+//   used[b] frames and deals them evenly over the grid; the frames of the
+//   tiles it skips are left unwritten, so the work follows the rows' own
+//   frames and not the padding.
 // * Path 3, n = 400 (Whisper's n_fft, nc = 200 = 8 x 25) whose tile fits:
 //   bytes bound it there (at 400/160/128 on 64 rows of 30 s, 2.0 GFLOP
 //   against 221 MB, 66 us).  Path 1's cp.async staging over tiles of
@@ -242,6 +248,7 @@ struct Args {
   const float* wpack;    // (nnz,) each filter's weights over [lo, hi)
   const int* ranges;     // (M, 3) lo, hi, offset into wpack
   float* out;            // (B, F, M)
+  const long long* used; // (B,) frames of each row that are needed (path 1), or null: all
   long long T, n_tiles;
   int F, tiles_per_row, hop, n, kmax, nnz, M;
 };
@@ -330,10 +337,12 @@ __device__ __forceinline__ void tile_path1(const Args& A, const float* slab, con
   }
 }
 
-// The persistent tile loop of fft_regs.cuh over tiles of kTileF frames.
-template <int NC>
-__global__ void __launch_bounds__(kMaxWarps * 32, NC == 1024 ? 1 : 2)
-ct_mel_fft_kernel(const Args A) {
+// Path 1's block: the constants into shared memory, then the persistent
+// tile loop of fft_regs.cuh over tiles of kTileF frames, every tile of every
+// row (tile_loop) or, kRagged, those holding a row's first A.used[b] frames
+// (ragged_tile_loop).
+template <int NC, bool kRagged>
+__device__ __forceinline__ void path1_block(const Args& A) {
   extern __shared__ __align__(16) float smem[];
   const int nw = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
@@ -346,11 +355,28 @@ ct_mel_fft_kernel(const Args A) {
   for (int i = threadIdx.x; i < A.n; i += blockDim.x) win[i] = __ldg(A.win + i);
   for (int i = threadIdx.x; i < A.nnz; i += blockDim.x) wts[i] = __ldg(A.wpack + i);
   for (int i = threadIdx.x; i < 3 * A.M; i += blockDim.x) rng[i] = __ldg(A.ranges + i);
-  tile_loop(smem, lay.slab, A.sig, A.T, A.n_tiles, A.tiles_per_row, kTileF, A.hop,
-            (kTileF - 1) * A.hop + A.n, [&](const float* slab, long long b, int f0) {
-              tile_path1<NC>(A, slab, win, scratch, lay.frame, wts, rng, f0,
-                             A.out + b * A.F * A.M, warp, lane, nw);
-            });
+  auto body = [&](const float* slab, long long b, int f0) {
+    tile_path1<NC>(A, slab, win, scratch, lay.frame, wts, rng, f0, A.out + b * A.F * A.M,
+                   warp, lane, nw);
+  };
+  if constexpr (kRagged)
+    ragged_tile_loop(smem, lay.slab, A.sig, A.T, A.n_tiles / A.tiles_per_row, A.tiles_per_row,
+                     A.used, kTileF, A.hop, (kTileF - 1) * A.hop + A.n, body);
+  else
+    tile_loop(smem, lay.slab, A.sig, A.T, A.n_tiles, A.tiles_per_row, kTileF, A.hop,
+              (kTileF - 1) * A.hop + A.n, body);
+}
+
+template <int NC>
+__global__ void __launch_bounds__(kMaxWarps * 32, NC == 1024 ? 1 : 2)
+ct_mel_fft_kernel(const Args A) {
+  path1_block<NC, false>(A);
+}
+
+template <int NC>
+__global__ void __launch_bounds__(kMaxWarps * 32, NC == 1024 ? 1 : 2)
+ct_mel_ragged_kernel(const Args A) {
+  path1_block<NC, true>(A);
 }
 
 // The frames of a path-3 tile: lanes 8 g .. 8 g + 7 of warp w take frames
@@ -468,7 +494,15 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2) ct_mel_fft200_kernel(const 
 // persistent grid of every resident block.  Path 2: 256 threads, G frames a
 // block, one block per G frames.  The occupancy query behind blocks_per_sm
 // runs once per shape (residency in fft_regs.cuh).
-cudaError_t make_plan(Plan& p, int n, int hop, int kmax, int nnz, int m, int B, int F, int G) {
+template <int NC>
+cudaError_t plan1(Plan& p, bool ragged, long long n_tiles) {
+  return ragged ? persistent_grid(p, ct_mel_ragged_kernel<NC>, n_tiles)
+                : persistent_grid(p, ct_mel_fft_kernel<NC>, n_tiles);
+}
+
+// ragged: path 1 runs ct_mel_ragged_kernel (paths 2 and 3 run every frame)
+cudaError_t make_plan(Plan& p, int n, int hop, int kmax, int nnz, int m, int B, int F, int G,
+                      bool ragged = false) {
   p.warps = path1_warps(n, hop, kmax, nnz, m);
   p.path = 1;
   if (!p.warps) {
@@ -490,17 +524,20 @@ cudaError_t make_plan(Plan& p, int n, int hop, int kmax, int nnz, int m, int B, 
   p.smem = Layout1(n, hop, kmax, nnz, m, p.warps).total * (long long)sizeof(float);
   const long long n_tiles = (long long)B * ((F + kTileF - 1) / kTileF);
   switch (n / 2) {
-    case 64: return persistent_grid(p, ct_mel_fft_kernel<64>, n_tiles);
-    case 128: return persistent_grid(p, ct_mel_fft_kernel<128>, n_tiles);
-    case 256: return persistent_grid(p, ct_mel_fft_kernel<256>, n_tiles);
-    case 512: return persistent_grid(p, ct_mel_fft_kernel<512>, n_tiles);
-    default: return persistent_grid(p, ct_mel_fft_kernel<1024>, n_tiles);
+    case 64: return plan1<64>(p, ragged, n_tiles);
+    case 128: return plan1<128>(p, ragged, n_tiles);
+    case 256: return plan1<256>(p, ragged, n_tiles);
+    case 512: return plan1<512>(p, ragged, n_tiles);
+    default: return plan1<1024>(p, ragged, n_tiles);
   }
 }
 
 template <int NC>
 cudaError_t launch1(const Args& A, const Plan& p, cudaStream_t stream) {
-  ct_mel_fft_kernel<NC><<<(unsigned)p.grid, p.warps * 32, (size_t)p.smem, stream>>>(A);
+  if (A.used)
+    ct_mel_ragged_kernel<NC><<<(unsigned)p.grid, p.warps * 32, (size_t)p.smem, stream>>>(A);
+  else
+    ct_mel_fft_kernel<NC><<<(unsigned)p.grid, p.warps * 32, (size_t)p.smem, stream>>>(A);
   return cudaGetLastError();
 }
 
@@ -543,9 +580,13 @@ extern "C" int ct_mel_plan(int n, int hop, int kmax, int nnz, int M, int B, int 
 // (lo, hi, offset into wpack) with hi <= kmax <= n/2 + 1, out (B, F, M):
 // contiguous on the current device.  n/2 = m_odd * 4^n4 * 2^has2 with
 // m_odd odd (path 2's stages); G, a power of two, is path 2's frames a
-// block.  Returns a cudaError_t.
+// block.  used, null or (B,) int64 on the device: the frames of each row
+// that are needed; path 1 then leaves the frames of the tiles past them
+// unwritten (ragged_tile_loop), paths 2 and 3 write every frame.  Returns a
+// cudaError_t.
 extern "C" int ct_mel_launch(const float* sig, const float* win, const float* tw,
-                             const float* wpack, const int* ranges, float* out, int B,
+                             const float* wpack, const int* ranges, float* out,
+                             const long long* used, int B,
                              long long T, int F, int hop, int n, int m_odd, int n4,
                              int has2, int kmax, int nnz, int M, int G, void* stream) {
   long long prod = m_odd;
@@ -560,7 +601,7 @@ extern "C" int ct_mel_launch(const float* sig, const float* win, const float* tw
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   Plan p;
-  cudaError_t e = make_plan(p, n, hop, kmax, nnz, M, B, F, G);
+  cudaError_t e = make_plan(p, n, hop, kmax, nnz, M, B, F, G, used != nullptr);
   if (e != cudaSuccess) return (int)e;
   if (p.path == 2) {
     ct_mel_kernel<<<(unsigned)p.grid, kThreads, (size_t)p.smem, st>>>(
@@ -575,6 +616,7 @@ extern "C" int ct_mel_launch(const float* sig, const float* win, const float* tw
   A.wpack = wpack;
   A.ranges = ranges;
   A.out = out;
+  A.used = p.path == 1 ? used : nullptr;
   A.T = T;
   A.F = F;
   const int tile_f = p.path == 3 ? kTileF3 : kTileF;

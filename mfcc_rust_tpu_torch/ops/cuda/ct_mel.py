@@ -40,6 +40,7 @@ import torch
 from ... import features as _F
 from ...config import FeatureConfig
 from ...constants import constant_bundle, tensor_cache
+from ...utils.device import launch_stream
 from ..fft import good_factorization
 from ..framing import center_pad
 
@@ -136,11 +137,13 @@ def path_for(cfg: FeatureConfig) -> int:
     return fft_path(cfg.fft_points, cfg.frame_step, kmax, wpack.size, cfg.num_filters)
 
 
+@functools.lru_cache(maxsize=64)
 def ct_mel_supported(cfg: FeatureConfig) -> bool:
     """librosa framing (frames of fft_points), power 2, an even fft size,
     and one frame's buffers and the packed filterbank in shared memory:
     every even n up to ~28,000 points with slaney banks, which holds every
-    config the TPU kernel takes (n a multiple of 256) up to that size."""
+    config the TPU kernel takes (n a multiple of 256) up to that size.
+    Cached per config."""
     n = cfg.fft_points
     if cfg.frame_size != n or cfg.power != 2.0 or fft_plan(n) is None:
         return False
@@ -187,9 +190,17 @@ def _kernel_constants(cfg: FeatureConfig):
 
 @tensor_cache(maxsize=16)
 def _kernel_tensors(cfg: FeatureConfig, device: torch.device) -> dict:
-    win, tw, wpack, ranges, _ = _kernel_constants(cfg)
+    """The constants on ``device``, with the launch's arguments that follow
+    from them: ``tables``, their addresses, and ``sizes`` (hop, n, the FFT
+    plan, kmax, nnz, M and path 2's frames a block)."""
+    win, tw, wpack, ranges, kmax = _kernel_constants(cfg)
     t = lambda a: torch.from_numpy(a).to(device)
-    return {"win": t(win), "tw": t(tw), "wpack": t(wpack), "ranges": t(ranges)}
+    c = {"win": t(win), "tw": t(tw), "wpack": t(wpack), "ranges": t(ranges)}
+    n = cfg.fft_points
+    c["tables"] = tuple(c[k].data_ptr() for k in ("win", "tw", "wpack", "ranges"))
+    c["sizes"] = (cfg.frame_step, n, *fft_plan(n), kmax, wpack.size, cfg.num_filters,
+                  frames_per_block(n, wpack.size))
+    return c
 
 
 def ct_mel_plain(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
@@ -212,7 +223,7 @@ def _lib() -> ctypes.CDLL:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the argument and result types of the C interface."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ct_mel_launch.argtypes = [p, p, p, p, p, p, i, ll] + [i] * 10 + [p]
+    lib.ct_mel_launch.argtypes = [p, p, p, p, p, p, p, i, ll] + [i] * 10 + [p]
     lib.ct_mel_launch.restype = i
     lib.ct_mel_plan.argtypes = [i] * 8 + [ctypes.POINTER(ll)]
     lib.ct_mel_plan.restype = i
@@ -246,26 +257,28 @@ def launch_plan(cfg: FeatureConfig, batch: int, frames: int) -> dict:
 
 
 def _launch(lib: ctypes.CDLL, x: torch.Tensor, cfg: FeatureConfig, out: torch.Tensor,
-            stream: int) -> int:
+            stream: int, used: Optional[torch.Tensor] = None) -> int:
     """One launch of the kernel in ``lib`` on x (B, T), centre-padded, into
-    out (B, F, M), both contiguous float32 on the kernel's device, F > 0.
-    Returns the C interface's error code."""
-    n = cfg.fft_points
-    m_odd, n4, has2 = fft_plan(n)
+    out (B, F, M), both contiguous float32 on the kernel's device, F > 0;
+    ``used``, None or (B,) contiguous int64 there, the frames of each row
+    that are needed (:func:`ct_mel`).  Returns the C interface's error code."""
     c = _kernel_tensors(cfg, x.device)
-    kmax, nnz = _kernel_constants(cfg)[4], c["wpack"].numel()
-    return lib.ct_mel_launch(
-        x.data_ptr(), c["win"].data_ptr(), c["tw"].data_ptr(), c["wpack"].data_ptr(),
-        c["ranges"].data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], out.shape[1],
-        cfg.frame_step, n, m_odd, n4, has2, kmax, nnz, cfg.num_filters,
-        frames_per_block(n, nnz), stream,
-    )
+    return lib.ct_mel_launch(x.data_ptr(), *c["tables"], out.data_ptr(),
+                             None if used is None else used.data_ptr(), x.shape[0], x.shape[1],
+                             out.shape[1], *c["sizes"], stream)
 
 
-def ct_mel(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+def ct_mel(signal: torch.Tensor, cfg: FeatureConfig,
+           used: Optional[torch.Tensor] = None) -> torch.Tensor:
     """librosa mel power spectrogram, (..., T) -> (..., F, M) frame-major,
     centre padding included.  A CUDA tensor launches the kernel (and counts
-    the launch); a CPU tensor runs :func:`ct_mel_plain`."""
+    the launch); a CPU tensor runs :func:`ct_mel_plain`.
+
+    ``used``, (...,) int64 on the signal's device, the frames of each row
+    that the caller needs (ragged rows padded to the longest): path 1 then
+    runs only the 16-frame tiles that hold a row's first ``used`` frames and
+    leaves the later frames' values unspecified; paths 2 and 3 and the plain
+    version compute every frame."""
     if not ct_mel_supported(cfg):
         raise ValueError("config not supported by the CT mel kernel")
     if not signal.is_cuda:
@@ -280,13 +293,27 @@ def ct_mel(signal: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
     out = torch.empty((x.shape[0], count, m), dtype=torch.float32, device=x.device)
     if count == 0 or x.shape[0] == 0:
         return out.reshape(lead + out.shape[1:])
+    if used is not None:
+        used = used.reshape(-1)
+        if used.numel() != x.shape[0] or used.dtype != torch.int64 or used.device != x.device:
+            raise ValueError(f"used: (...,) int64 on {x.device} for rows {tuple(lead)}")
+        used = used.contiguous()
+    guard, stream = launch_stream(x.device)
+    with guard:
+        launch(x, cfg, out, stream, used)
+    return out.reshape(lead + out.shape[1:])
+
+
+def launch(x: torch.Tensor, cfg: FeatureConfig, out: torch.Tensor, stream: int,
+           used: Optional[torch.Tensor] = None) -> None:
+    """One launch of the kernel on x (B, T), centre-padded, into out (B, F,
+    M), F > 0, and ``used`` (B,) or None (:func:`ct_mel`), contiguous on the
+    current device; raises on the C interface's error and counts the launch
+    (``ct_mel.launches``, ``path_launches``)."""
     lib = _lib()
-    with torch.cuda.device(x.device):
-        err = _launch(lib, x, cfg, out, torch.cuda.current_stream().cuda_stream)
-    _check(lib, err, "ct_mel_launch")
+    _check(lib, _launch(lib, x, cfg, out, stream, used), "ct_mel_launch")
     ct_mel.launches += 1
     path_launches[path_for(cfg)].launches += 1
-    return out.reshape(lead + out.shape[1:])
 
 
 ct_mel.launches = 0

@@ -427,6 +427,75 @@ __device__ __forceinline__ void tile_loop(float* smem, long long slab_floats, co
   cp_async_wait<0>();
 }
 
+// tile_loop over ragged rows: row b keeps only the tiles that hold one of its
+// first used[b] frames (none where used[b] <= 0, all tiles_per_row at most);
+// the tiles of its later frames are not staged, not run, not written.  The
+// kept tiles, numbered in row order, are dealt j to block j % gridDim.x, so
+// every block takes as many as any other, one more at most, however the
+// rows' lengths fall.  A block finds the row of its next tile by a cursor
+// that only moves on: each warp holds the kept-tile counts of 32 rows in
+// turn, a row a lane, with their prefix sums, and reads the next 32 when the
+// tile is past them (every warp the same, so the block agrees).  rows > 0.
+template <class Body>
+__device__ __forceinline__ void ragged_tile_loop(float* smem, long long slab_floats,
+                                                 const float* sig, long long T, long long rows,
+                                                 int tiles_per_row, const long long* used,
+                                                 int tile_f, int hop, int len, Body body) {
+  const int lane = threadIdx.x & 31;
+  long long base = -32, before = 0, k = 0, s = 0, total = 0;  // the window of 32 rows
+  auto window = [&]() {  // the next 32 rows: each lane's kept tiles and prefix sum
+    before += total;
+    base += 32;
+    const long long r = base + lane;
+    const long long u = r < rows ? __ldg(used + r) : 0;
+    k = u > 0 ? min((u + tile_f - 1) / tile_f, (long long)tiles_per_row) : 0;
+    s = k;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long v = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += v;
+    }
+    total = __shfl_sync(0xffffffffu, s, 31);
+  };
+  // the row and first frame of kept tile j (j never decreases); false past the last
+  auto seek = [&](long long j, long long& b, int& f0) {
+    while (j >= before + total) {
+      if (base + 32 >= rows) return false;
+      window();
+    }
+    const int l = __ffs(__ballot_sync(0xffffffffu, before + s > j)) - 1;
+    b = base + l;
+    f0 = (int)(j - before - __shfl_sync(0xffffffffu, s - k, l)) * tile_f;
+    return true;
+  };
+  auto stage = [&](long long b, int f0, int buf) {
+    const long long left = T - (long long)f0 * hop;
+    stage_tile(smem + buf * slab_floats, sig + b * T + (long long)f0 * hop,
+               (int)(left < len ? left : len), len);
+  };
+
+  long long j = blockIdx.x, b = 0, nb = 0;
+  int f0 = 0, nf0 = 0, cur = 0;
+  bool have = seek(j, b, f0);
+  if (have) stage(b, f0, cur);
+  cp_async_commit();
+  while (have) {
+    j += gridDim.x;
+    const bool next = seek(j, nb, nf0);
+    if (next) stage(nb, nf0, cur ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copy is done; the next may run on
+    __syncthreads();
+    body(smem + cur * slab_floats + tile_head(sig + b * T + (long long)f0 * hop), b, f0);
+    __syncthreads();  // every warp is done with this slab before it refills
+    cur ^= 1;
+    b = nb;
+    f0 = nf0;
+    have = next;
+  }
+  cp_async_wait<0>();
+}
+
 // ------------------------------------------------------ launch planning ----
 constexpr int kMaxSmem = 232448;  // 227 KB, the per-block limit
 constexpr int kMaxWarps = 8;      // warps of a persistent block, at most

@@ -118,16 +118,17 @@ _wrappers: list = []
 
 def _kernels() -> tuple:
     """The kernel wrappers whose launches a graph counts (K1, K2, the
-    speechpy edge sums, the speechpy heads, the Whisper finish), then K2's
-    launches by path (``ct_mel``'s ``path_launches``, 1, 2, 3): the modules' own,
-    whatever a check puts in their place meanwhile (it does so under
-    :func:`disabled`)."""
+    speechpy edge sums, the speechpy heads, the Whisper finish, the NeMo
+    prologue and finish), then K2's launches by path (``ct_mel``'s
+    ``path_launches``, 1, 2, 3): the modules' own, whatever a check puts in
+    their place meanwhile (it does so under :func:`disabled`)."""
     if not _wrappers:
-        from ..ops.cuda import (ct_mel, speechpy_edges, speechpy_heads, speechpy_mfcc,
-                                whisper_logmel)
+        from ..ops.cuda import (ct_mel, nemo_logmel, speechpy_edges, speechpy_heads,
+                                speechpy_mfcc, whisper_logmel)
 
         _wrappers.extend((speechpy_mfcc.mfcc_fused, ct_mel.ct_mel, speechpy_edges.edge_sums,
                           speechpy_heads.heads, whisper_logmel.whisper_logmel,
+                          nemo_logmel.nemo_prologue, nemo_logmel.nemo_finish,
                           *ct_mel.path_launches.values()))
     return tuple(_wrappers)
 

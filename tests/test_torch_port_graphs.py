@@ -37,6 +37,7 @@ from mfcc_rust_tpu_torch import features as PF
 from mfcc_rust_tpu_torch import transforms as T
 from mfcc_rust_tpu_torch.models import pipelines as PP
 from mfcc_rust_tpu_torch.ops.cuda import ct_mel as k2
+from mfcc_rust_tpu_torch.ops.cuda import nemo_logmel as kn
 from mfcc_rust_tpu_torch.ops.cuda import speechpy_edges as ke
 from mfcc_rust_tpu_torch.ops.cuda import speechpy_heads as kh
 from mfcc_rust_tpu_torch.ops.cuda import speechpy_mfcc as k1
@@ -339,19 +340,22 @@ def test_tensor_cache_is_safe_across_threads():
 def test_launches_count_per_replay_and_captures_count_none(replayed):
     """A capture's counts are taken back and added per replay: the first
     call counts its warm-up's launch, each later call its replay's: K1's,
-    K2's (and K2's by path), the speechpy edge sums', the speechpy heads'
-    and the Whisper finish's counters alike."""
+    K2's (and K2's by path), the speechpy edge sums', the speechpy heads',
+    the Whisper finish's and the NeMo prologue's and finish's counters
+    alike."""
     def fn(s):
         k1.mfcc_fused.launches += 1  # as the wrapper counts a launch
         ke.edge_sums.launches += 2
         kh.heads.launches += 3
         kw.whisper_logmel.launches += 2
+        kn.nemo_prologue.launches += 1
+        kn.nemo_finish.launches += 2
         k2.ct_mel.launches += 1
         k2.path_launches[3].launches += 1
         return s * 2.0
 
     k1.mfcc_fused.launches = k2.ct_mel.launches = ke.edge_sums.launches = kh.heads.launches = 0
-    kw.whisper_logmel.launches = 0
+    kw.whisper_logmel.launches = kn.nemo_prologue.launches = kn.nemo_finish.launches = 0
     for c in k2.path_launches.values():
         c.launches = 0
     x = torch.ones(4)
@@ -359,13 +363,14 @@ def test_launches_count_per_replay_and_captures_count_none(replayed):
         out = _run(("double",), fn, x)
         assert torch.equal(out, torch.full((4,), 2.0))
         assert (k1.mfcc_fused.launches, k2.ct_mel.launches, ke.edge_sums.launches,
-                kh.heads.launches, kw.whisper_logmel.launches) == (calls, calls, 2 * calls,
-                                                                   3 * calls, 2 * calls)
+                kh.heads.launches, kw.whisper_logmel.launches, kn.nemo_prologue.launches,
+                kn.nemo_finish.launches) == (calls, calls, 2 * calls, 3 * calls, 2 * calls,
+                                             calls, 2 * calls)
         assert k2.path_counts() == {1: 0, 2: 0, 3: calls}
     (g,) = replayed._graphs.values()
-    assert g.launches == (1, 1, 2, 3, 2, 0, 0, 1) and g.graph.replays == 2
+    assert g.launches == (1, 1, 2, 3, 2, 1, 2, 0, 0, 1) and g.graph.replays == 2
     k1.mfcc_fused.launches = k2.ct_mel.launches = ke.edge_sums.launches = kh.heads.launches = 0
-    kw.whisper_logmel.launches = 0
+    kw.whisper_logmel.launches = kn.nemo_prologue.launches = kn.nemo_finish.launches = 0
     k2.path_launches[3].launches = 0
 
 
