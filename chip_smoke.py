@@ -11,7 +11,10 @@ launch count set to 0, failing unless the path's kernel launched:
   (the MFCC-13 default) through kernel K1, ``speechpy_mfcc``;
 * librosa: ``mfcc_rust_tpu_torch.mel_spectrogram_librosa`` on B=32 x 10 s at
   22,050 Hz (n_fft 2048, hop 512, 128 slaney mels) through kernel K2,
-  ``ct_mel``, then ``log_mel_spectrogram`` and ``mfcc_librosa``;
+  ``ct_mel``, then ``log_mel_spectrogram`` and ``mfcc_librosa``; K2's entry
+  in the kernels line times the main path's launch (the unpadded rows, K2
+  staging the centre pad), its ``padded_ms`` the graphed path's launch on
+  the padded, bucketed copy;
 * speechpy suite: ``resample`` of B=48 x 10 s at 44.1 kHz to 16 kHz, one
   ``extract`` of all five speechpy heads, the vorbis ``mel_spectrogram``,
   then ``cmvnw``, ``cmvn``, ``delta``, ``delta_librosa`` and the derivative
@@ -91,9 +94,12 @@ launch count set to 0, failing unless the path's kernel launched:
   beside it with its share of HBM, K2 on path 1 at the librosa cells'
   batches in the same turns, the centre pad and the whole
   ``api.log_mel_spectrogram_whisper`` call timed, its launches (K2 once on
-  path 3, the finish's two kernels, the direct path) and its errors
-  against the plain path and the float64 reference; the finish's own entry
-  in the kernels line;
+  path 3, staging the centre pad itself, the finish's two kernels, the
+  direct path) and its errors against the plain path and the float64
+  reference; at the three cells' batches the centred launch that stages
+  the reflect pad timed beside the pad and an uncentred launch, equal to
+  it bit for bit and within 1e-4 of the plain version; the finish's own
+  entry in the kernels line;
 * nemo: NeMo FastConformer's log-mel front end (``nemo_phase``) at the NeMo
   cell's 64 ragged rows (lognormal ~6 s, up to 35 s, the lengths on the
   card), 128 mels: the prologue kernel, K2 on path 1 at 512/160/128 and the
@@ -108,7 +114,7 @@ launch count set to 0, failing unless the path's kernel launched:
   pipeline class and ``FeatureExtractor`` at 48 x 10 s, 16 kHz, or 32 x
   10 s, 22,050 Hz, each call with the counts zeroed just before: one
   capture, then replays (``api.mfcc``, one launch of K1 in place, and
-  ``api.mel_spectrogram_librosa``, the centre pad and K2 in place, neither);
+  ``api.mel_spectrogram_librosa``, one launch of K2 in place, neither);
   launches a call equal to the eager call's;
   replays within 1e-6 of eager, and on the K1/K2 paths within 1e-4 of the
   plain kernels and within the float64 oracles; host µs to enqueue and
@@ -310,9 +316,21 @@ def librosa_phase(np, torch, P, k1, k2, flush, chip) -> tuple:
     assert main_rel <= REL_TOL, main_rel
     assert rel_err(mel, out_k[:, :count].transpose(1, 2))[0] == 0.0, \
         "main path differs from the kernel"
+    # the main path's own launch: K2 on the unpadded rows, staging the pad
+    x_true = torch.from_numpy(audio).to(dev)
+    r0 = k2.reflect_launches.launches
+    out_s = k2.ct_mel(x_true, cfg)
+    assert k2.reflect_launches.launches == r0 + 1, "K2 did not stage the centre pad"
+    assert rel_err(mel, out_s.transpose(1, 2))[0] == 0.0, "main path differs from the kernel"
+    staged_rel, staged_abs = rel_err(out_s, k2.ct_mel_plain(x_true, cfg))
+    log(f"K2 staging the centre pad at {tuple(x_true.shape)} vs plain: rel {staged_rel:.3e} "
+        f"abs {staged_abs:.3e}")
+    assert staged_rel <= REL_TOL, staged_rel
+    del out_s, x_true
     rec["main_path"] = {"shape": [L_BATCH, t_true], "bucket": list(x_main.shape),
                         "frames": out_k.shape[1], "kept": count, "launches": launches,
-                        "first_call_s": first_s, "rel": main_rel, "abs": main_abs}
+                        "first_call_s": first_s, "rel": main_rel, "abs": main_abs,
+                        "staged_rel": staged_rel, "staged_abs": staged_abs}
 
     small = [
         ("1024/256", P.librosa_config(16000, n_fft=1024, hop_length=256), (2, 16000)),
@@ -385,14 +403,15 @@ def librosa_phase(np, torch, P, k1, k2, flush, chip) -> tuple:
     # ----------------------------------------------------------- timing -----
     def yardstick(x, c):
         """Three library calls that the port never makes: cuFFT STFT
-        (periodic hann, uncentred), |X|^2, the dense filterbank product."""
+        (periodic hann, centred in reflect mode as ``c`` says), |X|^2, the
+        dense filterbank product."""
         fb = torch.as_tensor(constant_bundle(c)["fbank"], dtype=torch.float32, device=dev)
         win = torch.as_tensor(constant_bundle(c)["window"], dtype=torch.float32, device=dev)
 
         def run():
             with fp32_matmul():
-                st = torch.stft(x, c.fft_points, c.frame_step, window=win, center=False,
-                                return_complex=True)
+                st = torch.stft(x, c.fft_points, c.frame_step, window=win, center=c.center,
+                                pad_mode="reflect", return_complex=True)
                 return torch.matmul(fb, st.abs() ** 2)
         return run
 
@@ -401,20 +420,24 @@ def librosa_phase(np, torch, P, k1, k2, flush, chip) -> tuple:
                                   ("512/160/80", P.librosa_config(
                                       16000, n_fft=512, hop_length=160, n_mels=80), 48, 16000)):
         au = rng.normal(0.0, 0.1, (batch, SECONDS * rate)).astype(np.float32)
-        xb, cb = padded(au, c)
+        xu, (xb, cb) = torch.from_numpy(au).to(dev), padded(au, c)
         plan_t = k2.launch_plan(cb, batch, 1 + (xb.shape[1] - c.fft_points) // c.frame_step)
         log(f"K2 launch plan, {label} at {tuple(xb.shape)}: {plan_t}")
         _, _, wp, _, km = k2._kernel_constants(cb)
         a = (c.fft_points, c.frame_step, km, wp.size, c.num_filters)
         assert plan_t["path"] == 1 and plan_t["warps"] == k2.fft_warps(*a), (label, plan_t)
         assert plan_t["smem_bytes"] == k2.fft_smem_bytes(*a, plan_t["warps"]), (label, plan_t)
-        yard = yardstick(xb, cb)
-        y_rel, _ = rel_err(yard().transpose(1, 2), k2.ct_mel(xb, cb))
+        # "kernel": the main path's launch on the unpadded rows, K2 staging
+        # the centre pad; "padded": the graphed path's, on its padded and
+        # bucketed copy
+        yard = yardstick(xu, c)
+        y_rel, _ = rel_err(yard().transpose(1, 2), k2.ct_mel(xu, c))
         assert y_rel <= REL_TOL, ("yardstick disagrees", label, y_rel)
-        runs = {"kernel": lambda: k2.ct_mel(xb, cb), "plain": lambda: k2.ct_mel_plain(xb, cb),
-                "yardstick": yard}
+        runs = {"kernel": lambda: k2.ct_mel(xu, c), "padded": lambda: k2.ct_mel(xb, cb),
+                "plain": lambda: k2.ct_mel_plain(xu, c), "yardstick": yard}
         times = {k: [] for k in runs}
-        for order in (("plain", "kernel", "yardstick"), ("yardstick", "kernel", "plain")):
+        for order in (("plain", "padded", "kernel", "yardstick"),
+                      ("yardstick", "kernel", "padded", "plain")):
             for k in order:
                 times[k] += cuda_ms(torch, runs[k], 10, flush)
         med = {k: statistics.median(v) for k, v in times.items()}
@@ -425,20 +448,27 @@ def librosa_phase(np, torch, P, k1, k2, flush, chip) -> tuple:
                                       n_mels=c.num_filters)
             torch.cuda.synchronize()
             host.append(time.perf_counter() - t0)
-        w = prof.work(cb, "mel_spectrogram_librosa", xb.shape[0], xb.shape[1])
+        w = prof.work(c, "mel_spectrogram_librosa", batch, au.shape[1])
         assert w["lowering"] == "k2", w["lowering"]
-        flops, nbytes, least = w["flops"], w["bytes"], w["least_flops"]
-        v4_flops, _ = prof.k2_work_stockham(cb, xb.shape[0], xb.shape[1])
+        # the work model counts the centre-padded rows read; the staged
+        # launch reads the unpadded ones, once
+        half = c.fft_points // 2
+        flops, least = w["flops"], w["least_flops"]
+        nbytes = w["bytes"] - 4.0 * batch * 2 * half
+        v4_flops, _ = prof.k2_work_stockham(c.replace(center=False), batch,
+                                            au.shape[1] + 2 * half)
         bound_s, bound_by = prof.bound_seconds(least, nbytes, chip)
         t_bytes = nbytes / (chip["hbm_gbs"] * 1e9)
         timing[label] = {
-            "shape": list(xb.shape), "times_ms": times, "median_ms": med,
+            "shape": list(xu.shape), "padded_shape": list(xb.shape), "times_ms": times,
+            "median_ms": med,
             "api_ms": statistics.median(host) * 1e3, "api_ms_all": [h * 1e3 for h in host],
             "flops": flops, "bound_flops": least, "bytes": nbytes,
             "bound_ms": 1e3 * bound_s, "bound_by": bound_by, "yardstick_rel": y_rel,
             "plan": plan_t, "v4_flops": v4_flops,
         }
-        log(f"K2 times, {label} at {tuple(xb.shape)}, median of {len(times['kernel'])}: "
+        log(f"K2 times, {label} at {tuple(xu.shape)} (padded: {tuple(xb.shape)}), "
+            f"median of {len(times['kernel'])}: "
             + ", ".join(f"{k} {med[k]:.4f} ms" for k in runs)
             + f"; api from host numpy {timing[label]['api_ms']:.3f} ms")
         log(f"K2 work, {label}: {least / 1e9:.3f} GFLOP (the least count known), "
@@ -470,8 +500,9 @@ def librosa_phase(np, torch, P, k1, k2, flush, chip) -> tuple:
         "name": k2.KERNEL, "route": "cuda",
         "source": "mfcc_rust_tpu_torch/ops/cuda/ct_mel.cu",
         "replaces": "mfcc_rust_tpu/ops/pallas/ct_mel.py:319",
-        "launches": launches, "max_abs_err": main_abs,
-        "ms": head["median_ms"]["kernel"], "plain_ms": head["median_ms"]["plain"],
+        "launches": launches, "max_abs_err": rec["main_path"]["staged_abs"],
+        "ms": head["median_ms"]["kernel"], "padded_ms": head["median_ms"]["padded"],
+        "plain_ms": head["median_ms"]["plain"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["median_ms"]["yardstick"], "path": plan["path"],
     }
@@ -2263,7 +2294,7 @@ def entry_phase(np, torch, PF, k1, k2) -> dict:
 # ------------------------------------------------------------ compiled --
 COMPILED_TOL = 1e-6  # a replay against the eager call, max|Δ|/max|ref|
 # the paths that launch one kernel on the caller's signal, K1 (api._k1_alone)
-# or the centre pad and K2 (api._k2_alone): no graph
+# or K2, which stages the centre pad (api._k2_alone): no graph
 DIRECT_PATHS = ("api.mfcc", "api.mel_spectrogram_librosa")
 PROFILE_CALLS, PROFILE_CHUNK = 1000, 8
 PROFILE_SPIN = 40_000_000  # ~20 ms of device spin ahead of each chunk of calls
@@ -2303,7 +2334,7 @@ def _compare(got, ref) -> tuple:
 
 def compiled_paths(P, bench):
     """Every entry point of the compiled-call layer (those of
-    :data:`DIRECT_PATHS` launch K1, or the centre pad and K2, in place, the
+    :data:`DIRECT_PATHS` launch K1, or K2, in place, the
     others replay a CUDA graph), at the two full-width shapes: (name, function of a device
     batch, family, (K1, K2) launches of one call, oracle of one row or
     None, the oracle's rule).  The speechpy
@@ -2746,10 +2777,16 @@ def whisper_phase(np, torch, P, PF, k2, flush, chip, k2_log: str = "") -> dict:
     (64, 128, 3,000) answer out) and ``bound_ms``; K2 again at the librosa
     128 and librosa 80 cells' batches (path 1 asserted, timed in the same
     turns); the centre pad and the whole API call timed the same way; the
-    API call's launches (K2 once, on path 3, the finish's two kernels) and
-    its errors against the plain path (``pallas="off"`` on the card, 5e-4)
-    and the float64 reference (``tests/golden/whisper_ref.py``).  Returns
-    the kernels line's entry of the finish and the phase's record."""
+    API call's launches (K2 once, on path 3, staging the reflect pad, the
+    finish's two kernels) and its errors against the plain path
+    (``pallas="off"`` on the card, 5e-4) and the float64 reference
+    (``tests/golden/whisper_ref.py``).  At the Whisper and the two librosa
+    cells' batches, K2's centred launch (``ct_mel`` on the unpadded rows,
+    the kernel staging the reflect pad) against the centre pad and an
+    uncentred launch: equal bit for bit, within 1e-4 of the plain version,
+    and both timed in the same turns (``staged_*`` and ``pad_launch_*``).
+    Returns the kernels line's entry of the finish and the phase's
+    record."""
     from mfcc_rust_tpu_torch import api as PA
     from mfcc_rust_tpu_torch.ops import framing
     from mfcc_rust_tpu_torch.ops.cuda import whisper_logmel as wl
@@ -2788,14 +2825,16 @@ def whisper_phase(np, torch, P, PF, k2, flush, chip, k2_log: str = "") -> dict:
 
     k2.ct_mel.launches = wl.whisper_logmel.launches = 0
     direct0, paths0 = PA.paths.read()["direct"], k2.path_counts()
+    reflect0 = k2.reflect_launches.launches
     out = P.log_mel_spectrogram_whisper(x, n_mels=W_MELS)
     torch.cuda.synchronize()
     paths1 = k2.path_counts()
     launches = {"k2": k2.ct_mel.launches, "finish": wl.whisper_logmel.launches,
                 "direct": PA.paths.read()["direct"] - direct0,
-                "k2_by_path": {p: paths1[p] - paths0[p] for p in paths1}}
+                "k2_by_path": {p: paths1[p] - paths0[p] for p in paths1},
+                "k2_reflect": k2.reflect_launches.launches - reflect0}
     assert launches == {"k2": 1, "finish": 2, "direct": 1,
-                        "k2_by_path": {1: 0, 2: 0, 3: 1}}, launches
+                        "k2_by_path": {1: 0, 2: 0, 3: 1}, "k2_reflect": 1}, launches
     assert out.is_contiguous() and tuple(out.shape) == (W_ROWS, W_MELS, frames - 1)
     plain = PF.whisper_log_mel(x, cfg.replace(pallas="off"))
     api_plain = (out.double() - plain.double()).abs().max().item()
@@ -2814,8 +2853,8 @@ def whisper_phase(np, torch, P, PF, k2, flush, chip, k2_log: str = "") -> dict:
             ("k2_librosa128", P.librosa_config(22050), 32, 220_500),
             ("k2_librosa80", P.librosa_config(16000, n_fft=512, hop_length=160, n_mels=80),
              64, 160_000)):
-        xl = framing.center_pad(torch.from_numpy(rng.normal(0.0, 0.1, (rows, samples))
-                                                 .astype(np.float32)).to(dev), c)
+        xu = torch.from_numpy(rng.normal(0.0, 0.1, (rows, samples)).astype(np.float32)).to(dev)
+        xl = framing.center_pad(xu, c)
         cl = c.replace(center=False)
         before = k2.path_counts()
         got_l = k2.ct_mel(xl, cl)
@@ -2823,14 +2862,30 @@ def whisper_phase(np, torch, P, PF, k2, flush, chip, k2_log: str = "") -> dict:
         assert {p: after[p] - before[p] for p in after} == {1: 1, 2: 0, 3: 0}, label
         l_rel, _ = rel_err(got_l, k2.ct_mel_plain(xl, cl))
         assert l_rel <= REL_TOL, (label, l_rel)
-        librosa[label] = (xl, cl, l_rel)
+        librosa[label] = (xl, cl, l_rel, xu, c)
     runs = {"pad": lambda: framing.center_pad(x, cfg), "k2": lambda: k2.ct_mel(xp, cu),
             "k2_plain": lambda: k2.ct_mel_plain(xp, cu),
             "finish": lambda: wl.whisper_logmel(power),
             "finish_plain": lambda: wl.whisper_logmel_plain(power),
             "api": lambda: P.log_mel_spectrogram_whisper(x, n_mels=W_MELS)}
-    for label, (xl, cl, _) in librosa.items():
+    for label, (xl, cl, *_) in librosa.items():
         runs[label] = lambda xl=xl, cl=cl: k2.ct_mel(xl, cl)
+    # the reflect pad staged by K2 against the pad and an uncentred launch
+    staged = {"whisper": (x, cfg, xp, cu)}
+    for label, (xl, cl, _, xu, c) in librosa.items():
+        staged[label[3:]] = (xu, c, xl, cl)
+    staged_rel = {}
+    for label, (xu, c, xl, cl) in staged.items():
+        r0 = k2.reflect_launches.launches
+        got_s = k2.ct_mel(xu, c)
+        assert k2.reflect_launches.launches == r0 + 1, (label, "K2 did not stage the pad")
+        assert torch.equal(got_s, k2.ct_mel(xl, cl)), (label, "staged pad off the padded launch")
+        staged_rel[label], _ = rel_err(got_s, k2.ct_mel_plain(xu, c))
+        assert staged_rel[label] <= REL_TOL, (label, staged_rel[label])
+        del got_s
+        runs[f"staged_{label}"] = lambda xu=xu, c=c: k2.ct_mel(xu, c)
+        runs[f"pad_launch_{label}"] = lambda xu=xu, c=c, cl=cl: k2.ct_mel(
+            framing.center_pad(xu, c), cl)
     times = {name: [] for name in runs}
     for order in (tuple(runs), tuple(reversed(tuple(runs)))):
         for name in order:
@@ -2856,6 +2911,11 @@ def whisper_phase(np, torch, P, PF, k2, flush, chip, k2_log: str = "") -> dict:
         f"librosa 128 / 80 cells' batches {1e3 * med['k2_librosa128']:.1f} / "
         f"{1e3 * med['k2_librosa80']:.1f} us (rel {librosa['k2_librosa128'][2]:.2e} / "
         f"{librosa['k2_librosa80'][2]:.2e})")
+    for label in staged:
+        a, b = med[f"staged_{label}"], med[f"pad_launch_{label}"]
+        log(f"whisper: K2 staging the reflect pad at the {label} cell's batch "
+            f"{1e3 * a:.1f} us against the pad and an uncentred launch {1e3 * b:.1f} us "
+            f"({1e3 * (b - a):.1f} us saved; bitwise equal; rel {staged_rel[label]:.2e} of plain)")
     for name, e in entries.items():
         log(f"whisper {name}: {1e3 * e['ms']:.1f} us, {e['bytes'] / 1e6:.1f} MB, "
             f"{100 * e['hbm_share']:.1f}% of HBM, bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
@@ -2870,7 +2930,8 @@ def whisper_phase(np, torch, P, PF, k2, flush, chip, k2_log: str = "") -> dict:
               "median_ms": med, "times_ms": times, "launches": launches,
               "errors": {"k2_rel": k2_rel, "finish": fin_err, "api_vs_plain": api_plain,
                          "api_vs_float64": api_ref, "plain_vs_float64": plain_ref,
-                         **{f"{k}_rel": v[2] for k, v in librosa.items()}}}
+                         **{f"{k}_rel": v[2] for k, v in librosa.items()},
+                         **{f"staged_{k}_rel": v for k, v in staged_rel.items()}}}
     return entry, record
 
 

@@ -31,8 +31,8 @@ A call that is one kernel launch needs no graph: ``mfcc`` whose lowering
 is K1 alone (:func:`_k1_alone`), and ``mel_spectrogram_librosa`` whose
 lowering is K2 alone (:func:`_k2_alone`), launch the kernel once on the
 caller's stream, reading the caller's signal where it lies at its true
-length (behind one launch of the centre pad, :func:`.ops.framing.center_pad`,
-for K2), into a fresh result of exactly the frames the call returns
+length (K2 stages the reflect centre pad's edges itself, so the pad is no
+launch), into a fresh result of exactly the frames the call returns
 (:func:`_direct`, span ``api.direct``); ``bucket`` changes nothing there,
 as no frame it would add was ever returned.  ``log_mel_spectrogram_whisper``
 takes the same path with K2, then the Whisper finish
@@ -126,9 +126,9 @@ def _rows(x: torch.Tensor) -> int:
 class PathCount:
     """Cumulative calls of the feature entry points of both families (those
     through :func:`_run` or :func:`_direct`, and NeMo's) by the path each
-    took: ``direct`` (one launch of K1, or the centre pad and one launch of
-    K2, and for Whisper the finish, or for NeMo its prologue, K2 and its
-    finish, on the caller's signal), ``graphed`` (through
+    took: ``direct`` (one launch of K1 or of K2, and for Whisper the
+    finish, or for NeMo its prologue, K2 and its finish, on the caller's
+    signal), ``graphed`` (through
     :data:`.utils.graphs.cache`) and ``eager``."""
 
     DIRECT, GRAPHED, EAGER = range(3)
@@ -226,25 +226,22 @@ def _k1_alone(cfg: FeatureConfig, x: torch.Tensor, dev: torch.device) -> bool:
             and not graphs.runs_eagerly(x, dev))
 
 
-def _direct(kernel, x: torch.Tensor, cfg: FeatureConfig, dev: torch.device,
-            pad=_framing.center_pad):
-    """``kernel(signal, config)`` where :func:`_k1_alone` or
-    :func:`_k2_alone` (or NeMo's :func:`_nemo_direct`): launched once on the
-    caller's current stream, reading ``x`` where it lies (moved to ``dev``
-    and float32 only if it is not there already) at its true length n,
-    padded there by ``pad(signal, config)`` (by default the centre pad when
-    ``cfg.center``, :func:`.ops.framing.center_pad`, one launch; None where
-    the kernel pads, as NeMo's launches do with their prologue), no bucket
-    and no static input, into a fresh result
-    of exactly the frames the call returns, each read from samples below n
-    or their reflection."""
+def _direct(kernel, x: torch.Tensor, cfg: FeatureConfig, dev: torch.device):
+    """``kernel(signal, cfg)`` where :func:`_k1_alone` or :func:`_k2_alone`
+    (or NeMo's :func:`_nemo_direct`): launched once on the caller's current
+    stream, reading ``x`` where it lies (moved to ``dev`` and float32 only if
+    it is not there already) at its true length n, no bucket and no static
+    input, into a fresh result of exactly the frames the call returns, each
+    read from samples below n or their reflection.  Nothing is padded here:
+    a centred call's kernel pads (K2 stages the reflect pad's edges,
+    ``ops/cuda/ct_mel``; NeMo's prologue writes its zero pad), and the
+    samples counted are the centre-padded length."""
     with span("api.direct"):
         sig = x.to(device=dev, dtype=torch.float32)
-        if pad is not None:
-            sig = pad(sig, cfg)
-        bucketing.samples.add(_rows(sig), sig.shape[-1], sig.shape[-1])
+        t = sig.shape[-1] + (2 * (cfg.fft_points // 2) if cfg.center else 0)
+        bucketing.samples.add(_rows(sig), t, t)
         paths.add(PathCount.DIRECT)
-        return kernel(sig, _uncentred(cfg) if cfg.center else cfg)
+        return kernel(sig, cfg)
 
 
 def _frames_nopad(cfg: FeatureConfig, true_len: int) -> int:
@@ -451,20 +448,21 @@ def _librosa_lowering(cfg: FeatureConfig, device_type: str) -> str:
 
 
 def _k2_alone(cfg: FeatureConfig, x: torch.Tensor, dev: torch.device) -> bool:
-    """Whether a librosa mel spectrogram of ``x`` computing on ``dev`` is the
-    centre pad and one launch of K2: its lowering is the CT mel kernel
+    """Whether a librosa mel spectrogram of ``x`` computing on ``dev`` is one
+    launch of K2: its lowering is the CT mel kernel
     (:func:`.features.librosa_lowering`), on a call that would otherwise
-    replay a graph (:func:`.utils.graphs.runs_eagerly` false), of more than
-    n_fft // 2 samples when centred (the reflect pad then folds at most
-    once, one launch of :func:`.ops.framing.pad_signal`; shorter clips keep
-    the graph), of at least one otherwise."""
-    return (x.shape[-1] > (cfg.fft_points // 2 if cfg.center else 0)
+    replay a graph (:func:`.utils.graphs.runs_eagerly` false), centred, of
+    a length at which K2 stages the centre pad itself
+    (:func:`.ops.cuda.ct_mel.staged_half`: the reflect pad folds at most
+    once; shorter clips keep the graph), of at least one sample otherwise."""
+    return ((_k2.staged_half(x, cfg) > 0 if cfg.center else x.shape[-1] > 0)
             and _librosa_lowering(cfg, dev.type) == "k2"
             and not graphs.runs_eagerly(x, dev))
 
 
 def _k2_mel(sig: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
-    """K2 on a centre-padded signal, (..., n_mels, frames)."""
+    """K2 on the caller's signal, its centre pad included, (..., n_mels,
+    frames)."""
     return _k2.ct_mel(sig, cfg).transpose(-1, -2)
 
 
@@ -472,7 +470,7 @@ def mel_spectrogram_librosa(y, sr=22050, n_fft=2048, hop_length=512, win_length=
                             n_mels=128, fmin=0.0, fmax=None, power=2.0, center=True,
                             bucket=True, device=None):
     """librosa-compatible mel spectrogram, (..., n_mels, frames).  A call that
-    is the centre pad and one launch of K2 (:func:`_k2_alone`) takes
+    is one launch of K2 (:func:`_k2_alone`) takes
     :func:`_direct`, where ``bucket`` changes nothing: no frame it would
     add was ever returned."""
     with span("api.mel_spectrogram_librosa"):
@@ -513,8 +511,8 @@ def _whisper_cfg(n_mels: int) -> FeatureConfig:
 
 
 def _whisper_k2(sig: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
-    """K2 on a centre-padded signal, then the Whisper finish:
-    (..., n_mels, frames - 1)."""
+    """K2 on the caller's signal, its centre pad included, then the Whisper
+    finish: (..., n_mels, frames - 1)."""
     return _wl.whisper_logmel(_k2.ct_mel(sig, cfg))
 
 
@@ -523,8 +521,8 @@ def log_mel_spectrogram_whisper(audio, n_mels=80, padding=0, bucket=True, device
     the floor 8 decades below each row's own maximum, as transformers'
     ``WhisperFeatureExtractor`` takes it for a batch): (..., n) float audio
     at 16 kHz, ``padding`` zeros appended first, -> (..., n_mels, (n +
-    padding) // 160), float32, contiguous.  Where the mel power is the
-    centre pad and one launch of K2 (:func:`_k2_alone`) the call takes
+    padding) // 160), float32, contiguous.  Where the mel power is one
+    launch of K2 (:func:`_k2_alone`) the call takes
     :func:`_direct` with the finish kernel after K2; else the mel power
     through :func:`_run` and :func:`.features.whisper_finish` of its true
     frames (a bucket's frames must not enter the row's maximum)."""
@@ -603,7 +601,7 @@ def log_mel_spectrogram_nemo(audio, lengths, n_mels=128, device=None):
         x, dev = torch.as_tensor(audio), resolve_device(device)
         n = _nemo_lengths(lengths, x, dev)
         if _nemo_direct(cfg, x, dev):
-            return _direct(lambda s, c: _nl.nemo_direct(s, n, c), x, cfg, dev, pad=None)
+            return _direct(lambda s, c: _nl.nemo_direct(s, n, c), x, cfg, dev)
         t = x.shape[-1] + cfg.fft_points
         bucketing.samples.add(_rows(x), t, t)
         paths.add(PathCount.EAGER)

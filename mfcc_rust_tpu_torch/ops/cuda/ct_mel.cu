@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel mfcc_rust_tpu/ops/pallas/ct_mel.py (ct_mel_pallas
 // / _kernel).  For each frame f of n samples starting at f*hop of the
-// (already centre-padded) signal row b:
+// centre-padded signal row b:
 //
 //   mel[b, f, m] = sum_k fb[m, k] * |rFFT(x_f * w)[k]|^2
 //
@@ -66,6 +66,19 @@
 //   with a block barrier between stages, the split and the sparse mel.
 //   The host picks G (<= 8) so that three blocks fit on an SM.
 //
+// The centre pad.  A launch with half = 0 reads rows already padded.  With
+// half = n/2 (librosa's and Whisper's reflect pad) it reads the caller's
+// rows of T samples unpadded, T > half, and builds the pad's edges where it
+// reads them (kReflect, every path but the ragged one): paths 1 and 3 stage
+// a tile from virtual sample f0*hop - half of its row, the row's own
+// samples by the 16-byte copies, the reflected ones (row[-p] before the
+// row, row[2T - 2 - p] past it) by 4-byte copies, with the slab's head
+// taken from the virtual sample so a sample and its slot still agree
+// modulo 16 bytes (stage_reflect in fft_regs.cuh); path 2 folds each
+// sample's index.  Every frame then reads the values the padded copy gave,
+// in the same order, so the output is the same bit for bit, without the
+// pad's launch, its write of the padded copy and the reread of it.
+//
 // Operations first: the TPU kernel factors n = 128 x 16 to fill the MXU and
 // spends ~1 MFLOP a frame on twiddle-folded GEMMs whose 1.97 MB of constants
 // it keeps in VMEM; every path here runs an FFT (~20x fewer operations) from
@@ -100,12 +113,15 @@ struct Layout {
   }
 };
 
+// kReflect: row b holds T samples that the frames read centre-padded by
+// half on each side in reflect mode (T > half), each sample's index folded.
+template <bool kReflect>
 __global__ void __launch_bounds__(kThreads, 3)
 ct_mel_kernel(const float* __restrict__ sig, const float* __restrict__ win,
               const float2* __restrict__ tw, const float* __restrict__ wpack,
               const int* __restrict__ ranges, float* __restrict__ out,
               long long T, int F, long long n_frames, int hop, int n, int m_odd,
-              int n4, int has2, int kmax, int nnz, int M, int G) {
+              int n4, int has2, int kmax, int nnz, int M, int G, int half) {
   extern __shared__ __align__(16) float smem[];
   const Layout lay(n, G, nnz);
   float* wts = smem + lay.wts;
@@ -124,10 +140,21 @@ ct_mel_kernel(const float* __restrict__ sig, const float* __restrict__ win,
   // z[t] = xw[2t] + i xw[2t+1]; a frame past the end is zeros (never written)
   if (live) {
     const long long b = fr / F;
-    const float* x = sig + b * T + (fr - b * F) * hop;
-    for (int t = lt; t < nc; t += tpf)
-      buf0[t] = make_float2(__ldg(x + 2 * t) * __ldg(win + 2 * t),
-                               __ldg(x + 2 * t + 1) * __ldg(win + 2 * t + 1));
+    if constexpr (kReflect) {
+      // virtual sample p of the row: row[-p] before it, row[2 T - 2 - p]
+      // past it (a frame ends before T + half)
+      const float* row = sig + b * T;
+      const long long v0 = (fr - b * F) * hop - half;
+      auto at = [&](long long p) { return __ldg(row + (p < 0 ? -p : p < T ? p : 2 * T - 2 - p)); };
+      for (int t = lt; t < nc; t += tpf)
+        buf0[t] = make_float2(at(v0 + 2 * t) * __ldg(win + 2 * t),
+                              at(v0 + 2 * t + 1) * __ldg(win + 2 * t + 1));
+    } else {
+      const float* x = sig + b * T + (fr - b * F) * hop;
+      for (int t = lt; t < nc; t += tpf)
+        buf0[t] = make_float2(__ldg(x + 2 * t) * __ldg(win + 2 * t),
+                                 __ldg(x + 2 * t + 1) * __ldg(win + 2 * t + 1));
+    }
   } else {
     for (int t = lt; t < nc; t += tpf) buf0[t] = make_float2(0.f, 0.f);
   }
@@ -242,7 +269,7 @@ inline int ct_path(int n, int hop, int kmax, int nnz, int m) {
 }
 
 struct Args {
-  const float* sig;      // (B, T) centre-padded
+  const float* sig;      // (B, T), centre-padded unless half > 0
   const float* win;      // (n,)
   const float2* tw;      // (n,) (cos, sin)(2 pi j / n)
   const float* wpack;    // (nnz,) each filter's weights over [lo, hi)
@@ -251,6 +278,7 @@ struct Args {
   const long long* used; // (B,) frames of each row that are needed (path 1), or null: all
   long long T, n_tiles;
   int F, tiles_per_row, hop, n, kmax, nnz, M;
+  int half;              // the reflect pad's half-width that the tiles stage (kReflect), or 0
 };
 
 // The frames of a tile: warp w's frame groups take frames w*FPW + g, then
@@ -339,9 +367,9 @@ __device__ __forceinline__ void tile_path1(const Args& A, const float* slab, con
 
 // Path 1's block: the constants into shared memory, then the persistent
 // tile loop of fft_regs.cuh over tiles of kTileF frames, every tile of every
-// row (tile_loop) or, kRagged, those holding a row's first A.used[b] frames
-// (ragged_tile_loop).
-template <int NC, bool kRagged>
+// row (tile_loop, the reflect pad's edges staged there where kReflect) or,
+// kRagged, those holding a row's first A.used[b] frames (ragged_tile_loop).
+template <int NC, bool kRagged, bool kReflect>
 __device__ __forceinline__ void path1_block(const Args& A) {
   extern __shared__ __align__(16) float smem[];
   const int nw = blockDim.x >> 5;
@@ -363,20 +391,20 @@ __device__ __forceinline__ void path1_block(const Args& A) {
     ragged_tile_loop(smem, lay.slab, A.sig, A.T, A.n_tiles / A.tiles_per_row, A.tiles_per_row,
                      A.used, kTileF, A.hop, (kTileF - 1) * A.hop + A.n, body);
   else
-    tile_loop(smem, lay.slab, A.sig, A.T, A.n_tiles, A.tiles_per_row, kTileF, A.hop,
-              (kTileF - 1) * A.hop + A.n, body);
+    tile_loop<kReflect>(smem, lay.slab, A.sig, A.T, A.n_tiles, A.tiles_per_row, kTileF, A.hop,
+                        (kTileF - 1) * A.hop + A.n, body, A.half);
 }
 
-template <int NC>
+template <int NC, bool kReflect>
 __global__ void __launch_bounds__(kMaxWarps * 32, NC == 1024 ? 1 : 2)
 ct_mel_fft_kernel(const Args A) {
-  path1_block<NC, false>(A);
+  path1_block<NC, false, kReflect>(A);
 }
 
 template <int NC>
 __global__ void __launch_bounds__(kMaxWarps * 32, NC == 1024 ? 1 : 2)
 ct_mel_ragged_kernel(const Args A) {
-  path1_block<NC, true>(A);
+  path1_block<NC, true, false>(A);
 }
 
 // The frames of a path-3 tile: lanes 8 g .. 8 g + 7 of warp w take frames
@@ -461,7 +489,9 @@ __device__ __forceinline__ void tile_path3(const Args& A, const float* slab, con
   }
 }
 
-// Path 3: the persistent tile loop over tiles of kTileF3 frames, at n = 400.
+// Path 3: the persistent tile loop over tiles of kTileF3 frames, at n = 400
+// (the reflect pad's edges staged there where kReflect).
+template <bool kReflect>
 __global__ void __launch_bounds__(kMaxWarps * 32, 2) ct_mel_fft200_kernel(const Args A) {
   extern __shared__ __align__(16) float smem[];
   const int nw = blockDim.x >> 5;
@@ -482,25 +512,27 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2) ct_mel_fft200_kernel(const 
   }
   for (int i = threadIdx.x; i < A.nnz; i += blockDim.x) wts[i] = __ldg(A.wpack + i);
   for (int i = threadIdx.x; i < 3 * A.M; i += blockDim.x) rng[i] = __ldg(A.ranges + i);
-  tile_loop(smem, lay.slab, A.sig, A.T, A.n_tiles, A.tiles_per_row, kTileF3, A.hop,
-            (kTileF3 - 1) * A.hop + A.n, [&](const float* slab, long long b, int f0) {
-              tile_path3(A, slab, win, tw1, tw2, pw4, wts, rng, f0, A.out + b * A.F * A.M, warp,
-                         lane, nw);
-            });
+  tile_loop<kReflect>(smem, lay.slab, A.sig, A.T, A.n_tiles, A.tiles_per_row, kTileF3, A.hop,
+                      (kTileF3 - 1) * A.hop + A.n, [&](const float* slab, long long b, int f0) {
+                        tile_path3(A, slab, win, tw1, tw2, pw4, wts, rng, f0,
+                                   A.out + b * A.F * A.M, warp, lane, nw);
+                      }, A.half);
 }
 
 // ------------------------------------------------------------ host side ----
 // Launch shape.  Paths 1 and 3: path1_warps (path3_warps) warps, a
 // persistent grid of every resident block.  Path 2: 256 threads, G frames a
 // block, one block per G frames.  The occupancy query behind blocks_per_sm
-// runs once per shape (residency in fft_regs.cuh).
-template <int NC>
+// runs once per shape and kernel (residency in fft_regs.cuh).  kReflect:
+// the kernels that stage the reflect pad's edges (ct_mel_launch picks it).
+template <int NC, bool kReflect>
 cudaError_t plan1(Plan& p, bool ragged, long long n_tiles) {
   return ragged ? persistent_grid(p, ct_mel_ragged_kernel<NC>, n_tiles)
-                : persistent_grid(p, ct_mel_fft_kernel<NC>, n_tiles);
+                : persistent_grid(p, ct_mel_fft_kernel<NC, kReflect>, n_tiles);
 }
 
 // ragged: path 1 runs ct_mel_ragged_kernel (paths 2 and 3 run every frame)
+template <bool kReflect>
 cudaError_t make_plan(Plan& p, int n, int hop, int kmax, int nnz, int m, int B, int F, int G,
                       bool ragged = false) {
   p.warps = path1_warps(n, hop, kmax, nnz, m);
@@ -511,7 +543,8 @@ cudaError_t make_plan(Plan& p, int n, int hop, int kmax, int nnz, int m, int B, 
   }
   if (p.path == 3) {
     p.smem = Layout3(n, hop, kmax, nnz, m, p.warps).total * (long long)sizeof(float);
-    return persistent_grid(p, ct_mel_fft200_kernel, (long long)B * ((F + kTileF3 - 1) / kTileF3));
+    return persistent_grid(p, ct_mel_fft200_kernel<kReflect>,
+                           (long long)B * ((F + kTileF3 - 1) / kTileF3));
   }
   if (p.path == 2) {
     p.warps = kThreads / 32;
@@ -519,26 +552,57 @@ cudaError_t make_plan(Plan& p, int n, int hop, int kmax, int nnz, int m, int B, 
     p.grid = ((long long)B * F + G - 1) / G;
     if (p.smem > kMaxSmem) return cudaErrorInvalidValue;
     int sms = 0;
-    return residency(ct_mel_kernel, p.warps, p.smem, p.blocks_per_sm, sms);
+    return residency(ct_mel_kernel<kReflect>, p.warps, p.smem, p.blocks_per_sm, sms);
   }
   p.smem = Layout1(n, hop, kmax, nnz, m, p.warps).total * (long long)sizeof(float);
   const long long n_tiles = (long long)B * ((F + kTileF - 1) / kTileF);
   switch (n / 2) {
-    case 64: return plan1<64>(p, ragged, n_tiles);
-    case 128: return plan1<128>(p, ragged, n_tiles);
-    case 256: return plan1<256>(p, ragged, n_tiles);
-    case 512: return plan1<512>(p, ragged, n_tiles);
-    default: return plan1<1024>(p, ragged, n_tiles);
+    case 64: return plan1<64, kReflect>(p, ragged, n_tiles);
+    case 128: return plan1<128, kReflect>(p, ragged, n_tiles);
+    case 256: return plan1<256, kReflect>(p, ragged, n_tiles);
+    case 512: return plan1<512, kReflect>(p, ragged, n_tiles);
+    default: return plan1<1024, kReflect>(p, ragged, n_tiles);
   }
 }
 
-template <int NC>
+template <int NC, bool kReflect>
 cudaError_t launch1(const Args& A, const Plan& p, cudaStream_t stream) {
   if (A.used)
     ct_mel_ragged_kernel<NC><<<(unsigned)p.grid, p.warps * 32, (size_t)p.smem, stream>>>(A);
   else
-    ct_mel_fft_kernel<NC><<<(unsigned)p.grid, p.warps * 32, (size_t)p.smem, stream>>>(A);
+    ct_mel_fft_kernel<NC, kReflect><<<(unsigned)p.grid, p.warps * 32, (size_t)p.smem, stream>>>(A);
   return cudaGetLastError();
+}
+
+// The plan and the launch of ct_mel_launch's checked arguments (A's tile
+// counts still unset), with the kernels of kReflect.
+template <bool kReflect>
+cudaError_t plan_and_launch(Args A, int B, int m_odd, int n4, int has2, int G, cudaStream_t st) {
+  Plan p;
+  const cudaError_t e =
+      make_plan<kReflect>(p, A.n, A.hop, A.kmax, A.nnz, A.M, B, A.F, G, A.used != nullptr);
+  if (e != cudaSuccess) return e;
+  if (p.path == 2) {
+    ct_mel_kernel<kReflect><<<(unsigned)p.grid, kThreads, (size_t)p.smem, st>>>(
+        A.sig, A.win, A.tw, A.wpack, A.ranges, A.out, A.T, A.F, (long long)B * A.F, A.hop, A.n,
+        m_odd, n4, has2, A.kmax, A.nnz, A.M, G, A.half);
+    return cudaGetLastError();
+  }
+  if (p.path == 3) A.used = nullptr;
+  const int tile_f = p.path == 3 ? kTileF3 : kTileF;
+  A.tiles_per_row = (A.F + tile_f - 1) / tile_f;
+  A.n_tiles = (long long)B * A.tiles_per_row;
+  if (p.path == 3) {
+    ct_mel_fft200_kernel<kReflect><<<(unsigned)p.grid, p.warps * 32, (size_t)p.smem, st>>>(A);
+    return cudaGetLastError();
+  }
+  switch (A.n / 2) {
+    case 64: return launch1<64, kReflect>(A, p, st);
+    case 128: return launch1<128, kReflect>(A, p, st);
+    case 256: return launch1<256, kReflect>(A, p, st);
+    case 512: return launch1<512, kReflect>(A, p, st);
+    default: return launch1<1024, kReflect>(A, p, st);
+  }
 }
 
 }  // namespace
@@ -565,7 +629,7 @@ extern "C" int ct_mel_plan(int n, int hop, int kmax, int nnz, int M, int B, int 
                            long long* info) {
   if (B <= 0 || F <= 0 || G <= 0) return (int)cudaErrorInvalidValue;
   Plan p;
-  const cudaError_t e = make_plan(p, n, hop, kmax, nnz, M, B, F, G);
+  const cudaError_t e = make_plan<false>(p, n, hop, kmax, nnz, M, B, F, G);
   if (e != cudaSuccess) return (int)e;
   info[0] = p.path;
   info[1] = p.warps;
@@ -575,7 +639,10 @@ extern "C" int ct_mel_plan(int n, int hop, int kmax, int nnz, int M, int B, int 
   return 0;
 }
 
-// sig (B, T) centre-padded, win (n,), tw (n, 2) = (cos, sin)(2 pi j / n),
+// sig (B, T) centre-padded where half is 0; where half > 0 (not with used;
+// T > half) the rows unpadded, read as if centre-padded by half samples on
+// each side in numpy's reflect mode, the kernel staging the reflection
+// itself.  win (n,), tw (n, 2) = (cos, sin)(2 pi j / n),
 // wpack (nnz,) each filter's nonzero weights in turn, ranges (M, 3) int32
 // (lo, hi, offset into wpack) with hi <= kmax <= n/2 + 1, out (B, F, M):
 // contiguous on the current device.  n/2 = m_odd * 4^n4 * 2^has2 with
@@ -588,7 +655,7 @@ extern "C" int ct_mel_launch(const float* sig, const float* win, const float* tw
                              const float* wpack, const int* ranges, float* out,
                              const long long* used, int B,
                              long long T, int F, int hop, int n, int m_odd, int n4,
-                             int has2, int kmax, int nnz, int M, int G, void* stream) {
+                             int has2, int kmax, int nnz, int M, int G, int half, void* stream) {
   long long prod = m_odd;
   for (int s = 0; s < n4; ++s) prod *= 4;
   if (has2) prod *= 2;
@@ -596,19 +663,9 @@ extern "C" int ct_mel_launch(const float* sig, const float* win, const float* tw
   const long long blocks = (n_frames + G - 1) / G;
   if (B <= 0 || F <= 0 || G <= 0 || hop <= 0 || n % 2 || m_odd % 2 == 0 ||
       prod != n / 2 || kmax > n / 2 + 1 || nnz < 0 || M <= 0 ||
-      (long long)(F - 1) * hop + n > T || G > kThreads || (G & (G - 1)) ||
-      blocks > 0x7fffffffLL)
+      (long long)(F - 1) * hop + n > T + 2LL * half || G > kThreads || (G & (G - 1)) ||
+      blocks > 0x7fffffffLL || half < 0 || (half && (T <= half || used)))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  Plan p;
-  cudaError_t e = make_plan(p, n, hop, kmax, nnz, M, B, F, G, used != nullptr);
-  if (e != cudaSuccess) return (int)e;
-  if (p.path == 2) {
-    ct_mel_kernel<<<(unsigned)p.grid, kThreads, (size_t)p.smem, st>>>(
-        sig, win, reinterpret_cast<const float2*>(tw), wpack, ranges, out, T, F, n_frames,
-        hop, n, m_odd, n4, has2, kmax, nnz, M, G);
-    return (int)cudaGetLastError();
-  }
   Args A;
   A.sig = sig;
   A.win = win;
@@ -616,28 +673,18 @@ extern "C" int ct_mel_launch(const float* sig, const float* win, const float* tw
   A.wpack = wpack;
   A.ranges = ranges;
   A.out = out;
-  A.used = p.path == 1 ? used : nullptr;
+  A.used = used;
   A.T = T;
   A.F = F;
-  const int tile_f = p.path == 3 ? kTileF3 : kTileF;
-  A.tiles_per_row = (F + tile_f - 1) / tile_f;
-  A.n_tiles = (long long)B * A.tiles_per_row;
   A.hop = hop;
   A.n = n;
   A.kmax = kmax;
   A.nnz = nnz;
   A.M = M;
-  if (p.path == 3) {
-    ct_mel_fft200_kernel<<<(unsigned)p.grid, p.warps * 32, (size_t)p.smem, st>>>(A);
-    return (int)cudaGetLastError();
-  }
-  switch (n / 2) {
-    case 64: return (int)launch1<64>(A, p, st);
-    case 128: return (int)launch1<128>(A, p, st);
-    case 256: return (int)launch1<256>(A, p, st);
-    case 512: return (int)launch1<512>(A, p, st);
-    default: return (int)launch1<1024>(A, p, st);
-  }
+  A.half = half;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(half ? plan_and_launch<true>(A, B, m_odd, n4, has2, G, st)
+                    : plan_and_launch<false>(A, B, m_odd, n4, has2, G, st));
 }
 
 extern "C" const char* ct_mel_error_string(int e) {

@@ -20,11 +20,15 @@ block, for every other even n.
 
 :func:`ct_mel` launches the kernel for a CUDA tensor and runs
 :func:`ct_mel_plain` for a CPU tensor; it never falls back from one to the
-other.  ``ct_mel.launches`` counts kernel launches, and the module's
-``path_launches[p].launches`` those that took path p (1, 2, 3), kept off
-the wrapper so that a check which swaps the wrapper leaves them in place;
-:func:`path_counts` reads them.  ``utils/graphs.py`` re-adds both per
-replay.
+other.  Under a centred config in reflect mode it hands the kernel the
+caller's rows unpadded, and the kernel stages the pad's edges where it
+reads them (``half`` of :func:`launch`): no pad launch and no padded copy.
+``ct_mel.launches`` counts kernel launches, the module's
+``path_launches[p].launches`` those that took path p (1, 2, 3) and
+``reflect_launches.launches`` those that staged the reflection, all kept
+off the wrapper so that a check which swaps the wrapper leaves them in
+place; :func:`path_counts` reads the paths'.  ``utils/graphs.py`` re-adds
+them per replay.
 """
 
 from __future__ import annotations
@@ -223,7 +227,7 @@ def _lib() -> ctypes.CDLL:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the argument and result types of the C interface."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ct_mel_launch.argtypes = [p, p, p, p, p, p, p, i, ll] + [i] * 10 + [p]
+    lib.ct_mel_launch.argtypes = [p, p, p, p, p, p, p, i, ll] + [i] * 11 + [p]
     lib.ct_mel_launch.restype = i
     lib.ct_mel_plan.argtypes = [i] * 8 + [ctypes.POINTER(ll)]
     lib.ct_mel_plan.restype = i
@@ -257,22 +261,27 @@ def launch_plan(cfg: FeatureConfig, batch: int, frames: int) -> dict:
 
 
 def _launch(lib: ctypes.CDLL, x: torch.Tensor, cfg: FeatureConfig, out: torch.Tensor,
-            stream: int, used: Optional[torch.Tensor] = None) -> int:
-    """One launch of the kernel in ``lib`` on x (B, T), centre-padded, into
-    out (B, F, M), both contiguous float32 on the kernel's device, F > 0;
+            stream: int, used: Optional[torch.Tensor] = None, half: int = 0) -> int:
+    """One launch of the kernel in ``lib`` on x (B, T), centre-padded (or,
+    ``half`` > 0, read as reflect-padded by ``half`` on each side: :func:`launch`),
+    into out (B, F, M), both contiguous float32 on the kernel's device, F > 0;
     ``used``, None or (B,) contiguous int64 there, the frames of each row
     that are needed (:func:`ct_mel`).  Returns the C interface's error code."""
     c = _kernel_tensors(cfg, x.device)
     return lib.ct_mel_launch(x.data_ptr(), *c["tables"], out.data_ptr(),
                              None if used is None else used.data_ptr(), x.shape[0], x.shape[1],
-                             out.shape[1], *c["sizes"], stream)
+                             out.shape[1], *c["sizes"], half, stream)
 
 
 def ct_mel(signal: torch.Tensor, cfg: FeatureConfig,
            used: Optional[torch.Tensor] = None) -> torch.Tensor:
     """librosa mel power spectrogram, (..., T) -> (..., F, M) frame-major,
     centre padding included.  A CUDA tensor launches the kernel (and counts
-    the launch); a CPU tensor runs :func:`ct_mel_plain`.
+    the launch); a CPU tensor runs :func:`ct_mel_plain`.  On the card a
+    centred config in reflect mode, without ``used``, of T > n_fft // 2
+    samples (the reflection folds once) launches on the unpadded rows with
+    the kernel staging the pad's edges, F = 1 + T // hop; every other
+    centred call pads first (:func:`..framing.center_pad`).
 
     ``used``, (...,) int64 on the signal's device, the frames of each row
     that the caller needs (ragged rows padded to the longest): path 1 then
@@ -286,10 +295,11 @@ def ct_mel(signal: torch.Tensor, cfg: FeatureConfig,
     if signal.dtype != torch.float32:
         raise TypeError(f"the CT mel kernel takes float32, got {signal.dtype}")
     n, hop, m = cfg.fft_points, cfg.frame_step, cfg.num_filters
-    x = center_pad(signal, cfg)
+    half = staged_half(signal, cfg, used)
+    x = signal if half else center_pad(signal, cfg)
     lead, t = x.shape[:-1], x.shape[-1]
     x = x.reshape(-1, t).contiguous()
-    count = max(1 + (t - n) // hop, 0)
+    count = max(1 + (t + 2 * half - n) // hop, 0)
     out = torch.empty((x.shape[0], count, m), dtype=torch.float32, device=x.device)
     if count == 0 or x.shape[0] == 0:
         return out.reshape(lead + out.shape[1:])
@@ -300,25 +310,43 @@ def ct_mel(signal: torch.Tensor, cfg: FeatureConfig,
         used = used.contiguous()
     guard, stream = launch_stream(x.device)
     with guard:
-        launch(x, cfg, out, stream, used)
+        launch(x, cfg, out, stream, used, half)
     return out.reshape(lead + out.shape[1:])
 
 
+def staged_half(signal: torch.Tensor, cfg: FeatureConfig,
+                used: Optional[torch.Tensor] = None) -> int:
+    """The centre pad's half-width that the kernel stages itself for
+    ``signal`` (..., T) under ``cfg`` (:func:`ct_mel` on the card): n_fft //
+    2 for a centred config in reflect mode, without ``used``, of T > n_fft //
+    2 (the reflection folds once); else 0, and the rows are padded first."""
+    half = cfg.fft_points // 2
+    return (half if cfg.center and cfg.pad_mode == "reflect" and used is None
+            and signal.shape[-1] > half else 0)
+
+
 def launch(x: torch.Tensor, cfg: FeatureConfig, out: torch.Tensor, stream: int,
-           used: Optional[torch.Tensor] = None) -> None:
-    """One launch of the kernel on x (B, T), centre-padded, into out (B, F,
-    M), F > 0, and ``used`` (B,) or None (:func:`ct_mel`), contiguous on the
-    current device; raises on the C interface's error and counts the launch
-    (``ct_mel.launches``, ``path_launches``)."""
+           used: Optional[torch.Tensor] = None, half: int = 0) -> None:
+    """One launch of the kernel on x (B, T) into out (B, F, M), F > 0, and
+    ``used`` (B,) or None (:func:`ct_mel`), contiguous on the current
+    device: x centre-padded where ``half`` is 0; else unpadded, T > half and
+    no ``used``, its frames read as if padded by ``half`` samples on each
+    side in reflect mode, the kernel staging the reflection.  Raises on the
+    C interface's error and counts the launch (``ct_mel.launches``,
+    ``path_launches``, and ``reflect_launches`` where ``half``)."""
     lib = _lib()
-    _check(lib, _launch(lib, x, cfg, out, stream, used), "ct_mel_launch")
+    _check(lib, _launch(lib, x, cfg, out, stream, used, half), "ct_mel_launch")
     ct_mel.launches += 1
     path_launches[path_for(cfg)].launches += 1
+    if half:
+        reflect_launches.launches += 1
 
 
 ct_mel.launches = 0
 # launches by path, each counted as a wrapper's ``.launches`` is
 path_launches = {p: types.SimpleNamespace(launches=0) for p in (1, 2, 3)}
+# launches that staged the reflect pad themselves, counted the same way
+reflect_launches = types.SimpleNamespace(launches=0)
 
 
 def path_counts() -> dict:

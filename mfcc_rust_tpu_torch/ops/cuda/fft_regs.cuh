@@ -383,6 +383,40 @@ __device__ __forceinline__ void stage_tile(float* slab, const float* x, int avai
   for (int i = avail + threadIdx.x; i < len; i += blockDim.x) s[i] = 0.f;
 }
 
+// The head of a tile that starts at sample x - back of its row, before the
+// row's start where back exceeds x's place in it: the misalignment of that
+// virtual sample's address, so it and its slot agree modulo 16 bytes as
+// tile_head's do.
+__device__ __forceinline__ int tile_head(const float* x, int back) {
+  return (int)((((uintptr_t)x >> 2) - (uintptr_t)back) & 3);
+}
+
+// stage_tile of a row of T samples that is centre-padded by half on each
+// side in numpy's reflect mode, without the padded copy: the len virtual
+// samples p = v0 ... v0 + len - 1 (p < 0 reads row[-p], p >= T reads
+// row[2 T - 2 - p], zeros from T + half on) go to slab + head + (p - v0),
+// head = tile_head(row + v0).  The row's own samples take stage_tile's
+// 16-byte copies; the reflected ones, at most half on each side (T > half,
+// so a reflection folds once), 4-byte copies.  Every thread of the block
+// takes part.
+__device__ __forceinline__ void stage_reflect(float* slab, const float* row, long long T,
+                                              long long v0, int len, int half) {
+  const int head = tile_head(row, (int)-v0);
+  float* s = slab + head;
+  // v0 < T and v0 + len > 0 (len >= 2 half, v0 >= -half): lo < hi
+  const long long end = v0 + len;
+  const long long lo = v0 > 0 ? v0 : 0, hi = end < T ? end : T;
+  const long long rend = end < T + half ? end : T + half;
+  for (long long p = v0 + threadIdx.x; p < 0; p += blockDim.x) cp_async4(s + (p - v0), row - p);
+  // the row's own samples: stage_tile from the slot of sample lo, which
+  // lies head + (lo - v0) floats into the slab, a multiple of 4 floats past
+  // tile_head(row + lo)
+  stage_tile(s + (lo - v0) - tile_head(row + lo), row + lo, (int)(hi - lo), (int)(hi - lo));
+  for (long long p = hi + threadIdx.x; p < rend; p += blockDim.x)
+    cp_async4(s + (p - v0), row + (2 * T - 2 - p));
+  for (long long p = rend + threadIdx.x; p < end; p += blockDim.x) s[p - v0] = 0.f;
+}
+
 // -------------------------------------------------- persistent tile loop ----
 // The grid walks n_tiles tiles persistently.  Tile t is row b = t /
 // tiles_per_row, frames f0 = (t % tiles_per_row) * tile_f onward: the len
@@ -390,11 +424,14 @@ __device__ __forceinline__ void stage_tile(float* slab, const float* x, int avai
 // into one of two slabs of slab_floats at smem, the next tile's copy in
 // flight while body(slab, b, f0) works on this one (slab points at the
 // tile's first sample).  The only block barriers are the two per tile
-// around the slab.  Every thread of the block calls it.
-template <class Body>
+// around the slab.  Every thread of the block calls it.  kReflect: row b
+// holds T samples that the frames read centre-padded by half on each side
+// in reflect mode (stage_reflect), so the tile's samples start at f0*hop -
+// half of the row and its zeros at T + half; T > half.
+template <bool kReflect = false, class Body>
 __device__ __forceinline__ void tile_loop(float* smem, long long slab_floats, const float* sig,
                                           long long T, long long n_tiles, int tiles_per_row,
-                                          int tile_f, int hop, int len, Body body) {
+                                          int tile_f, int hop, int len, Body body, int half = 0) {
   auto tile_x = [&](long long t, long long& b, int& f0) {
     b = t / tiles_per_row;
     f0 = (int)(t - b * tiles_per_row) * tile_f;
@@ -404,8 +441,13 @@ __device__ __forceinline__ void tile_loop(float* smem, long long slab_floats, co
     long long b;
     int f0;
     const float* x = tile_x(t, b, f0);
-    const long long left = T - (long long)f0 * hop;
-    stage_tile(smem + buf * slab_floats, x, (int)(left < len ? left : len), len);
+    if constexpr (kReflect) {
+      stage_reflect(smem + buf * slab_floats, sig + b * T, T, (long long)f0 * hop - half, len,
+                    half);
+    } else {
+      const long long left = T - (long long)f0 * hop;
+      stage_tile(smem + buf * slab_floats, x, (int)(left < len ? left : len), len);
+    }
   };
 
   long long t = blockIdx.x;
@@ -420,7 +462,10 @@ __device__ __forceinline__ void tile_loop(float* smem, long long slab_floats, co
     long long b;
     int f0;
     const float* x = tile_x(t, b, f0);
-    body(smem + cur * slab_floats + tile_head(x), b, f0);
+    if constexpr (kReflect)
+      body(smem + cur * slab_floats + tile_head(x, half), b, f0);
+    else
+      body(smem + cur * slab_floats + tile_head(x), b, f0);
     __syncthreads();  // every warp is done with this slab before it refills
     cur ^= 1;
   }

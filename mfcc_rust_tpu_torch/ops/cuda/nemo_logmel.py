@@ -192,7 +192,8 @@ def _launch_finish(power: torch.Tensor, lens: torch.Tensor, seq: torch.Tensor,
 
 def nemo_direct(signal: torch.Tensor, lengths: torch.Tensor, cfg: FeatureConfig) -> tuple:
     """NeMo's features of (..., T) float32 audio whose rows hold ``lengths``
-    (...,) int64 samples on its device, under ``cfg`` uncentred (K2's), as
+    (...,) int64 samples on its device, under ``cfg`` (centred or not: the
+    prologue writes the zero pad and K2 reads the padded rows uncentred), as
     ``api.log_mel_spectrogram_nemo``'s direct path takes them: ((..., M, 1
     + T // hop) float32, the (...,) int64 frame counts).  On the card, the
     launches of :func:`nemo_prologue` (writing each row's frame count),

@@ -120,7 +120,8 @@ def _kernels() -> tuple:
     """The kernel wrappers whose launches a graph counts (K1, K2, the
     speechpy edge sums, the speechpy heads, the Whisper finish, the NeMo
     prologue and finish), then K2's launches by path (``ct_mel``'s
-    ``path_launches``, 1, 2, 3): the modules' own, whatever a check puts in
+    ``path_launches``, 1, 2, 3) and those that staged the reflect pad
+    (``reflect_launches``): the modules' own, whatever a check puts in
     their place meanwhile (it does so under :func:`disabled`)."""
     if not _wrappers:
         from ..ops.cuda import (ct_mel, nemo_logmel, speechpy_edges, speechpy_heads,
@@ -129,7 +130,7 @@ def _kernels() -> tuple:
         _wrappers.extend((speechpy_mfcc.mfcc_fused, ct_mel.ct_mel, speechpy_edges.edge_sums,
                           speechpy_heads.heads, whisper_logmel.whisper_logmel,
                           nemo_logmel.nemo_prologue, nemo_logmel.nemo_finish,
-                          *ct_mel.path_launches.values()))
+                          *ct_mel.path_launches.values(), ct_mel.reflect_launches))
     return tuple(_wrappers)
 
 

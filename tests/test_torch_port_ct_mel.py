@@ -193,3 +193,61 @@ def test_autograd_function_matches_plain_grad():
     b = x.clone().requires_grad_(True)
     (PF.mel_spectrogram_librosa(b, cfg.replace(pallas="off")).transpose(-1, -2) * w).sum().backward()
     assert rel(a.grad, b.grad) <= 1e-4
+
+
+# ------------------------------------------------ the staged reflect pad --
+# (id, config, samples a row, used given, the half-width the kernel stages)
+_L80 = P.librosa_config(16000, n_fft=512, hop_length=160, n_mels=80)
+_WHISPER = P.librosa_config(16000, 400, 160, 400, 128)
+STAGED = [
+    ("librosa 80", _L80, 160_000, False, 256),
+    ("librosa 128", P.librosa_config(22050), 220_500, False, 1024),
+    ("Whisper", _WHISPER, 480_000, False, 200),
+    ("n/2 + 1 samples", _L80, 257, False, 256),
+    ("n/2 samples: folds twice", _L80, 256, False, 0),
+    ("constant mode", _L80.replace(pad_mode="constant"), 160_000, False, 0),
+    ("NeMo", P.librosa_config(16000, 512, 160, 400, 128).replace(
+        window="hann_sym", pad_mode="constant", preemphasis_cof=0.97), 160_000, False, 0),
+    ("uncentred", _L80.replace(center=False), 160_000, False, 0),
+    ("with used", _L80, 160_000, True, 0),
+]
+
+
+@pytest.mark.parametrize("name,cfg,t,with_used,want", STAGED, ids=[s[0] for s in STAGED])
+def test_kernel_stages_only_a_reflect_pad_that_folds_once(name, cfg, t, with_used, want):
+    """``staged_half``, the rule by which ``ct_mel`` on the card hands the
+    kernel the unpadded rows: a centred reflect-mode config without
+    ``used`` and more than n_fft // 2 samples; every other call pads
+    first."""
+    x = torch.zeros(2, t)
+    used = torch.zeros(2, dtype=torch.int64) if with_used else None
+    assert pk.staged_half(x, cfg, used) == want
+
+
+class _FakeLib:
+    """The C interface's stand-in: records each launch's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def ct_mel_launch(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def test_launch_passes_the_half_width_and_counts_the_staged_reflections(monkeypatch):
+    lib = _FakeLib()
+    monkeypatch.setattr(pk, "_lib", lambda: lib)
+    monkeypatch.setattr(pk.ct_mel, "launches", 0)
+    monkeypatch.setattr(pk.reflect_launches, "launches", 0)
+    for c in pk.path_launches.values():
+        monkeypatch.setattr(c, "launches", 0)
+    x = torch.zeros(2, 16_000)
+    out = torch.empty(2, 101, 80)
+    pk.launch(x, _L80, out, 0)
+    pk.launch(x, _L80, out, 0, None, 256)
+    (first, second) = lib.calls
+    assert (first[-2], second[-2]) == (0, 256) and first[-1] == second[-1] == 0
+    assert first[8:10] == second[8:10] == (16_000, 101)  # T unpadded, F
+    assert (pk.ct_mel.launches, pk.reflect_launches.launches) == (2, 1)
+    assert pk.path_counts()[1] == 2

@@ -213,6 +213,143 @@ def test_ct_mel_kernel_matches_plain_on_card(cuda_device, name, args, kw, shape)
         assert out.shape == (128, 0)
 
 
+# (name, librosa_config args, kwargs, rows, samples a row, K2's path): the
+# three direct K2 cells' shapes, the shortest rows K2 stages (n/2 + 1
+# samples), T % 4 of 1, 2 and 3 on each path, rows shorter than a frame
+# (each frame reads both pads) and an odd hop
+_WHISPER = ((16000, 400, 160, 400, 128), {})
+_L80 = ((16000,), dict(n_fft=512, hop_length=160, n_mels=80))
+_P2 = ((16000,), dict(n_fft=768, hop_length=192, n_mels=64))
+STAGED = [
+    ("whisper cell", *_WHISPER, 64, 480_000, 3),
+    ("librosa 80 cell", *_L80, 64, 160_000, 1),
+    ("librosa 128 cell", (22050,), {}, 32, 220_500, 1),
+    ("n/2 + 1, path 1", *_L80, 3, 257, 1),
+    ("n/2 + 1, path 2", *_P2, 3, 385, 2),
+    ("n/2 + 1, path 3", *_WHISPER, 3, 201, 3),
+    ("T%4=1, path 1", *_L80, 3, 16_001, 1),
+    ("T%4=2, path 1", (22050,), {}, 3, 22_050, 1),
+    ("T%4=3, path 1", *_L80, 3, 16_003, 1),
+    ("T%4=1, path 2", *_P2, 3, 16_001, 2),
+    ("T%4=2, path 2", *_P2, 3, 16_002, 2),
+    ("T%4=3, path 2", *_P2, 3, 16_003, 2),
+    ("T%4=1, path 3", *_WHISPER, 3, 16_001, 3),
+    ("T%4=2, path 3", *_WHISPER, 3, 16_002, 3),
+    ("T%4=3, path 3", *_WHISPER, 3, 16_003, 3),
+    ("frames across both pads", (22050,), {}, 2, 1_500, 1),
+    ("odd hop", (16000,), dict(n_fft=512, hop_length=161, n_mels=64), 2, 8_003, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,args,kw,rows,t,path", STAGED, ids=[c[0] for c in STAGED])
+def test_staged_reflect_pad_is_the_padded_launch_bit_for_bit_on_card(cuda_device, name, args, kw,
+                                                                     rows, t, path):
+    """``ct_mel`` under a centred reflect-mode config launches once on the
+    unpadded rows, the kernel staging the pad (``reflect_launches``), and
+    writes exactly what the centre pad and an uncentred launch write."""
+    from mfcc_rust_tpu_torch.ops.framing import center_pad
+
+    cfg = P.librosa_config(*args, **kw)
+    x = torch.from_numpy(np.random.default_rng(t).normal(0, 0.1, (rows, t)).astype(np.float32))
+    xd = x.to(cuda_device)
+    assert ck.path_for(cfg) == path and ck.staged_half(xd, cfg) == cfg.fft_points // 2
+    n0, r0 = ck.ct_mel.launches, ck.reflect_launches.launches
+    got = ck.ct_mel(xd, cfg)
+    torch.cuda.synchronize()
+    assert (ck.ct_mel.launches - n0, ck.reflect_launches.launches - r0) == (1, 1)
+    want = ck.ct_mel(center_pad(xd, cfg), cfg.replace(center=False))
+    assert ck.reflect_launches.launches - r0 == 1
+    assert tuple(got.shape) == (rows, 1 + t // cfg.frame_step, cfg.num_filters)
+    assert torch.equal(got, want), name
+    k = min(rows, 3)
+    assert rel(got[:k], ck.ct_mel_plain(xd[:k], cfg)) <= 1e-4, name
+
+
+# One direct call traced in a fresh process: in one process, after other
+# tests, a profiler session has kept only a call's last kernel (H100, torch
+# 2.11), so the traced calls run apart from the other tests.
+TRACE_CALL = """
+import json, sys
+import numpy as np, torch
+from torch.profiler import ProfilerActivity, profile
+import mfcc_rust_tpu_torch as P
+from mfcc_rust_tpu_torch import api as PA
+from mfcc_rust_tpu_torch.ops.cuda import ct_mel as ck
+name, shape, kw, on_card = json.loads(sys.argv[1])
+x = torch.from_numpy(np.random.default_rng(31).normal(0, 0.1, shape).astype(np.float32)).cuda()
+for k in on_card:
+    kw[k] = torch.tensor(kw[k], dtype=torch.int64, device="cuda")
+getattr(P, name)(x, **kw)
+torch.cuda.synchronize()
+r0, d0 = ck.reflect_launches.launches, PA.paths.read()["direct"]
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    getattr(P, name)(x, **kw)
+    torch.cuda.synchronize()
+device = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+          and not getattr(e, "is_user_annotation", False)]
+with profile(activities=[ProfilerActivity.CPU]) as prof:
+    getattr(P, name)(x, **kw)
+    torch.cuda.synchronize()
+print(json.dumps({"device": device, "host": [e.name for e in prof.events()],
+                  "reflect": ck.reflect_launches.launches - r0,
+                  "direct": PA.paths.read()["direct"] - d0}))
+"""
+
+
+def traced_call(name: str, shape: tuple, kw: dict, on_card: tuple = ()) -> dict:
+    """``P.<name>(x, **kw)`` on a seeded (shape) batch on the card, the
+    entries of ``kw`` named in ``on_card`` made int64 tensors on the card
+    first, in a fresh process: after a first call, the second call's device
+    events (every kernel, copy and set, all but the spans' annotations),
+    the third call's host events, and the direct calls and staged
+    reflections of the second and third together."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    arg = json.dumps([name, shape, kw, list(on_card)])
+    res = subprocess.run([sys.executable, "-c", TRACE_CALL, arg],
+                         cwd=root, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(sr=22050), _L80[1] | dict(sr=16000)],
+                         ids=["librosa 128", "librosa 80"])
+def test_direct_librosa_call_launches_no_pad_on_card(cuda_device, kw):
+    """The direct ``mel_spectrogram_librosa`` (one launch of K2) traces K2
+    and no ``reflection_pad1d``, and counts one staged reflection."""
+    got = traced_call("mel_spectrogram_librosa", (4, 44_100), kw)
+    assert not any("reflection_pad" in k for k in got["device"] + got["host"]), got
+    assert len(got["device"]) == 1 and "ct_mel" in got["device"][0], got["device"]
+    assert (got["reflect"], got["direct"]) == (2, 2)
+
+
+@pytest.mark.cuda
+def test_graphed_calls_replay_no_staged_reflection_on_card(cuda_device):
+    """A graphed librosa call (its fill writes the centre pad) launches K2
+    uncentred: each replay re-adds its K2 launch and no staged reflection;
+    each direct call counts one."""
+    x = torch.from_numpy(np.random.default_rng(32).normal(0, 0.1, (2, 16_000))
+                         .astype(np.float32)).to(cuda_device)
+    kw = _L80[1] | dict(sr=16000)
+    P.log_mel_spectrogram(x, **kw)  # the capture
+    torch.cuda.synchronize()
+    n0, r0 = ck.ct_mel.launches, ck.reflect_launches.launches
+    for _ in range(3):
+        P.log_mel_spectrogram(x, **kw)
+    torch.cuda.synchronize()
+    assert (ck.ct_mel.launches - n0, ck.reflect_launches.launches - r0) == (3, 0)
+    for _ in range(3):
+        P.mel_spectrogram_librosa(x, **kw)
+    torch.cuda.synchronize()
+    assert (ck.ct_mel.launches - n0, ck.reflect_launches.launches - r0) == (6, 3)
+
+
 @pytest.mark.cuda
 def test_librosa_heads_go_through_the_kernel_on_card(cuda_device):
     cfg = P.librosa_config()
@@ -829,9 +966,10 @@ def test_launches_are_counted_per_replay_on_card(graph_cache):
     assert (graphs.cache.captures - c0, graphs.cache.replays - r0) == (2, 4)
     g = list(graphs.cache._graphs.values())
     # (K1, K2, the edge sums, the heads, the Whisper finish, the NeMo
-    # prologue and finish, then K2 by path 1, 2, 3) a replay
-    assert sorted(e.launches for e in g) == [(0, 0, 1, 1, 0, 0, 0, 0, 0, 0),
-                                             (0, 1, 0, 0, 0, 0, 0, 1, 0, 0)]
+    # prologue and finish, then K2 by path 1, 2, 3, then K2's staged
+    # reflections: none, the graph's K2 reads the fill's padded rows) a replay
+    assert sorted(e.launches for e in g) == [(0, 0, 1, 1, 0, 0, 0, 0, 0, 0, 0),
+                                             (0, 1, 0, 0, 0, 0, 0, 1, 0, 0, 0)]
 
 
 @pytest.mark.cuda

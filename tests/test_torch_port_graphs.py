@@ -340,9 +340,9 @@ def test_tensor_cache_is_safe_across_threads():
 def test_launches_count_per_replay_and_captures_count_none(replayed):
     """A capture's counts are taken back and added per replay: the first
     call counts its warm-up's launch, each later call its replay's: K1's,
-    K2's (and K2's by path), the speechpy edge sums', the speechpy heads',
-    the Whisper finish's and the NeMo prologue's and finish's counters
-    alike."""
+    K2's (and K2's by path and its staged reflections), the speechpy edge
+    sums', the speechpy heads', the Whisper finish's and the NeMo
+    prologue's and finish's counters alike."""
     def fn(s):
         k1.mfcc_fused.launches += 1  # as the wrapper counts a launch
         ke.edge_sums.launches += 2
@@ -352,11 +352,12 @@ def test_launches_count_per_replay_and_captures_count_none(replayed):
         kn.nemo_finish.launches += 2
         k2.ct_mel.launches += 1
         k2.path_launches[3].launches += 1
+        k2.reflect_launches.launches += 1
         return s * 2.0
 
     k1.mfcc_fused.launches = k2.ct_mel.launches = ke.edge_sums.launches = kh.heads.launches = 0
     kw.whisper_logmel.launches = kn.nemo_prologue.launches = kn.nemo_finish.launches = 0
-    for c in k2.path_launches.values():
+    for c in (*k2.path_launches.values(), k2.reflect_launches):
         c.launches = 0
     x = torch.ones(4)
     for calls in (1, 2, 3):
@@ -367,11 +368,12 @@ def test_launches_count_per_replay_and_captures_count_none(replayed):
                 kn.nemo_finish.launches) == (calls, calls, 2 * calls, 3 * calls, 2 * calls,
                                              calls, 2 * calls)
         assert k2.path_counts() == {1: 0, 2: 0, 3: calls}
+        assert k2.reflect_launches.launches == calls
     (g,) = replayed._graphs.values()
-    assert g.launches == (1, 1, 2, 3, 2, 1, 2, 0, 0, 1) and g.graph.replays == 2
+    assert g.launches == (1, 1, 2, 3, 2, 1, 2, 0, 0, 1, 1) and g.graph.replays == 2
     k1.mfcc_fused.launches = k2.ct_mel.launches = ke.edge_sums.launches = kh.heads.launches = 0
     kw.whisper_logmel.launches = kn.nemo_prologue.launches = kn.nemo_finish.launches = 0
-    k2.path_launches[3].launches = 0
+    k2.path_launches[3].launches = k2.reflect_launches.launches = 0
 
 
 def test_a_failed_capture_raises_and_keeps_nothing(replayed):
@@ -764,6 +766,68 @@ def test_mel_spectrogram_librosa_of_one_k2_launch_runs_in_place_through_no_graph
         assert torch.equal(got, P.mel_spectrogram_librosa(torch.from_numpy(x), **kw,
                                                           device="cpu"))
     _close_librosa(got, japi.mel_spectrogram_librosa(x, **kw))
+
+
+# (entry point, keywords): the direct calls of K2 under a centred
+# reflect-mode config, the two librosa cells' and Whisper's
+K2_REFLECT_CALLS = [
+    ("mel_spectrogram_librosa", {"sr": 22050}),
+    ("mel_spectrogram_librosa", {"sr": 16000, "n_fft": 512, "hop_length": 160, "n_mels": 80}),
+    ("log_mel_spectrogram_whisper", {"n_mels": 128}),
+]
+
+
+@pytest.mark.parametrize("n", [8000, 7919])
+@pytest.mark.parametrize("name,kw", K2_REFLECT_CALLS, ids=["librosa128", "librosa80", "whisper"])
+def test_direct_k2_calls_pad_nothing_before_the_kernel(replayed, k2_lowering, name, kw, n):
+    """A direct K2 call hands K2 the caller's n samples and the centred
+    reflect-mode config, with ``api``'s centre pad made to raise: K2 stages
+    the pad itself (on the CPU its plain version pads).  It counts the
+    centre-padded length, and its answer is the eager call's, bit for
+    bit."""
+    x = torch.from_numpy(_base(n)[:2])
+    seen = []
+    real = k2.ct_mel
+
+    def spy(sig, cfg, used=None):
+        seen.append((sig.shape[-1], cfg.center, cfg.pad_mode))
+        return real(sig, cfg, used)
+
+    def no_pad(sig, cfg):
+        raise AssertionError("the signal was padded before K2")
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(k2, "ct_mel", spy)
+        mp.setattr(PA._framing, "center_pad", no_pad)
+        got = getattr(P, name)(x, **kw, device="cpu")
+    assert seen == [(n, True, "reflect")]
+    assert PA.paths.read() == {"direct": 1, "graphed": 0, "eager": 0}
+    half = kw.get("n_fft", 400 if "whisper" in name else 2048) // 2
+    assert bucketing.samples.read() == (2 * (n + 2 * half),) * 2
+    with graphs.disabled():
+        assert torch.equal(got, getattr(P, name)(x, **kw, device="cpu"))
+
+
+def test_direct_k1_and_nemo_calls_keep_their_pads(replayed, k1_lowering, k2_lowering):
+    """K1's direct call (uncentred) pads nothing and gets its config as it
+    is; NeMo's hands its launcher the unpadded rows and the centred
+    constant-mode config, and its prologue writes the zero pad (K2 then
+    reads the padded rows uncentred).  Both count the samples their kernels
+    frame."""
+    seen = []
+    real_nemo = kn.nemo_direct
+
+    def spy(sig, lengths, cfg):
+        seen.append((sig.shape[-1], cfg.pad_mode))
+        return real_nemo(sig, lengths, cfg)
+
+    k2_lowering.setattr(kn, "nemo_direct", spy)
+    x = torch.from_numpy(_base(8000)[:2])
+    P.log_mel_spectrogram_nemo(x, [8000, 5000], device="cpu")
+    assert seen == [(8000, "constant")]
+    P.mfcc(x, 16000, device="cpu")
+    assert PA.paths.read() == {"direct": 2, "graphed": 0, "eager": 0}
+    assert bucketing.samples.read() == (2 * (8000 + 512) + 2 * 8000,) * 2
 
 
 # (case, entry point, keywords, length, the path it takes): each as before

@@ -266,6 +266,73 @@ def test_tile_staging_gives_each_frame_its_samples(hop, t_extra):
         assert parities == {0, 1}
 
 
+def _stage_reflect(row_off, row, v0, length, half, slab_floats):
+    """stage_reflect of fft_regs.cuh on a row of T samples at float offset
+    row_off from a 16-byte boundary: virtual sample p of the reflect-padded
+    row (p < 0 reads row[-p], p >= T row[2T - 2 - p], zeros from T + half)
+    goes to head + p - v0, head = (row_off + v0) & 3; the row's own samples
+    through stage_tile (``_stage``) from a base a multiple of 4 floats into
+    the slab."""
+    t = row.size
+    head = (row_off + v0) & 3
+    slab = np.full(slab_floats, np.nan, np.float32)
+    end = v0 + length
+    lo, hi, rend = max(v0, 0), min(end, t), min(end, t + half)
+    assert v0 < t and lo < hi <= rend <= end
+    for p in range(v0, 0):
+        slab[head + p - v0] = row[-p]
+    base = head + (lo - v0) - ((row_off + lo) & 3)
+    assert base >= 0 and base % 4 == 0
+    sub, sub_head = _stage(row_off + lo, row[lo:], hi - lo, hi - lo, slab_floats - base)
+    slab[base + sub_head:base + sub_head + hi - lo] = sub[sub_head:sub_head + hi - lo]
+    for p in range(hi, rend):
+        slab[head + p - v0] = row[2 * t - 2 - p]
+    slab[head + rend - v0:head + end - v0] = 0.0
+    return slab, head
+
+
+# (n_fft, hop, frames a tile): the three cells' K2 paths (1, 1 and 3) and an odd hop
+REFLECT_TILES = [(2048, 512, TILE_F), (512, 160, TILE_F), (400, 160, 32), (512, 161, TILE_F)]
+
+
+@pytest.mark.parametrize("row_off", [0, 1], ids=["aligned", "offset 1"])
+@pytest.mark.parametrize("t_kind", ["n/2 + 1", "T%4=0", "T%4=1", "T%4=2", "T%4=3"])
+@pytest.mark.parametrize("n,hop,tile_f", REFLECT_TILES,
+                         ids=[f"{n}/{h}" for n, h, _ in REFLECT_TILES])
+def test_reflect_staging_gives_each_frame_the_padded_rows_samples(n, hop, tile_f, t_kind,
+                                                                  row_off):
+    """The kernel's reflect tile loop (kReflect) for B = 2 unpadded rows:
+    tile t is row t // tiles, frames f0 .. f0 + tile_f - 1 from virtual
+    sample f0 hop - n/2; every frame below F = 1 + T // hop reads exactly
+    what it reads from ``np.pad(row, n/2, "reflect")``, later frames read
+    zeros past T + n/2, the slab holds the tile, and path 2's folded index
+    is numpy's reflection."""
+    half = n // 2
+    t_len = half + 1 if t_kind == "n/2 + 1" else 4 * (n + 7 * hop) + int(t_kind[-1])
+    f = 1 + t_len // hop
+    sig = np.random.default_rng(n + hop + t_len).normal(size=(2, t_len)).astype(np.float32)
+    tiles = -(-f // tile_f)
+    length = (tile_f - 1) * hop + n
+    slab_floats = -(-(length + 3) // 4) * 4
+    p = np.arange(-half, t_len + half)
+    fold = np.where(p < 0, -p, np.where(p < t_len, p, 2 * t_len - 2 - p))
+    for b in range(2):
+        padded = np.pad(sig[b], half, mode="reflect")
+        assert np.array_equal(sig[b][fold], padded)  # path 2's index
+        for j in range(tiles):
+            f0 = j * tile_f
+            slab, head = _stage_reflect(row_off + b * t_len, sig[b], f0 * hop - half, length,
+                                        half, slab_floats)
+            assert not np.isnan(slab[head:head + length]).any()
+            for s in range(tile_f):
+                frame = slab[head + s * hop:head + s * hop + n]
+                if f0 + s < f:
+                    assert np.array_equal(frame, padded[(f0 + s) * hop:(f0 + s) * hop + n])
+                else:
+                    beyond = max(t_len + 2 * half - (f0 + s) * hop, 0)
+                    assert not frame[beyond:].any()
+
+
 # --------------------------------------------------------- the whole function --
 def _path1_form(x, cfg):
     """float64 numpy of path 1's function on x (B, T) uncentred: frames of

@@ -305,15 +305,17 @@ def test_nemo_call_is_the_prologue_k2_and_the_finish_on_card(graph_cache, n_mels
 
 @pytest.mark.cuda
 def test_nemo_call_launches_four_kernels_on_card(graph_cache):
-    from torch.profiler import ProfilerActivity, profile
+    """Traced in a fresh process (``tests/test_torch_port_cuda.traced_call``),
+    the lengths on the card as the cell passes them: the prologue, K2 (no
+    staged reflection: the prologue writes the zero pad) and the finish's
+    two kernels, and no other device work."""
+    from tests.test_torch_port_cuda import traced_call
 
-    x, lens = _ragged(8, 160_000, 47, torch.device("cuda"))
-    P.log_mel_spectrogram_nemo(x, lens)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        P.log_mel_spectrogram_nemo(x, lens)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    _, lens = _ragged(8, 160_000, 47, torch.device("cuda"))
+    got = traced_call("log_mel_spectrogram_nemo", (8, 160_000), {"lengths": lens.tolist()},
+                      on_card=("lengths",))
+    kernels = got["device"]
+    assert (got["reflect"], got["direct"]) == (0, 2)
     assert len(kernels) == 4, kernels
     assert [sum(k in n for n in kernels) for k in ("nemo_prologue", "ct_mel", "nemo_finish")] == \
         [1, 1, 2], kernels

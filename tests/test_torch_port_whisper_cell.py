@@ -266,3 +266,46 @@ def test_launches_per_call_reads_the_counters(monkeypatch):
 def test_launches_per_call_reads_none_from_a_program_without_the_kernel(monkeypatch):
     monkeypatch.setitem(sys.modules, "mfcc_rust_tpu_torch.ops.cuda.whisper_logmel", None)
     assert spec.metric("whisper.launches_per_call").read(None) is None
+
+
+# the share of K2's launches that staged the reflect pad: the Whisper cell's
+# reader and the librosa cells'
+REFLECT_SHARES = ("k2.reflect_share", "k2.reflect_share.host_paced")
+
+
+@pytest.mark.parametrize("name", REFLECT_SHARES)
+def test_reflect_share_reads_the_counters(monkeypatch, name):
+    from mfcc_rust_tpu_torch.ops.cuda import ct_mel as k2
+
+    read = spec.metric(name).read
+    monkeypatch.setattr(k2.ct_mel, "launches", 0)
+    monkeypatch.setattr(k2.reflect_launches, "launches", 0)
+    ctx = _trace_ctx()  # the counters, not the trace, are read
+    assert read(ctx) is None  # no launch
+    k2.ct_mel.launches, k2.reflect_launches.launches = 8, 6
+    assert read(ctx) == 0.75
+    k2.reflect_launches.launches = 8
+    assert read(ctx) == 1.0
+
+
+@pytest.mark.parametrize("name", REFLECT_SHARES)
+def test_reflect_share_reads_none_from_a_program_without_the_counter(monkeypatch, name):
+    from mfcc_rust_tpu_torch.ops.cuda import ct_mel as k2
+
+    monkeypatch.setattr(k2.ct_mel, "launches", 5)
+    # as at a commit before the counter: the module has no reflect_launches
+    monkeypatch.delattr(k2, "reflect_launches")
+    assert spec.metric(name).read(_trace_ctx()) is None
+
+
+@pytest.mark.parametrize("name,cells", [
+    ("k2.reflect_share", [CELL]),
+    ("k2.reflect_share.host_paced", ["librosa_mel128_22k.device_b32x10s",
+                                     "librosa_mel80_16k.device_b64x10s"])])
+def test_reflect_share_is_listed_for_the_direct_k2_cells(name, cells):
+    (m,) = [m for m in spec.benchmark()["per_layer"] if m["name"] == name]
+    assert m["workloads"] == cells and m["source"] == "program_counter"
+    assert m["moves"] == ("audio_s_per_s.host_paced" if name.endswith("host_paced")
+                          else "audio_s_per_s")
+    for c in cells:
+        assert name in {x["name"] for x in spec.cell(c).per_layer}

@@ -191,20 +191,20 @@ def test_whisper_call_is_the_pad_k2_and_the_finish_in_place_on_card(graph_cache,
 
 
 @pytest.mark.cuda
-def test_whisper_call_launches_at_most_four_kernels_on_card(graph_cache):
-    from torch.profiler import ProfilerActivity, profile
+def test_whisper_call_launches_at_most_four_kernels_on_card(cuda_device):
+    """The direct Whisper call is K2, which stages the centre pad's
+    reflection itself, and the finish's two kernels: no
+    ``reflection_pad1d``, one staged reflection a call (traced in a fresh
+    process, ``tests/test_torch_port_cuda.traced_call``)."""
+    from tests.test_torch_port_cuda import traced_call
 
-    x = torch.from_numpy(np.random.default_rng(26).normal(0, 0.1, (8, 480_000))
-                         .astype(np.float32)).cuda()
-    P.log_mel_spectrogram_whisper(x, n_mels=128)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        P.log_mel_spectrogram_whisper(x, n_mels=128)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    got = traced_call("log_mel_spectrogram_whisper", (8, 480_000), {"n_mels": 128})
+    kernels = got["device"]
     assert 0 < len(kernels) <= 4, kernels
     assert sum("ct_mel" in k for k in kernels) == 1, kernels
     assert sum("whisper_logmel" in k for k in kernels) == 2, kernels
+    assert not any("reflection_pad" in k for k in kernels + got["host"]), got
+    assert (got["reflect"], got["direct"]) == (2, 2)
 
 
 @pytest.mark.cuda
